@@ -1,0 +1,494 @@
+"""Group-by aggregation with skinner-compatible semantics.
+
+Re-implements the behavior of the reference's `skinner` dependency (Joyent
+node-skinner, #dragnet branch) as used via queryAggrStream
+(reference: lib/dragnet-impl.js:48-89):
+
+* decomposition fields are looked up with jsprim-pluck semantics,
+* bucketized fields must be JS numbers; anything else drops the record,
+* non-bucketized field values are keyed by String(v) — null -> "null",
+  missing -> "undefined", numbers -> their decimal string (this is why
+  `dn scan -b req.caller` shows "null"/"undefined" rows in the goldens),
+* buckets are tracked as ordinal indexes internally (`ordinalBuckets`),
+  but emitted points carry bucket-minimum values so that point streams
+  re-aggregate idempotently (the map/reduce wire-format seam),
+* emission order follows JS object property order: integer-like keys
+  ascending first, then string keys in insertion order.
+
+This host-side implementation is the semantic reference; the vectorized
+paths (engine.py and ops/kernels.py) compute identical (key -> weight)
+maps for columnar batches and merge into the same flat structure.
+"""
+
+import numpy as np
+
+from . import jsvalues as jsv
+
+
+def _unique_rows_2(a, b):
+    """np.unique(return_index/inverse) over 2 int64 columns when their
+    fused span overflows int64 (degenerate; row-wise unique instead)."""
+    mat = np.stack([a, b], axis=1)
+    _, first_idx, inv = np.unique(mat, axis=0, return_index=True,
+                                  return_inverse=True)
+    return first_idx, inv.reshape(-1), None
+
+
+def _unique_1d(vals, span):
+    """np.unique(return_index/inverse) for non-negative int64 codes in
+    [0, span): dense first-occurrence tables in O(n + span) when the
+    span is comparable to n, sort-based otherwise.  Returns
+    (first_idx, inv) with uniques implicitly in ascending code order —
+    exactly np.unique's contract."""
+    n = len(vals)
+    if 0 < span <= max(65536, 4 * n):
+        # reversed fancy assignment: duplicate indexes write last-wins,
+        # so feeding rows in reverse leaves each code's FIRST occurrence
+        first = np.full(span, -1, dtype=np.int64)
+        first[vals[::-1]] = np.arange(n - 1, -1, -1)
+        ids = np.flatnonzero(first >= 0)
+        rank = np.empty(span, dtype=np.int64)
+        rank[ids] = np.arange(len(ids))
+        return first[ids], rank[vals]
+    _, first_idx, inv = np.unique(vals, return_index=True,
+                                  return_inverse=True)
+    return first_idx, inv.reshape(-1)
+
+
+def _is_array_index(s):
+    if not s or not s.isdigit():
+        return False
+    if len(s) > 1 and s[0] == '0':
+        return False
+    return int(s) < 2 ** 32 - 1
+
+
+def coerce_bucket_value(v):
+    """The JS numeric coercion bucketized fields apply before
+    bucketize(): numeric strings coerce (the fixture data plants a
+    latency of "26" to pin this), anything non-coercible returns None
+    (drop the record).  THE single definition of the drop rule — the
+    per-record write() path, the DNC fast lane (_execute_keys), and
+    the stacked cross-shard path (index_query_stack) must agree on it
+    exactly, or their outputs diverge."""
+    if isinstance(v, str):
+        fv = jsv.to_number(v)
+        if fv != fv:
+            return None
+        return int(fv) if fv == int(fv) else fv
+    if not jsv.is_number(v):
+        return None
+    return v
+
+
+def js_key_order(keys):
+    """Order keys the way V8 enumerates own properties: array-index-like
+    keys ascending, then the rest in insertion order."""
+    ints = []
+    rest = []
+    for k in keys:
+        if isinstance(k, int):
+            ints.append(k)
+        elif _is_array_index(k):
+            ints.append(k)
+        else:
+            rest.append(k)
+    ints.sort(key=lambda k: int(k))
+    return ints + rest
+
+
+class Aggregator(object):
+    def __init__(self, query, stage=None):
+        self.decomps = [b['name'] for b in query.qc_breakdowns]
+        self.bucketizers = query.qc_bucketizers
+        self.stage = stage
+        # flat map: key tuple -> weight, insertion-ordered (Python
+        # dicts preserve it); the nested JS-object view is built once
+        # at walk time — one dict op per write instead of one per level
+        self.flat = {}
+        self.total = 0  # the no-decomposition case
+        self.nrecords = 0
+        # columnar result (set_columnar): code arrays + weights in
+        # first-occurrence order; high-cardinality scans skip the
+        # per-tuple flat-dict writes entirely
+        self._cols = None
+        self._cweights = None
+        self._cdec = None
+
+    def write(self, fields, value):
+        if self.stage is not None:
+            self.stage.bump('ninputs')
+        keys = []
+        for name in self.decomps:
+            v = jsv.pluck(fields, name)
+            if name in self.bucketizers:
+                v = coerce_bucket_value(v)
+                if v is None:
+                    if self.stage is not None:
+                        self.stage.warn(
+                            ValueError('value for field "%s" is not a '
+                                       'number' % name), 'nnonnumeric')
+                    return
+                keys.append(self.bucketizers[name].bucketize(v))
+            else:
+                keys.append(jsv.to_string(v))
+        self._add(tuple(keys), value)
+
+    def write_key(self, keys, value):
+        """Add a pre-computed key tuple (ordinals for bucketized fields,
+        strings otherwise) — the entry point for the vectorized path."""
+        self._add(tuple(keys), value)
+
+    def _add(self, keys, value):
+        if self._cols is not None:
+            # the columnar result is final; a write after conversion
+            # would be silently invisible to points()/rows()
+            raise RuntimeError(
+                'Aggregator.write after columnar conversion')
+        self.nrecords += 1
+        if not self.decomps:
+            self.total += value
+            return
+        flat = self.flat
+        flat[keys] = flat.get(keys, 0) + value
+
+    def set_columnar(self, cols, weights, decoders):
+        """Install the aggregate as parallel code columns instead of
+        per-tuple flat-dict writes (the vectorized engines' deferred
+        merge hands its unique tuples here): `cols` are int64 arrays in
+        first-occurrence order — engine string-dictionary codes for
+        plain columns, raw ordinals for bucketized ones — `weights`
+        float64, `decoders` one ('str', values_list) or ('ord', None)
+        per decomp.  points()/rows() then order and decode columnarly;
+        Python-object work becomes O(output tuples), once.
+
+        Requires an empty flat map (callers merge any flat prefix into
+        the columns first) and replaces it entirely."""
+        assert not self.flat and len(cols) == len(self.decomps)
+        self._cols = [np.asarray(c, dtype='int64') for c in cols]
+        if isinstance(weights, list):
+            self._cweights = weights     # exact Python numbers
+        else:
+            self._cweights = np.asarray(weights, dtype='float64')
+        self._cdec = decoders
+
+    # results at least this large take the columnar order/decode even
+    # when they arrived as per-tuple flat writes (the MT merge path):
+    # the nested-dict walk is the dominant cost of emitting a
+    # high-cardinality result
+    FLAT_COLUMNAR_MIN = 8192
+
+    def _flat_to_columnar(self):
+        """Convert the flat map to columns (first-occurrence order is
+        the dict's insertion order) so points()/rows() vectorize."""
+        cols = [[] for _ in self.decomps]
+        encs = []
+        decoders = []
+        for name in self.decomps:
+            if name in self.bucketizers:
+                encs.append(None)
+                decoders.append(('ord', None))
+            else:
+                vals = []
+                encs.append(({}, vals))
+                decoders.append(('str', vals))
+        weights = []
+        for keys, w in self.flat.items():
+            for col, enc, k in zip(cols, encs, keys):
+                if enc is None:
+                    col.append(k)
+                else:
+                    index, vals = enc
+                    c = index.get(k)
+                    if c is None:
+                        c = len(vals)
+                        index[k] = c
+                        vals.append(k)
+                    col.append(c)
+            weights.append(w)
+        self.flat = {}
+        self.set_columnar([np.asarray(c, dtype=np.int64) for c in cols],
+                          weights, decoders)
+
+    def _columnar_order(self):
+        """JS property-enumeration order over the columnar tuples,
+        vectorized.  Per level, a key's rank is (numeric-likeness,
+        int value) for array-index-like keys and (non-numeric,
+        first-occurrence-within-parent) otherwise — exactly the
+        js_key_order applied at every node of the nested walk.  The
+        within-parent arrival rank is the first occurrence index of
+        the (parent-group, code) pair in arrival order; a stable
+        lexsort over all levels reproduces the nested enumeration."""
+        n = len(self._cweights)
+        levels = []   # (numeric-class, sort-value) per level
+        gid = np.zeros(n, dtype=np.int64)
+        ngroups = 1
+        for codes, dec in zip(self._cols, self._cdec):
+            if dec[0] == 'ord':
+                # int keys: all numeric-class, ascending by value
+                nn = np.zeros(n, dtype=np.int8)
+                sk = codes
+                span = int(codes.max()) - int(codes.min()) + 1 \
+                    if n else 1
+                pair_code = codes - (int(codes.min()) if n else 0)
+            else:
+                values = dec[1]
+                # per-code classification (one pass over the dict)
+                cn = len(values)
+                knn = np.empty(cn, dtype=np.int8)
+                kval = np.zeros(cn, dtype=np.int64)
+                for i, s in enumerate(values):
+                    if isinstance(s, str) and _is_array_index(s):
+                        knn[i] = 0
+                        kval[i] = int(s)
+                    elif isinstance(s, int) and \
+                            not isinstance(s, bool):
+                        knn[i] = 0
+                        kval[i] = s
+                    else:
+                        knn[i] = 1
+                nn = knn[codes]
+                sk = kval[codes]
+                span = cn
+                pair_code = codes
+            # within-parent arrival rank for non-numeric keys: first
+            # occurrence of the (group, code) pair in arrival order
+            if ngroups * span < 2 ** 62:
+                pair = gid * span + pair_code
+                first_idx, inv = _unique_1d(pair, ngroups * span)
+            else:
+                first_idx, inv, _ = _unique_rows_2(gid, pair_code)
+            sk = np.where(nn == 1, first_idx[inv], sk)
+            levels.append((nn, sk))
+            gid = inv.reshape(-1)
+            ngroups = len(first_idx)
+        if not n:
+            return np.zeros(0, dtype=np.int64)
+        # lexsort: last key is primary -> feed levels deepest-first,
+        # each level's class before its value (value least significant)
+        seq = []
+        for nn, sk in reversed(levels):
+            seq.append(sk)
+            seq.append(nn)
+        return np.lexsort(tuple(seq))
+
+    def _columnar_cols(self, as_rows):
+        """Ordered, decoded output columns + weights (the shared tail
+        of points()/rows()/point_rows()): bucket-min values for
+        bucketized fields unless as_rows (rows carry ordinals)."""
+        order = self._columnar_order()
+        cols_out = []
+        for codes, dec, name in zip(self._cols, self._cdec,
+                                    self.decomps):
+            cc = codes[order]
+            if dec[0] == 'ord':
+                if as_rows:
+                    # rows carry ordinal form, not bucket-min
+                    cols_out.append(cc.tolist())
+                    continue
+                # bucket-min per unique ordinal (few), gathered through
+                # an object array so the exact Python values bucket_min
+                # returned (int vs float) survive to the output
+                bz = self.bucketizers[name]
+                uniq, inv = np.unique(cc, return_inverse=True)
+                mins = np.empty(len(uniq), dtype=object)
+                mins[:] = [bz.bucket_min(int(o)) for o in uniq]
+                cols_out.append(mins[inv.reshape(-1)].tolist())
+            else:
+                values = np.asarray(dec[1], dtype=object)
+                cols_out.append(values[cc].tolist())
+        if isinstance(self._cweights, list):
+            # flat->columnar conversion keeps the exact stored Python
+            # numbers (no f64 round trip)
+            ol = order.tolist()
+            weights = [self._cweights[i] for i in ol]
+        else:
+            wo = self._cweights[order]
+            if len(wo) and np.all(wo == np.floor(wo)) and \
+                    np.all(np.abs(wo) <= 2 ** 53):
+                # the usual case: all-integral weights convert at C
+                # speed instead of per-element is_integer() checks
+                weights = wo.astype(np.int64).tolist()
+            else:
+                weights = [int(w) if w.is_integer() else w
+                           for w in wo.tolist()]
+        return cols_out, weights
+
+    def _columnar_points(self, as_rows):
+        cols_out, weights = self._columnar_cols(as_rows)
+        n = len(weights)
+        if not as_rows and self.stage is not None:
+            # (rows() never bumped noutputs on the flat path either)
+            self.stage.bump('noutputs', n)
+        if as_rows:
+            if not cols_out:
+                return [list(t) for t in zip(weights)]
+            return [list(t) + [w]
+                    for t, w in zip(zip(*cols_out), weights)]
+        names = self.decomps
+        # literal dict construction (dict(zip(...)) costs ~2x here),
+        # and tuples built by a second zip pass rather than inside the
+        # comprehension (measured ~3x faster on CPython 3.12 at
+        # hundreds of thousands of tuples)
+        if len(names) == 1:
+            n0, = names
+            fields = [{n0: a} for a in cols_out[0]]
+        elif len(names) == 2:
+            n0, n1 = names
+            fields = [{n0: a, n1: b}
+                      for a, b in zip(cols_out[0], cols_out[1])]
+        elif len(names) == 3:
+            n0, n1, n2 = names
+            fields = [{n0: a, n1: b, n2: c} for a, b, c
+                      in zip(cols_out[0], cols_out[1], cols_out[2])]
+        else:
+            fields = [dict(zip(names, t)) for t in zip(*cols_out)]
+        return list(zip(fields, weights))
+
+    def _walk(self):
+        """Yield (keys_tuple, weight) in JS property-enumeration order.
+
+        The nested dict is materialized from the flat map here: each
+        level's key insertion order equals the first occurrence of any
+        tuple with that prefix, exactly as per-write nested insertion
+        produced."""
+        if not self.decomps:
+            yield ((), self.total)
+            return
+
+        root = {}
+        for keys, weight in self.flat.items():
+            node = root
+            for k in keys[:-1]:
+                nxt = node.get(k)
+                if nxt is None:
+                    nxt = {}
+                    node[k] = nxt
+                node = nxt
+            node[keys[-1]] = weight
+
+        def rec(node, depth, prefix):
+            if depth == len(self.decomps):
+                yield (tuple(prefix), node)
+                return
+            for k in js_key_order(node.keys()):
+                prefix.append(k)
+                for item in rec(node[k], depth + 1, prefix):
+                    yield item
+                prefix.pop()
+
+        for item in rec(root, 0, []):
+            yield item
+
+    def key_items(self):
+        """(keys_tuple, weight) pairs in first-occurrence order — the
+        transferable wire format of this aggregate (the index-shard
+        fan-out).  Replaying the pairs into another Aggregator for the
+        same query via write_key() merges byte-identically to
+        re-writing points():
+
+        * keys round-trip exactly (bucketize(bucket_min(i)) == i for
+          both bucketizers; non-bucketized keys are already to_string'd)
+        * emitting insertion order instead of points()'s _walk order
+          cannot change the receiver's output, because the receiver
+          re-walks: integer-like keys re-sort numerically regardless of
+          insertion order, and the relative first-occurrence order of
+          the remaining (string-like) keys is the same under both
+          emission orders.
+        """
+        assert self._cols is None, 'key_items after columnar conversion'
+        if not self.decomps:
+            return [((), self.total)]
+        return list(self.flat.items())
+
+    def merge_key_items(self, items):
+        """Bulk write_key: replay a key_items() transfer into this
+        aggregate (the index-shard fan-in's hot loop — one dict upsert
+        per pair, no per-pair method call)."""
+        if self._cols is not None:
+            raise RuntimeError(
+                'Aggregator.write after columnar conversion')
+        self.nrecords += len(items)
+        if not self.decomps:
+            for _, value in items:
+                self.total += value
+            return
+        flat = self.flat
+        get = flat.get
+        for keys, value in items:
+            flat[keys] = get(keys, 0) + value
+
+    def point_rows(self):
+        """The aggregate as columnar point blocks: (key columns,
+        weights) in points() emission order with bucketized fields
+        decoded to bucket-min values — exactly points() without the
+        per-point field dicts.  The index build consumes these blocks
+        directly (index_build_mt.write_index_blocks); stage counters
+        bump identically to points() so --counters output is
+        unchanged."""
+        if self._cols is None and \
+                len(self.flat) >= self.FLAT_COLUMNAR_MIN:
+            self._flat_to_columnar()
+        if self._cols is not None:
+            cols, weights = self._columnar_cols(False)
+            if self.stage is not None:
+                self.stage.bump('noutputs', len(weights))
+            return cols, weights
+        if not self.decomps:
+            if self.stage is not None:
+                self.stage.bump('noutputs')
+            return [], [self.total]
+        cols = [[] for _ in self.decomps]
+        weights = []
+        decs = [self.bucketizers.get(name) for name in self.decomps]
+        nout = 0
+        for keys, weight in self._walk():
+            for col, bz, k in zip(cols, decs, keys):
+                col.append(bz.bucket_min(k) if bz is not None else k)
+            weights.append(weight)
+            nout += 1
+        if self.stage is not None and nout:
+            self.stage.bump('noutputs', nout)
+        return cols, weights
+
+    def points(self):
+        """Aggregated points: fields carry bucket-min values for bucketized
+        fields (re-ingestable), strings otherwise."""
+        if self._cols is None and \
+                len(self.flat) >= self.FLAT_COLUMNAR_MIN:
+            self._flat_to_columnar()
+        if self._cols is not None:
+            return self._columnar_points(False)
+        out = []
+        if not self.decomps:
+            out.append(({}, self.total))
+            if self.stage is not None:
+                self.stage.bump('noutputs')
+            return out
+        for keys, weight in self._walk():
+            fields = {}
+            for name, k in zip(self.decomps, keys):
+                if name in self.bucketizers:
+                    fields[name] = self.bucketizers[name].bucket_min(k)
+                else:
+                    fields[name] = k
+            out.append((fields, weight))
+            if self.stage is not None:
+                self.stage.bump('noutputs')
+        return out
+
+    def rows(self):
+        """Flattened result rows in ordinal form: [key..., weight] per row,
+        or a bare total when there are no decompositions (what the
+        reference's SkinnerFlattener emits with resultsAsPoints:false)."""
+        if self._cols is None and \
+                len(self.flat) >= self.FLAT_COLUMNAR_MIN:
+            self._flat_to_columnar()
+        if self._cols is not None:
+            return self._columnar_points(True)
+        if not self.decomps:
+            return [self.total]
+        rv = []
+        for keys, weight in self._walk():
+            rv.append(list(keys) + [weight])
+        return rv

@@ -1,0 +1,248 @@
+"""Result rendering: points, raw JSON, pretty tables, DTrace-style
+histograms, gnuplot scripts.
+
+Byte-compatible with the reference CLI's output layer (bin/dn:924-1274):
+
+* points: one JSON line per aggregated point ({"fields":...,"value":N}),
+* raw: JSON.stringify of the flattened row array,
+* pretty tables: single-space-separated columns, uppercase headers, width =
+  max(header, cells), right-aligned numeric columns and VALUE,
+* histograms: shown when the *last* breakdown is an aggregation; groups of
+  rows keyed by the leading discrete values, each rendered as the
+  "value |@@@ count" distribution with one trailing empty bucket and
+  leading-bucket suppression for first-ordinal > 100,
+* gnuplot: single-breakdown plots, time-axis aware.
+"""
+
+from . import jsvalues as jsv
+
+
+def js_round(x):
+    import math
+    if x != x:  # NaN
+        return 0
+    return int(math.floor(x + 0.5))
+
+
+def print_points(points, out):
+    for fields, value in points:
+        out.write(jsv.json_stringify({'fields': fields, 'value': value})
+                  + '\n')
+
+
+def output_raw(rows, out):
+    out.write(jsv.json_stringify(rows) + '\n')
+
+
+def sort_rows(rows):
+    """dnOutputSortRows: column-major compare; strings lexicographic,
+    numbers numeric (reference: bin/dn:980-999)."""
+    import functools
+
+    def cmp(a, b):
+        for x, y in zip(a, b):
+            if isinstance(x, str):
+                d = -1 if x < y else (1 if x > y else 0)
+            else:
+                d = -1 if x < y else (1 if x > y else 0)
+            if d != 0:
+                return d
+        return 0
+
+    return sorted(rows, key=functools.cmp_to_key(cmp))
+
+
+def expand_values(query, rows):
+    """Replace bucket ordinals with bucket minima and date values with ISO
+    strings, except in a trailing aggregated column (handled by the
+    histogram printer).  (reference: bin/dn:1001-1027)"""
+    coldefs = query.qc_breakdowns
+    quantized = len(coldefs) > 0 and 'aggr' in coldefs[-1]
+    for j, c in enumerate(coldefs):
+        if quantized and j == len(coldefs) - 1:
+            continue
+        if c['name'] in query.qc_bucketizers:
+            b = query.qc_bucketizers[c['name']]
+            for row in rows:
+                row[j] = b.bucket_min(row[j])
+        if 'date' in c:
+            for row in rows:
+                row[j] = jsv.to_iso_string(float(row[j]) * 1000)
+    return rows
+
+
+def emit_table(columns, rows, out):
+    """node-tab emitTable: columns are dicts with label/width/align."""
+    cells = []
+    for col in columns:
+        label = col['label']
+        if col.get('align') == 'right':
+            cells.append(label.rjust(col['width']))
+        else:
+            cells.append(label.ljust(col['width']))
+    out.write(' '.join(cells) + '\n')
+    for row in rows:
+        cells = []
+        for j, col in enumerate(columns):
+            s = jsv.to_string(row[j])
+            if col.get('align') == 'right':
+                cells.append(s.rjust(col['width']))
+            else:
+                cells.append(s.ljust(col['width']))
+        out.write(' '.join(cells) + '\n')
+
+
+def output_pretty(query, rows, out):
+    """(reference: bin/dn:1032-1091)"""
+    rows = [list(r) if isinstance(r, list) else r for r in rows]
+    expand_values(query, [r for r in rows if isinstance(r, list)])
+    coldefs = query.qc_breakdowns
+    quantized = len(coldefs) > 0 and 'aggr' in coldefs[-1]
+    if quantized:
+        output_pretty_quantized(query, rows, out)
+        return
+
+    tablefields = []
+    for c in coldefs:
+        label = c['name'].upper()
+        tablefields.append({'label': label, 'width': len(label)})
+    tablefields.append({'label': 'VALUE', 'width': len('VALUE'),
+                        'align': 'right'})
+
+    if len(rows) == 0:
+        return
+
+    if len(rows) == 1 and jsv.is_number(rows[0]):
+        rows[0] = [rows[0]]
+
+    for row in rows:
+        assert len(row) == len(coldefs) + 1
+        for j in range(len(coldefs)):
+            if jsv.is_number(row[j]):
+                tablefields[j]['align'] = 'right'
+            width = len(jsv.to_string(row[j]))
+            if tablefields[j]['width'] < width:
+                tablefields[j]['width'] = width
+        width = len(jsv.to_string(row[-1]))
+        if tablefields[-1]['width'] < width:
+            tablefields[-1]['width'] = width
+
+    emit_table(tablefields, sort_rows(rows), out)
+
+
+def output_pretty_quantized(query, rows, out):
+    """(reference: bin/dn:1093-1164)"""
+    coldefs = query.qc_breakdowns
+    quantizedcol = coldefs[-1]
+    bucketizer = query.qc_bucketizers[quantizedcol['name']]
+    groups = []
+    last = None
+    distr = []
+
+    for row in rows:
+        discrete = row[:len(coldefs) - 1]
+        key = ', '.join(jsv.to_string(v) for v in discrete) + '\n'
+        if len(distr) > 0 and key != last:
+            groups.append((last, distr))
+        if key != last:
+            last = key
+            distr = []
+        distr.append([row[len(coldefs) - 1], row[len(coldefs)]])
+
+    if last is not None:
+        groups.append((last, distr))
+
+    groups.sort(key=lambda g: g[0])
+    for i, (label, d) in enumerate(groups):
+        if i != 0:
+            out.write('\n')
+        out.write(label)
+        print_distribution(out, d, bucketizer, 'date' in quantizedcol)
+
+
+def print_distribution(out, distr, bucketizer, asdate):
+    """(reference: bin/dn:1166-1199)"""
+    if asdate:
+        out.write('          ')
+    out.write('           ')
+    out.write('value  ------------- Distribution ------------- count\n')
+
+    if len(distr) == 0:
+        return
+
+    total = sum(d[1] for d in distr)
+
+    # Suppress leading empty buckets when values are large (timestamps).
+    # Starting at a negative first ordinal (negative lquantize values) is a
+    # deliberate divergence: the reference's loop never terminates there.
+    bi = distr[0][0] if (distr[0][0] > 100 or distr[0][0] < 0) else 0
+
+    di = 0
+    while di < len(distr) + 1:
+        if di == len(distr):
+            count = 0
+            di += 1
+        elif distr[di][0] == bi:
+            count = distr[di][1]
+            di += 1
+        else:
+            count = 0
+
+        normalized = js_round(40.0 * count / total) if total else 0
+        dots = '@' * normalized + ' ' * (40 - normalized)
+
+        mn = bucketizer.bucket_min(bi)
+        if asdate:
+            label = jsv.to_iso_string(mn * 1000)
+            out.write('  %24s |%s %s\n' % (label, dots,
+                                           jsv.to_string(count)))
+        else:
+            out.write('%16s |%s %s\n' % (jsv.to_string(mn), dots,
+                                         jsv.to_string(count)))
+        bi += 1
+
+
+def output_gnuplot(query, rows, dsname, out):
+    """(reference: bin/dn:1204-1274)"""
+    coldefs = query.qc_breakdowns
+    out.write('#\n')
+    out.write('# This is a GNUplot input file generated automatically\n')
+    out.write('# by the Dragnet "dn" command.  You can use it to create\n')
+    out.write('# a graph as a PNG image (as file "graph.png") using:\n')
+    out.write('#\n')
+    out.write('#     gnuplot < this_file > graph.png\n')
+    out.write('#\n')
+    out.write('set terminal png size 1200,600\n')
+    out.write('set title "' + dsname + '"\n')
+
+    if 'date' in coldefs[0]:
+        out.write('# Configure plots to use the x-axis as time.\n')
+        out.write('set xdata time;\n')
+        out.write('set timefmt "%s";\n')
+        out.write('set format x "%m/%d\\n%H:%MZ"\n')
+
+    out.write('# Add 10% padding at the top of the graph.\n')
+    out.write('set offsets graph 0, 0, 0.1, 0\n')
+    out.write('# The y-axis should always start at zero.\n')
+    out.write('set yrange [0:*]\n')
+    out.write('set ylabel "Count"\n')
+    out.write('set ytics\n')
+
+    assert len(coldefs) == 1
+    xquant = coldefs[0]['name'] in query.qc_bucketizers
+    if xquant:
+        out.write('plot "-" using 1:2 with linespoints title "Value"\n')
+    else:
+        out.write('plot "-" using (column(0)):2:xtic(1) '
+                  'with linespoints title "Value"\n')
+
+    for row in sort_rows([r for r in rows if isinstance(r, list)]):
+        if xquant:
+            b = query.qc_bucketizers[coldefs[0]['name']]
+            x = b.bucket_min(row[0])
+        else:
+            x = row[0]
+        y = row[1]
+        out.write('\t' + jsv.to_string(x) + ' ' + jsv.to_string(y) + '\n')
+
+    out.write('\te\n')

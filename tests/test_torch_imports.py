@@ -1,0 +1,84 @@
+"""The port stands alone: no module of dragnet_tpu_torch, nor
+chip_smoke.py, imports jax or the JAX package (checked statically, since
+the test process has jax loaded already), and no entry point falls back
+to the CPU when CUDA was asked for but is missing."""
+
+import ast
+import os
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ('jax', 'jaxlib', 'dragnet_tpu')
+
+
+def _port_sources():
+    out = [os.path.join(ROOT, 'chip_smoke.py')]
+    pkg = os.path.join(ROOT, 'dragnet_tpu_torch')
+    for dirpath, dirnames, filenames in os.walk(pkg):
+        dirnames[:] = [d for d in dirnames if not d.startswith(('_', '.'))]
+        out += [os.path.join(dirpath, f) for f in filenames
+                if f.endswith('.py')]
+    return sorted(out)
+
+
+def _imported_roots(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ''
+        elif isinstance(node, ast.Call) and \
+                getattr(node.func, 'id', None) == '__import__' and \
+                node.args and isinstance(node.args[0], ast.Constant):
+            yield str(node.args[0].value)
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    sources = _port_sources()
+    assert len(sources) > 15
+    bad = []
+    for path in sources:
+        for name in _imported_roots(path):
+            if name.split('.')[0] in FORBIDDEN:
+                bad.append((os.path.relpath(path, ROOT), name))
+    assert not bad
+
+
+def test_default_device_without_cuda_raises(monkeypatch, tmp_path):
+    from dragnet_tpu_torch.errors import DNError
+    from dragnet_tpu_torch.ops import resolve_device
+    from dragnet_tpu_torch import query as tquery
+    from dragnet_tpu_torch.datasource_file import DatasourceFile
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    for dev in (None, 'cuda', 'cuda:0'):
+        with pytest.raises(DNError, match='CUDA'):
+            resolve_device(dev)
+    assert resolve_device('cpu') == torch.device('cpu')
+    data = tmp_path / 'd.log'
+    data.write_text('{"host":"a"}\n')
+    ds = DatasourceFile({'ds_backend': 'file', 'ds_format': 'json',
+                         'ds_backend_config': {'path': str(data)}})
+    q = tquery.query_load({'breakdowns': [{'name': 'host'}]})
+    with pytest.raises(DNError, match='CUDA'):
+        ds.scan(q)
+    assert ds.scan(q, device='cpu').points == [({'host': 'a'}, 1)]
+
+
+def test_cli_scan_without_cuda_fails(monkeypatch, tmp_path, capsys):
+    from dragnet_tpu_torch import cli
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    monkeypatch.setenv('DRAGNET_CONFIG', str(tmp_path / 'rc'))
+    monkeypatch.delenv('DN_TORCH_DEVICE', raising=False)
+    data = tmp_path / 'd.log'
+    data.write_text('{"host":"a"}\n')
+    assert cli.main(['datasource-add', 'd', '--path=' + str(data)]) == 0
+    assert cli.main(['scan', '-b', 'host', 'd']) == 1
+    assert 'CUDA' in capsys.readouterr().err
+    monkeypatch.setenv('DN_TORCH_DEVICE', 'cpu')
+    assert cli.main(['scan', '-b', 'host', 'd']) == 0
+    assert 'a' in capsys.readouterr().out
