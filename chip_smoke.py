@@ -1,17 +1,29 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch/CUDA port (dragnet_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--records N] [--seed S] [--reps R]
+    python3 chip_smoke.py [--records N] [--seed S] [--reps R] [--json F]
 
 Phases, each ending in torch.cuda.synchronize() so a fault shows where
 it happened; any failed check exits non-zero:
 
 1. build   the one-hot aggregation kernel (ops/csrc/onehot_agg.cu) from
-           the sources in this checkout, with nvcc.
+           the sources in this checkout, with nvcc; prints ptxas's
+           registers, shared memory and spills (-Xptxas -v).
 2. kernel  the kernel against its plain torch version, exactly, at the
-           four shapes of tests/test_pallas.py and at one batch (65,536
-           records) with each kernel query's caps; prints the kernel's,
-           the plain version's and torch's index_add_ times.
+           four shapes of tests/test_pallas.py (through onehot_dense),
+           at one batch (65,536 records) with each kernel query's caps,
+           over a sweep at the main path's batch size (74,800 records x
+           256-4,096 segments, unit weights) on uniform keys, on keys
+           all in one bin and on linear-timestamp runs, at n = 0 and 1,
+           into a non-zero accumulator with signed weights and i64 keys,
+           and at 2,000,000 records x 4,096 segments.  Each timed shape
+           prints the kernel's, the plain version's and the yardstick's
+           times (device and eager) and the bound; the yardstick is
+           index_add_ of the same fused key into a preallocated i64
+           accumulator, the same function.  Beside the 2,000,000-record
+           call, two floors (any launch; a copy of the same keys), and
+           the wrapper's private stream lookup checked against
+           torch.cuda.current_stream, with the host cost of each.
 3. data    N generated muskie request-log records (native/dngen.cc) in a
            temporary directory, with a DRAGNET_CONFIG holding one file
            datasource (timeField=time, filter {"ne":["host","zzz"]}),
@@ -24,7 +36,11 @@ it happened; any failed check exits non-zero:
            file byte for byte, every batch must run on the device, the
            kernel must launch once per batch on the two kernel queries
            and never on the scatter query.
-5. result  the card's name and power limit (nvidia-smi), a `kernels`
+5. main    the kernel again, on the fused keys the main path gave it:
+   keys    the largest batch of each kernel query at each segment count
+           (the time window, and with it the accumulator, grows during
+           the timestamp query), captured in phase 4.
+6. result  the card's name and power limit (nvidia-smi), a `kernels`
            JSON line (launches on the main path, times, bound), and as
            the last line {"ok": true, "device": {...}}.
 
@@ -45,6 +61,7 @@ import time
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 INT32_OPS_PER_S = 33.5e12      # H100 SXM: half the 67 TFLOP/s fp32 rate
 
+DEVICE = 'cuda'
 KERNEL_SOURCE = 'dragnet_tpu_torch/ops/csrc/onehot_agg.cu'
 KERNEL_REPLACES = 'dragnet_tpu/ops/pallas_kernels.py:102'
 
@@ -53,8 +70,18 @@ PALLAS_SHAPES = [((8, 64), 1000), ((3, 5, 7), 4096), ((513,), 700),
 COLD_RECORDS = 20000
 
 # one batch with each kernel query's staged caps, unit weights (as the
-# main path calls it); the first is the shape the kernels line reports
+# main path calls it)
 SLICE_SHAPES = [((8, 32), 65536), ((256, 16), 65536)]
+
+# the main path's batch (16 MiB reads of ~225-byte records) and every
+# segment count the gate sends to the kernel
+BATCH_RECORDS = 74800
+SWEEP_SEGMENTS = [256, 512, 1024, 2048, 4096]
+# one call at the bound-share shape: unit weights keep the total < 2^24;
+# the keys rotate over copies larger than the 50 MB L2 cache
+LARGE_RECORDS = 2000000
+LARGE_SEGMENTS = 4096
+L2_BYTES = 50 << 20
 
 # (name, scan arguments, expected route): the large-scan query of the
 # repository's benchmark, its small-accumulator query, and the synthetic
@@ -121,14 +148,37 @@ def kernel_inputs(radices, n, seed, unit_weights):
                       for r in radices]).astype(np.int32)
     w = None if unit_weights else rng.integers(-3, 10, n).astype(np.int32)
     alive = rng.random(n) < 0.9
-    dev = torch.device('cuda')
+    dev = torch.device(DEVICE)
     return (torch.from_numpy(codes).to(dev),
             None if w is None else torch.from_numpy(w).to(dev),
             torch.from_numpy(alive).to(dev))
 
 
+def fused_keys(kind, ns, n, seed=1):
+    """i32 fused keys [n] with dead rows at ns, as the device scan gives
+    them: 'uniform' (10 % dead), 'one bin' (every live row on one bin,
+    the worst contention), or 'linear ts' (a timestamp(60s) x
+    statusCode batch: linear timestamps put ~7 minutes in one batch, so
+    a warp's records share one or two minute buckets; 7 status codes,
+    4 of them dead under the >= 500 filter)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    if kind == 'uniform':
+        keys = rng.integers(0, ns, n)
+        keys[rng.random(n) < 0.1] = ns
+    elif kind == 'one bin':
+        keys = np.full(n, ns // 3)
+        keys[rng.random(n) < 0.1] = ns
+    else:
+        minute = np.arange(n) * 7 // max(n, 1)
+        code = rng.integers(0, 7, n)
+        keys = np.where(code < 4, ns, (minute * 16 + code) % ns)
+    return torch.from_numpy(keys.astype(np.int32)).to(DEVICE)
+
+
 def kernel_bound_ms(radices, n, weighted):
-    """Least time for the function: its bytes (codes, weights, alive
+    """Least time for the codes entry: its bytes (codes, weights, alive
     read once; the i64 output written once) over the memory rate, or its
     integer operations (a multiply-add per column and a compare per
     record) over the int32 rate, whichever is larger."""
@@ -142,11 +192,71 @@ def kernel_bound_ms(radices, n, weighted):
     return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
 
 
-def check_kernel(ck, radices, n, unit_weights, reps, seed=1):
-    """Kernel vs plain version on the card at one shape: exact equality,
-    then times of the kernel, the plain version and index_add_."""
+def into_bound_ms(ns, n, key_bytes, weighted):
+    """Least time for onehot_dense_into: each fused key (and weight)
+    read once, the i64 accumulator read and written once, over the
+    memory rate; or a compare and an add per record over the int32
+    rate, whichever is larger."""
+    nbytes = n * (key_bytes + (4 if weighted else 0)) + 16 * ns
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * n / INT32_OPS_PER_S * 1e3
+    return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+
+
+def check_into(ck, label, ns, fused, w, reps, out0=None, copies=1):
+    """onehot_dense_into against its plain version on the card at one
+    shape, exactly (into a copy of out0, zeros by default), then the
+    device and eager times per call of the kernel, the plain version and
+    the yardstick: index_add_ of the same fused key (out-of-range rows
+    sent to a pad slot) into a preallocated i64 accumulator.  With
+    copies > 1 the calls cycle over that many copies of the keys, so
+    they find them out of L2 as a cold caller would."""
+    import itertools
     import torch
-    from dragnet_tpu_torch.ops.kernels import fuse_keys
+    dev = fused.device
+    if out0 is None:
+        out0 = torch.zeros(ns, dtype=torch.int64, device=dev)
+    got = ck.onehot_dense_into(out0.clone(), fused, w)
+    want = ck.onehot_dense_into_ref(out0.clone(), fused, w)
+    torch.cuda.synchronize()
+    n = fused.shape[0]
+    err = int((got - want).abs().max())
+    check(torch.equal(got, want),
+          'one-hot kernel differs from its plain version at %s, %d '
+          'segments x %d (max abs err %d)' % (label, ns, n, err))
+    keys = [fused] + [fused.clone() for _ in range(copies - 1)]
+    idx = [torch.where((k >= 0) & (k < ns), k, ns) for k in keys]
+    src = torch.ones(n, dtype=torch.int64, device=dev) if w is None \
+        else w.to(torch.int64)
+    out = torch.zeros(ns, dtype=torch.int64, device=dev)
+    pad = torch.zeros(ns + 1, dtype=torch.int64, device=dev)
+    k_it, i_it = itertools.cycle(keys), itertools.cycle(idx)
+    t_kernel, e_kernel = cuda_time_ms(
+        lambda: ck.onehot_dense_into(out, next(k_it), w), reps)
+    t_plain, e_plain = cuda_time_ms(
+        lambda: ck.onehot_dense_into_ref(out, next(k_it), w), reps)
+    t_lib, e_lib = cuda_time_ms(
+        lambda: pad.index_add_(0, next(i_it), src), reps)
+    bound, bound_by = into_bound_ms(ns, n, fused.element_size(),
+                                    w is not None)
+    log('kernel onehot_dense_into %-24s %4d x %7d  exact  device ms: '
+        'kernel %.4f plain %.4f index_add_ %.4f  (eager per call: %.4f '
+        '%.4f %.4f)  bound %.6f ms (%s), %.1f %% of it'
+        % (label, ns, n, t_kernel, t_plain, t_lib, e_kernel, e_plain,
+           e_lib, bound, bound_by, 100 * bound / t_kernel))
+    return {'keys': label, 'ns': ns, 'n': n, 'max_abs_err': err,
+            'weighted': w is not None, 'key_bytes': fused.element_size(),
+            'ms': t_kernel, 'plain_ms': t_plain, 'library_ms': t_lib,
+            'bound_ms': bound, 'bound_by': bound_by,
+            'bound_share': bound / t_kernel, 'eager_ms': e_kernel,
+            'eager_plain_ms': e_plain, 'eager_library_ms': e_lib}
+
+
+def check_kernel(ck, radices, n, unit_weights, reps, seed=1):
+    """The codes entry (onehot_dense: fuse, zero-fill, kernel) against
+    its plain version on the card at one shape, exactly, with its own
+    times; then the kernel itself on the same fused key (check_into)."""
+    import torch
     codes, w, alive = kernel_inputs(radices, n, seed, unit_weights)
     got = ck.onehot_dense(radices, codes, w, alive)
     want = ck.onehot_dense_ref(radices, codes, w, alive)
@@ -156,27 +266,110 @@ def check_kernel(ck, radices, n, unit_weights, reps, seed=1):
           'one-hot kernel differs from its plain version at %r x %d '
           '(max abs err %d)' % (radices, n, err))
     ns = got.shape[0]
-    fused = fuse_keys(radices, codes)
-    wl = alive.to(torch.int64) if w is None else \
-        torch.where(alive, w, 0).to(torch.int64)
-    t_kernel, e_kernel = cuda_time_ms(
+    t_entry, e_entry = cuda_time_ms(
         lambda: ck.onehot_dense(radices, codes, w, alive), reps)
-    t_plain, e_plain = cuda_time_ms(
-        lambda: ck.onehot_dense_ref(radices, codes, w, alive), reps)
-    t_lib, e_lib = cuda_time_ms(lambda: torch.zeros(
-        ns, dtype=torch.int64, device=codes.device).index_add_(
-            0, fused, wl), reps)
     bound, bound_by = kernel_bound_ms(radices, n, w is not None)
-    log('kernel onehot_dense %-14s x %6d  exact  device ms: kernel %.4f '
-        'plain %.4f index_add_ %.4f  (eager per call: %.4f %.4f %.4f)  '
-        'bound %.6f ms (%s)'
-        % (str(tuple(radices)), n, t_kernel, t_plain, t_lib, e_kernel,
-           e_plain, e_lib, bound, bound_by))
-    return {'radices': list(radices), 'n': n, 'max_abs_err': err,
-            'ms': t_kernel, 'plain_ms': t_plain, 'library_ms': t_lib,
-            'bound_ms': bound, 'bound_by': bound_by,
-            'eager_ms': e_kernel, 'eager_plain_ms': e_plain,
-            'eager_library_ms': e_lib}
+    log('entry onehot_dense %-14s x %6d  exact  device ms %.4f  eager '
+        'per call %.4f  bound %.6f ms (%s)'
+        % (str(tuple(radices)), n, t_entry, e_entry, bound, bound_by))
+    from dragnet_tpu_torch.ops.kernels import fuse_keys
+    fused = torch.where(alive, fuse_keys(radices, codes), ns).to(
+        torch.int32)
+    r = check_into(ck, 'codes %s' % (tuple(radices),), ns, fused, w,
+                   reps)
+    r.update({'radices': list(radices), 'entry_ms': t_entry,
+              'eager_entry_ms': e_entry, 'entry_bound_ms': bound,
+              'max_abs_err': max(err, r['max_abs_err'])})
+    return r
+
+
+def kernel_sweep(ck, reps):
+    """Phase 2 beyond the reference's shapes: the main path's batch size
+    over every segment count the gate allows, skewed and uniform; n = 0
+    and 1; signed weights and i64 keys into a non-zero accumulator; and
+    the 2,000,000-record call."""
+    import numpy as np
+    import torch
+    results = []
+    for ns in SWEEP_SEGMENTS:
+        for kind in ('uniform', 'linear ts', 'one bin'):
+            results.append(check_into(
+                ck, kind, ns, fused_keys(kind, ns, BATCH_RECORDS), None,
+                reps))
+    for n in (0, 1):
+        for ns in (SWEEP_SEGMENTS[0], SWEEP_SEGMENTS[-1]):
+            results.append(check_into(
+                ck, 'uniform', ns, fused_keys('uniform', ns, n), None,
+                reps))
+    rng = np.random.default_rng(4)
+    ns = SWEEP_SEGMENTS[-1]
+    out0 = torch.from_numpy(rng.integers(-1 << 40, 1 << 40, ns)).to(DEVICE)
+    w = torch.from_numpy(rng.integers(-3, 10, BATCH_RECORDS).astype(
+        np.int32)).to(DEVICE)
+    keys = torch.from_numpy(rng.integers(-5, ns + 5, BATCH_RECORDS)).to(
+        DEVICE)
+    results.append(check_into(ck, 'i64 signed, out != 0', ns, keys, w,
+                              reps, out0=out0))
+    results.append(check_into(ck, 'i32 signed, out != 0', ns,
+                              keys.to(torch.int32), w, reps, out0=out0))
+    large = fused_keys('uniform', LARGE_SEGMENTS, LARGE_RECORDS)
+    copies = 1 + L2_BYTES // (4 * LARGE_RECORDS)
+    results.append(check_into(ck, 'uniform, L2-cold', LARGE_SEGMENTS,
+                              large, None, reps, copies=copies))
+    results[-1]['floors'] = floors(large, copies, reps)
+    del large
+    torch.cuda.synchronize()
+    return results
+
+
+def floors(keys, copies, reps):
+    """Device ms per call of two floors under the kernel's times: any
+    launch (add_ on a 4,096-element i64 tensor), and a copy of the keys
+    cycling over `copies` copies as check_into cycles them (out of L2),
+    beside that copy's own bound."""
+    import itertools
+    import torch
+    small = torch.zeros(4096, dtype=torch.int64, device=keys.device)
+    t_launch, _ = cuda_time_ms(lambda: small.add_(1), reps)
+    k_it = itertools.cycle([keys] + [keys.clone()
+                                     for _ in range(copies - 1)])
+    dst = torch.empty_like(keys)
+    t_copy, _ = cuda_time_ms(lambda: dst.copy_(next(k_it)), reps)
+    copy_bound = 2 * keys.numel() * keys.element_size() / \
+        HBM_BYTES_PER_S * 1e3
+    log('floors: a launch (add_ on 4,096 i64) %.4f ms; a copy of the %d '
+        'L2-cold keys %.4f ms (its bound %.4f ms)'
+        % (t_launch, keys.numel(), t_copy, copy_bound))
+    return {'launch_ms': t_launch, 'copy_ms': t_copy,
+            'copy_bound_ms': copy_bound}
+
+
+def host_costs(ck, calls=2000):
+    """The wrapper's stream lookup: the private raw handle it passes
+    must equal torch.cuda.current_stream's, on the default stream and
+    on a side stream; then the host ms per call of each lookup (host
+    clock, `calls` calls)."""
+    import torch
+    dev = torch.device(DEVICE, torch.cuda.current_device())
+    for s in (torch.cuda.current_stream(dev), torch.cuda.Stream(dev)):
+        with torch.cuda.stream(s):
+            check(ck.current_stream_handle(dev.index) == s.cuda_stream ==
+                  torch.cuda.current_stream(dev).cuda_stream,
+                  'the raw stream handle differs from '
+                  'torch.cuda.current_stream')
+    times = {}
+    for name, fn in (
+            ('current_stream', lambda: torch.cuda.current_stream(
+                dev).cuda_stream),
+            ('raw handle', lambda: ck.current_stream_handle(dev.index))):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times[name] = (time.perf_counter() - t0) / calls * 1e3
+    log('stream lookup, host ms per call: torch.cuda.current_stream '
+        '%.4f, raw handle %.4f (the same handle)'
+        % (times['current_stream'], times['raw handle']))
+    return times
 
 
 def run_cli(cli, argv):
@@ -203,13 +396,17 @@ def main_path(cli, mod_ds, ck, ds, records):
     """Phase 4: the three scans through the CLI on DN_TORCH_DEVICE, with
     the batch and launch counts zeroed just before and read just after,
     then the same outputs from the host engine.  Returns the kernel
-    shapes the main path used and its launch count."""
+    shapes the main path used, a copy of the fused keys of each kernel
+    query's largest batch at each segment count, and the launch
+    count."""
     import torch
     # 4. the main path: counters zeroed just before, read just after
     batches = {'total': 0, 'device': 0}
     shapes = []
+    captured = {}
+    current = [None]
     orig_try = mod_ds.DeviceScan._try_device
-    orig_kernel = ck.onehot_dense
+    orig_kernel = ck.onehot_dense_into
 
     def try_device(self, provider, weights, alive):
         ok = orig_try(self, provider, weights, alive)
@@ -217,18 +414,22 @@ def main_path(cli, mod_ds, ck, ds, records):
         batches['device'] += int(ok)
         return ok
 
-    def onehot_dense(radices, codes, weights, alive):
-        shapes.append((tuple(radices), int(codes.shape[1]),
-                       weights is not None))
-        return orig_kernel(radices, codes, weights, alive)
+    def onehot_dense_into(out, fused, weights):
+        ns, n = int(out.shape[0]), int(fused.shape[0])
+        shapes.append((ns, n, weights is not None))
+        best = captured.get((current[0], ns))
+        if best is None or n > best[0].shape[0]:
+            captured[(current[0], ns)] = (fused.clone(), weights)
+        return orig_kernel(out, fused, weights)
     mod_ds.DeviceScan._try_device = try_device
-    ck.onehot_dense = onehot_dense
+    ck.onehot_dense_into = onehot_dense_into
 
     ck.reset_launches()
     per_query = []
     t_main = time.monotonic()
     for name, qargs, route in QUERIES:
         argv = ['scan', '--points', '--counters'] + qargs + ['muskie']
+        current[0] = name
         b0 = dict(batches)
         l0 = ck.launches['onehot_dense']
         s0 = len(shapes)
@@ -240,23 +441,23 @@ def main_path(cli, mod_ds, ck, ds, records):
         nb = batches['total'] - b0['total']
         nd = batches['device'] - b0['device']
         nl = ck.launches['onehot_dense'] - l0
-        caps = sorted(set(s[0] for s in shapes[s0:]))
+        segs = sorted(set(s[0] for s in shapes[s0:]))
         per_query.append((name, route, argv, out, err, dt, nb, nd, nl))
         log('scan %-36s %8.2f s  %11.0f records/s  batches %d '
-            '(device %d)  kernel launches %d  kernel caps %s'
-            % (name, dt, records / dt, nb, nd, nl, caps))
+            '(device %d)  kernel launches %d  kernel segments %s'
+            % (name, dt, records / dt, nb, nd, nl, segs))
         check(nb > 0 and nd == nb,
               '%s: %d of %d batches ran on the device' % (name, nd, nb))
         if route == 'kernel':
             check(nl == nb, '%s: kernel launched %d times for %d '
-                  'batches (caps %s)' % (name, nl, nb, caps))
+                  'batches (segments %s)' % (name, nl, nb, segs))
         else:
             check(nl == 0, '%s: expected the scatter path, the kernel '
                   'launched %d times' % (name, nl))
     main_launches = ck.launches['onehot_dense']
     main_s = time.monotonic() - t_main
     mod_ds.DeviceScan._try_device = orig_try
-    ck.onehot_dense = orig_kernel
+    ck.onehot_dense_into = orig_kernel
     log('main path: %.2f s, one-hot kernel launches %d'
         % (main_s, main_launches))
 
@@ -272,7 +473,20 @@ def main_path(cli, mod_ds, ck, ds, records):
         log('host %-36s %8.2f s  %11.0f records/s  identical output '
             '(%d points)' % (name, ht, records / ht,
                              out.count('\n')))
-    return shapes, main_launches
+    return shapes, captured, main_launches
+
+
+def main_path_keys(ck, captured, reps):
+    """Phase 5: the kernel on the fused keys the main path gave it, the
+    largest batch of each query at each segment count."""
+    import torch
+    results = []
+    for (name, ns), (fused, w) in sorted(captured.items()):
+        results.append(check_into(ck, 'main path: %s' % name, ns, fused,
+                                  w, reps))
+        results[-1]['query'] = name
+    torch.cuda.synchronize()
+    return results
 
 
 def main():
@@ -280,6 +494,8 @@ def main():
     ap.add_argument('--records', type=int, default=2000000)
     ap.add_argument('--seed', type=int, default=12345)
     ap.add_argument('--reps', type=int, default=100)
+    ap.add_argument('--json', help='also write every kernel shape\'s '
+                    'result to this file')
     args = ap.parse_args()
 
     import torch
@@ -305,17 +521,21 @@ def main():
 
     # 1. build
     t0 = time.monotonic()
-    ck.build()
+    nvcc_log = ck.build()
     ck._load()
     log('build: onehot_agg.cu in %.2f s' % (time.monotonic() - t0))
+    log(nvcc_log.rstrip() if nvcc_log else
+        '(library up to date, not rebuilt)')
 
-    # 2. kernel vs plain at the reference's test shapes (weighted) and
-    # at one batch with each kernel query's caps (unit weights, as the
-    # main path calls it)
+    # 2. kernel vs plain at the reference's test shapes (weighted), at
+    # one batch with each kernel query's caps (unit weights, as the main
+    # path calls it), and over the sweep
     results = [check_kernel(ck, radices, n, False, args.reps)
                for radices, n in PALLAS_SHAPES]
     slice_results = [check_kernel(ck, radices, n, True, args.reps)
                      for radices, n in SLICE_SHAPES]
+    sweep_results = kernel_sweep(ck, args.reps)
+    stream_costs = host_costs(ck)
     torch.cuda.synchronize()
 
     # 3. data
@@ -327,7 +547,7 @@ def main():
             % (args.records, os.path.getsize(data),
                time.monotonic() - t0))
         os.environ['DRAGNET_CONFIG'] = os.path.join(tmp, 'dragnetrc')
-        os.environ['DN_TORCH_DEVICE'] = 'cuda'
+        os.environ['DN_TORCH_DEVICE'] = DEVICE
         rc, out, err = run_cli(cli, [
             'datasource-add', 'muskie', '--path=' + data,
             '--time-field=time', '--filter={"ne":["host","zzz"]}'])
@@ -348,23 +568,45 @@ def main():
             log('cold %-36s %8.3f s  (%d records, first scans of the '
                 'process)' % (name, time.monotonic() - t0, COLD_RECORDS))
 
-        shapes, main_launches = main_path(cli, mod_ds, ck, ds,
-                                          args.records)
+        shapes, captured, main_launches = main_path(cli, mod_ds, ck, ds,
+                                                    args.records)
     torch.cuda.synchronize()
 
-    # the kernel at the shapes the main path gave it (the largest batch
-    # of each accumulator shape)
+    # 5. the kernel on the main path's own keys, and on uniform keys at
+    # the largest batch of each accumulator shape it gave the kernel
     largest = {}
-    for radices, n, weighted in shapes:
-        key = (radices, weighted)
+    for ns, n, weighted in shapes:
+        key = (ns, weighted)
         largest[key] = max(largest.get(key, 0), n)
-    log('main path kernel shapes (caps, largest batch): %s'
+    log('main path kernel shapes (segments, weighted: largest batch): %s'
         % sorted(largest.items()))
-    results += slice_results
-    results += [check_kernel(ck, radices, n, not weighted, args.reps)
-                for (radices, weighted), n in sorted(largest.items())]
+    main_results = main_path_keys(ck, captured, args.reps)
+    check(len(main_results) >= 2, 'no main-path keys were captured')
+    results += slice_results + sweep_results + main_results
+    results += [check_into(ck, 'uniform', ns,
+                           fused_keys('uniform', ns, n), None, args.reps)
+                for (ns, weighted), n in sorted(largest.items())]
     torch.cuda.synchronize()
-    main = slice_results[0]
+
+    at_batch = [r for r in sweep_results + main_results
+                if r['n'] == BATCH_RECORDS or r['keys'].startswith('main')]
+    for weighted in (False, True):
+        timed = [r for r in at_batch if r['weighted'] == weighted]
+        slower = [(r['keys'], r['ns'], r['ms'], r['library_ms'])
+                  for r in timed if r['ms'] > r['library_ms']]
+        log('kernel vs index_add_ at the main path\'s batch, %s weights '
+            '(%d shapes): %s' % ('signed' if weighted else 'unit',
+                                 len(timed), 'never slower' if not slower
+                                 else 'slower at %r' % slower))
+    main = [r for r in main_results if r['query'] == QUERIES[1][0]][0]
+    large = [r for r in sweep_results if r['n'] == LARGE_RECORDS][0]
+    log('bound share at %d x %d: %.1f %% (%.4f ms for a bound of %.4f ms)'
+        % (LARGE_RECORDS, LARGE_SEGMENTS, 100 * large['bound_share'],
+           large['ms'], large['bound_ms']))
+    if args.json:
+        with open(args.json, 'w') as f:
+            json.dump({'card': card, 'stream_lookup_ms': stream_costs,
+                       'shapes': results}, f, indent=1)
     log('gpu: %s' % card)
     print(json.dumps({'kernels': [{
         'name': 'onehot_dense', 'route': 'cuda', 'source': KERNEL_SOURCE,
@@ -372,8 +614,9 @@ def main():
         'max_abs_err': max(r['max_abs_err'] for r in results),
         'ms': main['ms'], 'plain_ms': main['plain_ms'],
         'bound_ms': main['bound_ms'], 'bound_by': main['bound_by'],
-        'library_ms': main['library_ms'],
-        'shape': {'radices': main['radices'], 'n': main['n']},
+        'library_ms': main['library_ms'], 'eager_ms': main['eager_ms'],
+        'shape': {'keys': main['keys'], 'ns': main['ns'],
+                  'n': main['n']},
         'shapes': results}]}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,

@@ -10,8 +10,9 @@ Counterpart of dragnet_tpu/device_scan.py `DeviceScan` (dense mode):
     device:  predicate table-gathers + numeric compares -> ternary
              and/or fold -> date-error & time-bounds masks -> p2/linear
              bucketize -> mixed-radix key fusion -> the one-hot kernel
-             (ops/cuda_kernels.py) or an i64 index_add_ segment-sum,
-             plus a first-occurrence scatter-min
+             (ops/cuda_kernels.py, adding into the resident
+             accumulator) or an i64 index_add_ segment-sum, plus a
+             first-occurrence scatter-min
              -> (dense, first, stage counters)
 
 Each batch's (dense, first, counters) triple is folded into a
@@ -706,9 +707,10 @@ class DeviceScan(VectorScan):
 
     # -- the device program -------------------------------------------------
 
-    def _body(self, args, n, profile, caps, ns, use_kernel):
+    def _body(self, args, n, profile, caps, ns, use_kernel, acc_dense):
         """One batch on the device -> (dense i64[ns], first i32[ns],
-        cvec i32[ncounters])."""
+        cvec i32[ncounters]).  On the kernel route the weights go
+        straight into `acc_dense` and dense is None."""
         w1, gen_alive, fprof, kvalid_skip = profile
         dev = self.device
         i32 = torch.int32
@@ -867,14 +869,17 @@ class DeviceScan(VectorScan):
         fused = torch.zeros(n, dtype=i32, device=dev)
         for c, cap in zip(codes, caps):
             fused = fused * cap + c
-        fused = torch.where(alive, fused, ns).to(torch.int64)
+        fused32 = torch.where(alive, fused, ns)
+        fused = fused32.to(torch.int64)
         gidx = torch.arange(n, dtype=i32, device=dev)
         first = torch.full((ns + 1,), I32MAX, dtype=i32, device=dev)
         first.scatter_reduce_(0, fused, gidx, 'amin', include_self=True)
         first = first[:ns]
         if use_kernel:
-            dense = cuda_kernels.onehot_dense(
-                caps, torch.stack(codes), weights, alive)
+            # the kernel adds straight into the resident accumulator;
+            # dead rows sit at ns, outside it
+            cuda_kernels.onehot_dense_into(acc_dense, fused32, weights)
+            dense = None
         else:
             w = alive.to(torch.int64) if w1 else \
                 torch.where(alive, weights, 0).to(torch.int64)
@@ -888,12 +893,13 @@ class DeviceScan(VectorScan):
         place: dense weights and counters add; the first-occurrence key
         takes a running min over (batch_base | row), which orders keys
         exactly as the host engine inserts them."""
-        dense, first, cvec = self._body(args, n, profile, caps, ns,
-                                        use_kernel)
         acc_dense, acc_first, acc_cvec = self._acc
+        dense, first, cvec = self._body(args, n, profile, caps, ns,
+                                        use_kernel, acc_dense)
         bfirst = torch.where(first < I32MAX, first.to(torch.int64) + base,
                              I64MAX)
-        acc_dense += dense
+        if dense is not None:
+            acc_dense += dense
         torch.minimum(acc_first, bfirst, out=acc_first)
         acc_cvec += cvec.to(torch.int64)
 

@@ -53,10 +53,10 @@ def fold_or(outcomes):
 
 def fuse_keys(radices, codes):
     """Mixed-radix fused key (i64) of per-column codes [ncols, n]."""
-    fused = torch.zeros(codes.shape[1], dtype=torch.int64,
-                        device=codes.device)
-    for i, r in enumerate(radices):
-        fused = fused * int(r) + codes[i].to(torch.int64)
+    fused = codes[0].to(torch.int64)
+    for i in range(1, len(radices)):
+        # codes[i] + fused * radix, one kernel a column
+        fused = torch.add(codes[i], fused, alpha=int(radices[i]))
     return fused
 
 

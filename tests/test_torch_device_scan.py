@@ -10,6 +10,7 @@ import json
 import random
 
 import pytest
+import torch
 
 from dragnet_tpu import native as jnative
 from dragnet_tpu_torch import query as tquery
@@ -219,6 +220,50 @@ def test_port_scan_kernel_path_matches_pallas(tmp_path, monkeypatch,
     assert points == jpoints
     assert counters == jcounters
     assert used and all(used)
+
+
+@pytest.mark.parametrize('qconf', KERNEL_QUERIES)
+def test_port_scan_kernel_route_adds_into_accumulator(tmp_path, monkeypatch,
+                                                      qconf):
+    """The kernel route hands the body's i32 fused key (dead rows at ns)
+    and the resident accumulator itself to onehot_dense_into: no codes
+    stack, no per-batch dense, and the codes entry is never called.
+    The output stays identical to the JAX package's Pallas route."""
+    monkeypatch.setenv('DN_PALLAS', 'force')
+    rng = random.Random(23)
+    lines = [ln for ln in _mklines(rng, 300)
+             if '"x"' not in ln and '"26"' not in ln]
+    datafile = _write(tmp_path, lines)
+    calls = []
+    orig_fold = tds.DeviceScan._fold
+    orig_into = tds.cuda_kernels.onehot_dense_into
+    acc = []
+
+    def fold(self, args, n, profile, caps, ns, use_kernel, base):
+        acc.append((self._acc[0], n, ns, use_kernel))
+        return orig_fold(self, args, n, profile, caps, ns, use_kernel,
+                         base)
+
+    def into(out, fused, weights):
+        calls.append((out, fused.dtype, int(fused.shape[0]),
+                      int(fused[(fused >= 0) & (fused < out.shape[0])]
+                          .numel())))
+        return orig_into(out, fused, weights)
+
+    def codes_entry(*a):
+        raise AssertionError('the device scan called the codes entry')
+    monkeypatch.setattr(tds.DeviceScan, '_fold', fold)
+    monkeypatch.setattr(tds.cuda_kernels, 'onehot_dense_into', into)
+    monkeypatch.setattr(tds.cuda_kernels, 'onehot_dense', codes_entry)
+    jpoints, jcounters = _jax_scan(monkeypatch, datafile, qconf, 'jax')
+    points, counters, _ = _port_scan(monkeypatch, datafile, qconf)
+    assert points == jpoints
+    assert counters == jcounters
+    assert acc and all(k for _, _, _, k in acc)
+    assert len(calls) == len(acc)
+    for (out, dtype, n, live), (resident, bn, ns, _) in zip(calls, acc):
+        assert out is resident and out.shape[0] == ns
+        assert dtype == torch.int32 and n == bn and 0 < live <= n
 
 
 def test_port_scan_compact_flush(tmp_path, monkeypatch):

@@ -160,13 +160,154 @@ def test_wrapper_rejects_bad_inputs():
         tck.onehot_dense((4, 4), codes.to('meta'), None, alive.to('meta'))
 
 
+def _fused_dead(radices, codes, alive, rng, dtype):
+    """The fused key of codes with dead rows at values outside [0, ns):
+    ns itself (as the device scan writes them), -1, and far off."""
+    ns = int(np.prod(radices))
+    fused = np.zeros(codes.shape[1], dtype=np.int64)
+    for c, r in zip(codes, radices):
+        fused = fused * r + c
+    dead = rng.choice(np.array([ns, -1, ns + 7, -(1 << 20)]),
+                      codes.shape[1])
+    return np.where(alive, fused, dead).astype(dtype)
+
+
+@pytest.mark.parametrize('key_dtype', [np.int32, np.int64])
+@pytest.mark.parametrize('radices,n', PALLAS_SHAPES)
+def test_onehot_into_ref_matches_pallas_interpret(radices, n, key_dtype):
+    """The kernel's own entry, plain version: from the fused key (i32 or
+    i64, dead rows anywhere outside [0, ns)), added into a non-zero
+    accumulator, equals that accumulator plus the Pallas kernel
+    (interpret mode) on the same records."""
+    _jnp()
+    rng = np.random.default_rng(0)
+    codes, w, alive = _inputs(radices, n, seed=7)
+    agg = jpk.make_pallas_aggregate(radices, n, interpret=True)
+    want = np.asarray(agg(codes, w.astype(np.float32), alive)).astype(
+        np.int64)
+    out0 = rng.integers(-1 << 40, 1 << 40, want.shape[0])
+    out = torch.from_numpy(out0.copy())
+    fused = torch.from_numpy(_fused_dead(radices, codes, alive, rng,
+                                         key_dtype))
+    got = tck.onehot_dense_into(out, fused, torch.from_numpy(w))
+    assert got is out and got.dtype == torch.int64
+    np.testing.assert_array_equal(got.numpy(), out0 + want)
+
+
+def test_onehot_into_ref_unit_weights_and_empty():
+    """weights=None adds one per record; n = 0 leaves out as it was."""
+    out0 = np.arange(8, dtype=np.int64) * 10
+    out = torch.from_numpy(out0.copy())
+    fused = torch.tensor([3, 3, 7, 8, -1, 0, 3], dtype=torch.int32)
+    tck.onehot_dense_into_ref(out, fused, None)
+    want = out0.copy()
+    want[[0, 3, 7]] += [1, 3, 1]
+    np.testing.assert_array_equal(out.numpy(), want)
+    tck.onehot_dense_into(out, torch.zeros(0, dtype=torch.int64), None)
+    np.testing.assert_array_equal(out.numpy(), want)
+
+
+def test_into_wrapper_rejects_bad_inputs():
+    out = torch.zeros(16, dtype=torch.int64)
+    fused = torch.zeros(10, dtype=torch.int32)
+    w = torch.ones(10, dtype=torch.int32)
+    assert tck._check_into(out, fused, w) == 16
+    assert tck._check_into(out, fused.to(torch.int64), None) == 16
+    bad = [
+        (out.to(torch.int32), fused, w),                  # out dtype
+        (out.reshape(4, 4), fused, w),                    # out rank
+        (torch.zeros(0, dtype=torch.int64), fused, w),    # no segments
+        (torch.zeros(4097, dtype=torch.int64), fused, w),  # > 4096
+        (out[::2], fused, w),                             # out layout
+        (out, fused.to(torch.float32), w),                # key dtype
+        (out, fused.reshape(2, 5), w),                    # key rank
+        (out, torch.zeros(20, dtype=torch.int32)[::2], w),  # key layout
+        (out, fused, w.to(torch.int64)),                  # weight dtype
+        (out, fused, w[:5]),                              # weight shape
+    ]
+    for args in bad:
+        with pytest.raises(ValueError):
+            tck._check_into(*args)
+    with pytest.raises(ValueError):
+        tck.onehot_dense_into(out.to('meta'), fused.to('meta'), None)
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    return torch.device('cuda')
+
+
+def _card_keys(kind, ns, n, seed):
+    """i32 fused keys as chip_smoke.py times them: uniform, every live
+    row on one bin, or linear-timestamp runs; dead rows at ns."""
+    rng = np.random.default_rng(seed)
+    if kind == 'uniform':
+        keys = rng.integers(0, ns, n)
+    elif kind == 'one bin':
+        keys = np.full(n, ns // 3)
+    else:
+        keys = ((np.arange(n) * 7 // n) * 16 + rng.integers(0, 7, n)) % ns
+    keys[rng.random(n) < 0.1] = ns
+    return keys.astype(np.int32)
+
+
+def _card_check(dev, keys, w, ns, seed):
+    """Kernel against its plain version into the same non-zero out,
+    with one launch counted."""
+    out0 = torch.from_numpy(np.random.default_rng(seed).integers(
+        -1 << 40, 1 << 40, ns)).to(dev)
+    fused = torch.from_numpy(keys).to(dev) if isinstance(
+        keys, np.ndarray) else keys
+    wt = None if w is None else torch.from_numpy(w).to(dev)
+    before = tck.launches['onehot_dense']
+    got = tck.onehot_dense_into(out0.clone(), fused, wt)
+    torch.cuda.synchronize()
+    assert tck.launches['onehot_dense'] == before + 1
+    want = tck.onehot_dense_into_ref(out0.clone(), fused, wt)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('kind', ['uniform', 'linear ts', 'one bin'])
+@pytest.mark.parametrize('ns', [256, 512, 1024, 2048, 4096])
+def test_onehot_into_kernel_sweep_on_card(ns, kind):
+    """The main path's batch size at every segment count the gate sends
+    to the kernel, on uniform and skewed keys."""
+    dev = _cuda()
+    _card_check(dev, _card_keys(kind, ns, 74800, ns), None, ns, 1)
+
+
+@pytest.mark.cuda
+def test_onehot_into_kernel_large_on_card():
+    """2,000,000 records: several clusters merge with atomics."""
+    dev = _cuda()
+    _card_check(dev, _card_keys('uniform', 4096, 2000000, 3), None, 4096,
+                2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n', [0, 1, 5, 1000, 74801])
+def test_onehot_into_kernel_signed_i64_unaligned_on_card(n):
+    """Signed weights, i64 and i32 keys with dead rows anywhere outside
+    [0, ns), and a key tensor that starts off a 16-byte boundary (the
+    scalar load path)."""
+    dev = _cuda()
+    rng = np.random.default_rng(n)
+    ns = 4096
+    keys = rng.integers(-5, ns + 5, n + 1)
+    w = rng.integers(-3, 10, n).astype(np.int32)
+    _card_check(dev, keys[:n], w, ns, 3)
+    _card_check(dev, keys[:n].astype(np.int32), None, ns, 4)
+    shifted = torch.from_numpy(keys.astype(np.int32)).to(dev)[1:]
+    _card_check(dev, shifted, w, ns, 5)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize('radices,n', PALLAS_SHAPES + [((8, 32), 65536)])
 def test_onehot_kernel_matches_plain_on_card(radices, n):
-    if not torch.cuda.is_available():
-        pytest.skip('needs a CUDA device')
+    dev = _cuda()
     codes, w, alive = _inputs(radices, n, seed=2)
-    dev = torch.device('cuda')
     args = (torch.from_numpy(codes).to(dev), torch.from_numpy(w).to(dev),
             torch.from_numpy(alive).to(dev))
     before = tck.launches['onehot_dense']
@@ -178,3 +319,24 @@ def test_onehot_kernel_matches_plain_on_card(radices, n):
     got1 = tck.onehot_dense(radices, args[0], None, args[2])
     assert torch.equal(got1, tck.onehot_dense_ref(radices, args[0], None,
                                                   args[2]))
+
+
+@pytest.mark.cuda
+def test_stream_handle_matches_public_api_on_card():
+    """The wrapper's private raw-stream lookup gives the handle of
+    torch.cuda.current_stream, on the default stream and on a side
+    stream, and the kernel launched under a side stream lands there."""
+    dev = torch.device(_cuda().type, torch.cuda.current_device())
+    assert tck.current_stream_handle(dev.index) == \
+        torch.cuda.current_stream(dev).cuda_stream
+    side = torch.cuda.Stream(dev)
+    with torch.cuda.stream(side):
+        assert tck.current_stream_handle(dev.index) == side.cuda_stream
+        keys = torch.from_numpy(_card_keys('uniform', 256, 74800, 6)).to(
+            dev)
+        got = tck.onehot_dense_into(
+            torch.zeros(256, dtype=torch.int64, device=dev), keys, None)
+    side.synchronize()
+    want = tck.onehot_dense_into_ref(
+        torch.zeros(256, dtype=torch.int64, device=dev), keys, None)
+    assert torch.equal(got, want)
