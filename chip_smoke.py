@@ -36,13 +36,36 @@ it happened; any failed check exits non-zero:
            file byte for byte, every batch must run on the device, the
            kernel must launch once per batch on the two kernel queries
            and never on the scatter query.
-5. main    the kernel again, on the fused keys the main path gave it:
+5. sparse  two high-cardinality scans on the card (the sparse program:
+           fused i64 keys sort-merged into a resident set): the
+           per-minute timestamp x host x url x latency query, which
+           starts dense and turns sparse as its time window grows, and a
+           wider query without a time window, sparse from its first
+           batch, whose ~1.8M unique tuples make the guard grow the set
+           past its 2^20 initial capacity.  Every batch must run on the
+           device, the sparse fold must run (its call count), the set
+           must grow, and the output must equal the host engine's byte
+           for byte.  Prints records/s of both engines, the fold's
+           device ms per batch (CUDA events) and the capacity reached;
+           beside it, the fold alone at 2^20 and 2^22 slots (nearly
+           full, one main-path batch) with its sort's share.
+6. build   three metrics (metric-add), `build --interval=hour
+           --counters` on the card through the CLI and with the host
+           engine into a second tree: the trees (shards and integrity
+           catalog) must be byte-identical, every batch must fold
+           through the stack (DeviceScanStack), one metric on each fold
+           route (one-hot kernel, index_add_, sparse), the kernel
+           launching once per stacked batch; then `index-scan` on both
+           engines, identical.  Prints wall s and records/s of both
+           builds, the index writer's share, shards and bytes, and
+           whether libdnindex.so was loaded.
+7. main    the kernel again, on the fused keys the main path gave it:
    keys    the largest batch of each kernel query at each segment count
            (the time window, and with it the accumulator, grows during
            the timestamp query), captured in phase 4.
-6. result  the card's name and power limit (nvidia-smi), a `kernels`
-           JSON line (launches on the main path, times, bound), and as
-           the last line {"ok": true, "device": {...}}.
+8. result  the card's name and power limit (nvidia-smi), a `kernels`
+           JSON line (launches on the main path and on the build, times,
+           bound), and as the last line {"ok": true, "device": {...}}.
 
 Without CUDA, or without the rest of the repository beside it, the
 script exits non-zero and prints no result.
@@ -96,6 +119,40 @@ QUERIES = [
      ['-b', 'timestamp[field=time,date,aggr=lquantize,step=60],'
       'res.statusCode', '-f', '{"ge": ["res.statusCode", 500]}'],
      'kernel'),
+]
+
+
+# phase 5: (name, scan arguments, expected routes).  The first is the
+# per-minute breakdown that passes the 2^24 dense budget once its time
+# window passes 128 minutes; its time-window epochs hold at most ~710k
+# records each (every window growth flushes), too few uniques to fill
+# the set.  Its nspillrecords counter differs from the host engine's
+# where the reference documents it (DeviceScan._build_static): the
+# host decides dense vs sparse per batch on the exact radices (and
+# spills any batch whose key space passes 4x its rows), the device on
+# pow2 caps against 2^24.  The second has no time window and passes
+# 2^24 either way: one epoch of 2M records and ~1.8M unique tuples, so
+# the guard must grow the set.
+SPARSE_QUERIES = [
+    ('timestamp(60s) x host x url x latency',
+     ['-b', 'timestamp[field=time,date,aggr=lquantize,step=60],host,'
+      'req.url,latency[aggr=quantize]'], 'dense then sparse'),
+    ('host x url x op x method x status x lat x dlat',
+     ['-b', 'host,req.url,operation,req.method,res.statusCode,'
+      'latency[aggr=quantize],dataLatency[aggr=quantize]'],
+     'sparse, grows'),
+]
+SPARSE_BENCH_CAPS = [1 << 20, 1 << 22]
+
+# phase 6: (metric, breakdowns, fold route at --interval=hour, where
+# the hourly __dn_ts key is prepended)
+BUILD_METRICS = [
+    ('byhour', 'timestamp[field=time,date,aggr=lquantize,step=3600],host',
+     'kernel'),
+    ('requests', 'timestamp[field=time,date,aggr=lquantize,step=60],'
+     'req.method,res.statusCode,latency[aggr=quantize]', 'index_add'),
+    ('byurl', 'timestamp[field=time,date,aggr=lquantize,step=60],host,'
+     'req.url,latency[aggr=quantize]', 'sparse'),
 ]
 
 
@@ -476,6 +533,511 @@ def main_path(cli, mod_ds, ck, ds, records):
     return shapes, captured, main_launches
 
 
+class Spy(object):
+    """Wraps attributes for the length of a phase and restores them."""
+
+    def __init__(self):
+        self.saved = []
+
+    def wrap(self, owner, name, make):
+        orig = getattr(owner, name)
+        self.saved.append((owner, name, orig))
+        setattr(owner, name, make(orig))
+
+    def restore(self):
+        for owner, name, orig in reversed(self.saved):
+            setattr(owner, name, orig)
+        self.saved = []
+
+
+class Timers(object):
+    """Exclusive host-clock seconds per label over wrapped calls (a
+    timed call inside another is taken out of the outer's time)."""
+
+    def __init__(self):
+        self.t = {}
+        self._stack = []
+
+    def wrap(self, spy, owner, name, label):
+        def make(orig):
+            def timed(*a, **k):
+                t0 = time.perf_counter()
+                self._stack.append(0.0)
+                try:
+                    return orig(*a, **k)
+                finally:
+                    inner = self._stack.pop()
+                    dt = time.perf_counter() - t0
+                    self.t[label] = self.t.get(label, 0.0) + dt - inner
+                    if self._stack:
+                        self._stack[-1] += dt
+            return timed
+        spy.wrap(owner, name, make)
+
+    def take(self, total):
+        """The seconds per label, the rest of `total` under 'rest',
+        and reset."""
+        out = dict(self.t)
+        out['rest'] = total - sum(self.t.values())
+        self.t = {}
+        return out
+
+
+def fmt_times(times):
+    return ', '.join('%s %.2f' % kv for kv in sorted(
+        times.items(), key=lambda kv: -kv[1]))
+
+
+def sparse_fold_bench(mod_ds, reps):
+    """The sparse fold alone on the card at each SPARSE_BENCH_CAPS
+    capacity, the set as full as the guard lets it get (cap - n occupied
+    slots) and one main-path batch of n keys already in the set (10 %
+    dead), so repeated folds keep its size: device ms per fold (CUDA
+    events over `reps` folds), and the ms of its sort (argsort of the
+    occupied prefix plus the batch) alone."""
+    import torch
+    dev = torch.device(DEVICE)
+    n = BATCH_RECORDS
+    out = []
+    g = torch.Generator(device=dev).manual_seed(5)
+    for cap in SPARSE_BENCH_CAPS:
+        occ = cap - n
+        keys = torch.sort(torch.randperm(4 * cap, device=dev,
+                                         generator=g)[:occ]).values
+        acc = (torch.full((cap,), mod_ds.I64MAX, dtype=torch.int64,
+                          device=dev),
+               torch.zeros(cap, dtype=torch.int64, device=dev),
+               torch.full((cap,), mod_ds.I64MAX, dtype=torch.int64,
+                          device=dev),
+               torch.zeros(8, dtype=torch.int64, device=dev),
+               torch.zeros(2, dtype=torch.int64, device=dev))
+        acc[0][:occ] = keys
+        acc[1][:occ] = 1
+        acc[2][:occ] = torch.arange(occ, device=dev)
+        pick = torch.randint(0, occ, (n,), device=dev, generator=g)
+        fused = keys[pick]
+        dead = torch.rand(n, device=dev, generator=g) < 0.1
+        fused[dead] = mod_ds.I64MAX
+        wb = (~dead).to(torch.int64)
+        first = torch.where(dead, mod_ds.I64MAX,
+                            torch.arange(n, device=dev) + (1 << 32))
+        cvec = torch.zeros(8, dtype=torch.int32, device=dev)
+        state = [acc]
+
+        def fold():
+            state[0] = mod_ds.fold_sparse(state[0], cvec, fused, wb,
+                                          first, occupied=occ)
+        concat = torch.cat([keys, fused])
+        t_fold, _ = cuda_time_events(fold, reps)
+        t_sort, _ = cuda_time_events(lambda: torch.argsort(concat), reps)
+        st = state[0][4].cpu().tolist()
+        check(st == [occ, 0], 'sparse fold bench: the set changed size '
+              '(%r, expected [%d, 0])' % (st, occ))
+        nbytes = 8 * 3 * (occ + n) * 2
+        log('sparse fold at %d slots (%d occupied + %d batch keys): '
+            '%.4f ms per fold, its sort %.4f ms (%.0f %%); %.0f MB '
+            'moved at least (%.4f ms at %.2f TB/s)'
+            % (cap, occ, n, t_fold, t_sort, 100 * t_sort / t_fold,
+               nbytes / 1e6, nbytes / HBM_BYTES_PER_S * 1e3,
+               HBM_BYTES_PER_S / 1e12))
+        out.append({'cap': cap, 'occupied': occ, 'n': n,
+                    'fold_ms': t_fold, 'sort_ms': t_sort})
+        del state, acc, keys, concat
+    torch.cuda.synchronize()
+    return out
+
+
+def cuda_time_events(fn, reps):
+    """(device ms, host ms) per call of fn, issued eagerly: CUDA events
+    around `reps` calls after a warm-up (for work a CUDA graph cannot
+    capture: host-side shape logic, in-place state)."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    host = (time.perf_counter() - t0) * 1e3 / reps
+    return start.elapsed_time(end) / reps, host
+
+
+def without_spill(what, dev_err, host_err, sparse_rows):
+    """The --counters dumps without the one counter the reference
+    documents as differing (DeviceScan._build_static): the host engine
+    spills a batch to its sort merge on its own per-batch decision,
+    the device turns sparse on pow2 caps against 2^24.  The device's
+    count is pinned exactly: every record its sparse batches
+    aggregated (nothing is filtered out in these runs)."""
+    spill = 'Aggregator         nspillrecords:%8d\n' % sum(sparse_rows)
+    check(spill in dev_err, '%s: expected %r' % (what, spill))
+    dev_err = dev_err.replace(spill, '', 1)
+    check('nspillrecords' not in dev_err,
+          '%s: a second spill count on the device' % what)
+    host_err = ''.join(ln for ln in host_err.splitlines(True)
+                       if 'nspillrecords' not in ln)
+    return dev_err, host_err
+
+
+def sparse_phase(cli, mod_ds, ds, records):
+    """Phase 5: the SPARSE_QUERIES through the CLI on the card, counts
+    zeroed just before each and read just after, each held to the host
+    engine's output."""
+    import torch
+    from dragnet_tpu_torch import datasource_file as mod_dsf
+    spy = Spy()
+    batches = {'total': 0, 'device': 0}
+    routes = []
+    sparse_rows = []
+    folds = []
+    caps = []
+
+    def wrap_try(orig):
+        def try_device(self, provider, weights, alive):
+            ok = orig(self, provider, weights, alive)
+            batches['total'] += 1
+            batches['device'] += int(ok)
+            return ok
+        return try_device
+
+    def wrap_fold(orig):
+        def fold(self, *a):
+            routes.append('dense')
+            return orig(self, *a)
+        return fold
+
+    def wrap_fold_sparse(orig):
+        def fold_sparse(self, args, n, profile, caps_, occupied, base):
+            routes.append('sparse')
+            sparse_rows.append(n)
+            return orig(self, args, n, profile, caps_, occupied, base)
+        return fold_sparse
+
+    def wrap_program(orig):
+        def timed(acc, cvec, fused, wb, first_b, occupied=None):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = orig(acc, cvec, fused, wb, first_b, occupied=occupied)
+            e.record()
+            folds.append((s, e, int(acc[0].shape[0]),
+                          int(fused.shape[0]) + (occupied or 0)))
+            return out
+        return timed
+
+    def wrap_guard(orig):
+        def guard(self, n):
+            ok = orig(self, n)
+            caps.append(self._sparse_cap)
+            return ok
+        return guard
+
+    def wrap_scan(orig):
+        def scan(self, *a, **k):
+            t0 = time.monotonic()
+            rv = orig(self, *a, **k)
+            scan_times.append(time.monotonic() - t0)
+            return rv
+        return scan
+    scan_times = []
+    spy.wrap(mod_dsf.DatasourceFile, 'scan', wrap_scan)
+    # where a scan's host time goes (the device work surfaces where the
+    # host waits for it: in uploads behind queued folds, and the flush)
+    from dragnet_tpu_torch import engine as mod_engine
+    timers = Timers()
+    for owner, name, label in (
+            (mod_ds.DeviceScan, '_stage_device', 'stage'),
+            (mod_ds.DeviceScan, '_upload_inputs', 'upload'),
+            (mod_ds.DeviceScan, '_fold_staged', 'fold submit'),
+            (mod_ds.DeviceScan, '_flush', 'flush fetch'),
+            (mod_engine.VectorScan, '_emit_unique', 'emit'),
+            (mod_engine.VectorScan, '_defer_compact', 'deferred merge'),
+            (mod_engine.VectorScan, '_defer_final', 'deferred merge'),
+            (mod_engine.VectorScan, '_process', 'host engine batch')):
+        timers.wrap(spy, owner, name, label)
+    spy.wrap(mod_ds.DeviceScan, '_try_device', wrap_try)
+    spy.wrap(mod_ds.DeviceScan, '_fold', wrap_fold)
+    spy.wrap(mod_ds.DeviceScan, '_fold_sparse', wrap_fold_sparse)
+    spy.wrap(mod_ds, 'fold_sparse', wrap_program)
+    spy.wrap(mod_ds.DeviceScan, '_sparse_guard', wrap_guard)
+    out = []
+    try:
+        for name, qargs, expect in SPARSE_QUERIES:
+            argv = ['scan', '--points', '--counters'] + qargs + ['muskie']
+            batches.update(total=0, device=0)
+            del routes[:], sparse_rows[:], folds[:], caps[:]
+            mod_ds.sparse_folds['fold_sparse'] = 0
+            t0 = time.monotonic()
+            rc, sout, serr = run_cli(cli, argv)
+            torch.cuda.synchronize()
+            dt = time.monotonic() - t0
+            dev_times = timers.take(scan_times[-1])
+            nfolds = mod_ds.sparse_folds['fold_sparse']
+            check(rc == 0, '%s: scan failed: %s' % (name, serr))
+            nb, nd = batches['total'], batches['device']
+            check(nb > 0 and nd == nb, '%s: %d of %d batches ran on the '
+                  'device' % (name, nd, nb))
+            check(nfolds == routes.count('sparse') > 0 and
+                  len(routes) == nb,
+                  '%s: sparse fold ran %d times, routes %r'
+                  % (name, nfolds, routes))
+            if expect == 'dense then sparse':
+                check(routes[0] == 'dense' and routes == sorted(routes),
+                      '%s: expected dense batches, then sparse: %r'
+                      % (name, routes))
+            else:
+                check(set(routes) == {'sparse'} and
+                      max(caps) > mod_ds.SPARSE_CAP0,
+                      '%s: expected every batch sparse and the set to '
+                      'grow past %d: routes %r, capacities %r'
+                      % (name, mod_ds.SPARSE_CAP0, routes, sorted(set(caps))))
+            fold_ms = [s.elapsed_time(e) for s, e, _, _ in folds]
+            by_cap = {}
+            for (s, e, cap, nsort), ms in zip(folds, fold_ms):
+                by_cap.setdefault(cap, []).append((ms, nsort))
+            t0 = time.monotonic()
+            hout, herr = host_output(cli, argv, ds)
+            ht = time.monotonic() - t0
+            scan_s, hscan_s = scan_times[-2:]
+            host_times = timers.take(hscan_s)
+            if expect == 'dense then sparse':
+                serr, herr = without_spill(name, serr, herr, sparse_rows)
+            check(sout == hout and serr == herr,
+                  '%s: device output differs from the host engine' % name)
+            npoints = sout.count('\n')
+            log('sparse %-40s device %7.2f s %10.0f records/s (scan '
+                '%.2f s, %.0f records/s) | host %7.2f s %10.0f records/s '
+                '(scan %.2f s, %.0f records/s) | identical (%d points) | '
+                'batches %d (dense %d, sparse %d) | capacity reached %d'
+                % (name, dt, records / dt, scan_s, records / scan_s, ht,
+                   records / ht, hscan_s, records / hscan_s, npoints, nb,
+                   routes.count('dense'), nfolds, max(caps or [0])))
+            log('    scan host s, device: %s | host engine: %s'
+                % (fmt_times(dev_times), fmt_times(host_times)))
+            for cap, v in sorted(by_cap.items()):
+                ms = [m for m, _ in v]
+                log('    fold at %d slots: %d folds, device ms per fold '
+                    'mean %.4f min %.4f max %.4f, keys sorted per fold '
+                    '%d-%d' % (cap, len(ms), sum(ms) / len(ms), min(ms),
+                               max(ms), min(k for _, k in v),
+                               max(k for _, k in v)))
+            out.append({'query': name, 'device_s': dt, 'host_s': ht,
+                        'device_scan_s': scan_s, 'host_scan_s': hscan_s,
+                        'device_times': dev_times,
+                        'host_times': host_times,
+                        'batches': nb, 'sparse_folds': nfolds,
+                        'dense_batches': routes.count('dense'),
+                        'capacity': max(caps or [0]), 'points': npoints,
+                        'fold_ms_by_cap': {
+                            str(c): [m for m, _ in v]
+                            for c, v in by_cap.items()}})
+    finally:
+        spy.restore()
+    return out
+
+
+def tree_files(root):
+    out = {}
+    for dirpath, dirs, files in os.walk(root):
+        for fn in files:
+            p = os.path.join(dirpath, fn)
+            with open(p, 'rb') as f:
+                out[os.path.relpath(p, root)] = f.read()
+    return out
+
+
+def build_phase(cli, mod_ds, ck, tmp, data, records):
+    """Phase 6: BUILD_METRICS built on the card through the CLI (counts
+    zeroed just before, read just after) and with the host engine, then
+    index-scan on both; trees and outputs held byte for byte."""
+    import torch
+    from dragnet_tpu_torch import config as mod_config
+    from dragnet_tpu_torch import datasource_file as mod_dsf
+    from dragnet_tpu_torch import datasource_for_name, metrics_for_index
+    from dragnet_tpu_torch import index_build_mt as mod_ibmt
+    from dragnet_tpu_torch import native_index
+    dev_idx = os.path.join(tmp, 'idx_device')
+    host_idx = os.path.join(tmp, 'idx_host')
+    rc, _, err = run_cli(cli, [
+        'datasource-add', 'idx', '--path=' + data, '--time-field=time',
+        '--index-path=' + dev_idx])
+    check(rc == 0, 'datasource-add failed: %s' % err)
+    for metric, breakdowns, route in BUILD_METRICS:
+        rc, _, err = run_cli(cli, ['metric-add', '-b', breakdowns, 'idx',
+                                   metric])
+        check(rc == 0, 'metric-add %s failed: %s' % (metric, err))
+    rc, mlist, err = run_cli(cli, ['metric-list', 'idx'])
+    check(rc == 0 and all(m in mlist for m, _, _ in BUILD_METRICS),
+          'metric-list: %s %s' % (mlist, err))
+    # the DNC writer's library builds on first use: build it before the
+    # timed builds, so neither engine's writer time includes g++
+    t0 = time.monotonic()
+    dnc = native_index.get_lib() is not None
+    log('libdnindex.so %s (%.2f s, before the timed builds)'
+        % ('loaded' if dnc else 'NOT loaded: the numpy writer runs',
+           time.monotonic() - t0))
+
+    spy = Spy()
+    stack = {'batches': 0, 'stacked': 0}
+    routes = {}
+    sparse_rows = []
+    writes = []
+
+    def wrap_process(orig):
+        def process(self, provider, weights, alive):
+            stack['batches'] += 1
+            return orig(self, provider, weights, alive)
+        return process
+
+    def wrap_device(orig):
+        def process_device(self, provider, weights, alive):
+            ok = orig(self, provider, weights, alive)
+            stack['stacked'] += int(ok)
+            return ok
+        return process_device
+
+    def wrap_fold(orig):
+        def fold(self, args, n, profile, caps, ns, use_kernel, base):
+            routes.setdefault(self._pfx, []).append(
+                'kernel' if use_kernel else 'index_add')
+            return orig(self, args, n, profile, caps, ns, use_kernel, base)
+        return fold
+
+    def wrap_fold_sparse(orig):
+        def fold_sparse(self, args, n, *a):
+            routes.setdefault(self._pfx, []).append('sparse')
+            sparse_rows.append(n)
+            return orig(self, args, n, *a)
+        return fold_sparse
+
+    def wrap_write(orig):
+        def write(*a, **k):
+            t0 = time.monotonic()
+            rv = orig(*a, **k)
+            writes.append(time.monotonic() - t0)
+            return rv
+        return write
+    spy.wrap(mod_ds.DeviceScanStack, 'process', wrap_process)
+    spy.wrap(mod_ds.DeviceScanStack, '_process_device', wrap_device)
+    spy.wrap(mod_ds.DeviceScan, '_fold', wrap_fold)
+    spy.wrap(mod_ds.DeviceScan, '_fold_sparse', wrap_fold_sparse)
+    spy.wrap(mod_ibmt, 'write_index_blocks', wrap_write)
+    from dragnet_tpu_torch import engine as mod_engine
+    timers = Timers()
+    for owner, name, label in (
+            (mod_ds.DeviceScanStack, 'process', 'stack stage + fold'),
+            (mod_ds.DeviceScan, '_flush', 'flush fetch'),
+            (mod_engine.VectorScan, '_emit_unique', 'emit'),
+            (mod_engine.VectorScan, '_defer_compact', 'deferred merge'),
+            (mod_engine.VectorScan, '_defer_final', 'deferred merge'),
+            (mod_engine.VectorScan, '_process', 'host engine batch'),
+            (mod_ibmt, '_publish_buckets', 'index write + publish')):
+        timers.wrap(spy, owner, name, label)
+    try:
+        # the build path: counts zeroed just before, read just after
+        ck.reset_launches()
+        t0 = time.monotonic()
+        rc, bout, berr = run_cli(cli, ['build', '--interval=hour',
+                                       '--counters', 'idx'])
+        torch.cuda.synchronize()
+        dt = time.monotonic() - t0
+        build_launches = ck.launches['onehot_dense']
+        dev_times = timers.take(dt)
+        check(rc == 0, 'build failed: %s' % berr)
+        dev_write = writes[-1]
+        nb, ns_ = stack['batches'], stack['stacked']
+        check(nb > 0 and ns_ == nb, 'build: %d of %d batches went through '
+              'the stacked fold' % (ns_, nb))
+        for i, (metric, _, route) in enumerate(BUILD_METRICS):
+            got = routes.get('m%d_' % i, [])
+            check(len(got) == nb and route in got and
+                  (route != 'kernel' or set(got) == {'kernel'}),
+                  'build: %s expected the %s route, got %r'
+                  % (metric, route, sorted(set(got))))
+            log('build metric %-9s folds %d, routes %s'
+                % (metric, len(got),
+                   ', '.join('%s %d' % (r, got.count(r))
+                             for r in ('kernel', 'index_add', 'sparse')
+                             if r in got)))
+        check(build_launches == nb,
+              'build: the one-hot kernel launched %d times for %d stacked '
+              'batches' % (build_launches, nb))
+
+        # the host engine into a second tree
+        _, config = mod_config.ConfigBackendLocal().load()
+        dsconfig = dict(config.datasource_get('idx'))
+        bc = dict(dsconfig['ds_backend_config'], indexPath=host_idx)
+        dsconfig['ds_backend_config'] = bc
+        hds = mod_dsf.DatasourceFile(dsconfig)
+        metrics = metrics_for_index(config, 'idx')
+        t0 = time.monotonic()
+        hres = hds.build(metrics, 'hour', engine='vector')
+        ht = time.monotonic() - t0
+        host_times = timers.take(ht)
+        host_write = writes[-1]
+    finally:
+        spy.restore()
+    herr = io.StringIO()
+    herr.write('indexes for "idx" built\n')
+    hres.pipeline.dump_counters(herr)
+    berr, herr = without_spill('build', berr, herr.getvalue(), sparse_rows)
+    check(berr == herr, 'build --counters differs from the host engine:'
+          '\n%s\n%s' % (berr, herr))
+    dtree, htree = tree_files(dev_idx), tree_files(host_idx)
+    check(dtree.keys() == htree.keys() and
+          all(dtree[k] == htree[k] for k in dtree),
+          'build: the device tree differs from the host engine\'s: %r'
+          % sorted(k for k in set(dtree) | set(htree)
+                   if dtree.get(k) != htree.get(k)))
+    shards = [k for k in dtree if k.endswith('.sqlite')]
+    check(len(shards) >= 3 and '.dn_integrity.json' in dtree,
+          'build: shards %r' % sorted(dtree))
+    nbytes = sum(len(dtree[k]) for k in shards)
+    log('build device %7.2f s %10.0f records/s (index write + publish '
+        '%.2f s) | host %7.2f s %10.0f records/s (write %.2f s) | trees '
+        'identical: %d shards, %d bytes, + integrity catalog | '
+        'libdnindex.so %s | stacked batches %d, kernel launches %d'
+        % (dt, records / dt, dev_write, ht, records / ht, host_write,
+           len(shards), nbytes, 'loaded' if dnc else 'NOT loaded (numpy '
+           'writer)', nb, build_launches))
+
+    log('    build host s, device: %s | host engine: %s'
+        % (fmt_times(dev_times), fmt_times(host_times)))
+
+    # index-scan on both engines
+    t0 = time.monotonic()
+    rc, sout, serr = run_cli(cli, ['index-scan', '--interval=hour', 'idx'])
+    torch.cuda.synchronize()
+    st = time.monotonic() - t0
+    check(rc == 0, 'index-scan failed: %s' % serr)
+    ds = datasource_for_name(config, 'idx')
+    t0 = time.monotonic()
+    res = ds.index_scan(metrics, 'hour', engine='vector')
+    opts = cli.dn_parse_args(['idx'], ['counters'])
+    opts.points = True
+    hout, herr = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(hout), contextlib.redirect_stderr(herr):
+        cli.dn_output(None, opts, res, 'idx')
+    hst = time.monotonic() - t0
+    check(sout == hout.getvalue() and sout.count('\n') > 0,
+          'index-scan differs from the host engine')
+    log('index-scan device %.2f s | host %.2f s (each with its output) | '
+        'identical (%d points)' % (st, hst, sout.count('\n')))
+    return {'device_s': dt, 'host_s': ht, 'device_times': dev_times,
+            'host_times': host_times, 'device_write_s': dev_write,
+            'host_write_s': host_write, 'batches': nb, 'stacked': ns_,
+            'build_launches': build_launches, 'shards': len(shards),
+            'shard_bytes': nbytes, 'libdnindex': dnc,
+            'index_scan_device_s': st, 'index_scan_host_s': hst,
+            'routes': {m: sorted(set(routes.get('m%d_' % i, [])))
+                       for i, (m, _, _) in enumerate(BUILD_METRICS)}}
+
+
 def main_path_keys(ck, captured, reps):
     """Phase 5: the kernel on the fused keys the main path gave it, the
     largest batch of each query at each segment count."""
@@ -536,6 +1098,7 @@ def main():
                      for radices, n in SLICE_SHAPES]
     sweep_results = kernel_sweep(ck, args.reps)
     stream_costs = host_costs(ck)
+    fold_bench = sparse_fold_bench(mod_ds, args.reps)
     torch.cuda.synchronize()
 
     # 3. data
@@ -570,6 +1133,8 @@ def main():
 
         shapes, captured, main_launches = main_path(cli, mod_ds, ck, ds,
                                                     args.records)
+        sparse = sparse_phase(cli, mod_ds, ds, args.records)
+        build = build_phase(cli, mod_ds, ck, tmp, data, args.records)
     torch.cuda.synchronize()
 
     # 5. the kernel on the main path's own keys, and on uniform keys at
@@ -606,11 +1171,14 @@ def main():
     if args.json:
         with open(args.json, 'w') as f:
             json.dump({'card': card, 'stream_lookup_ms': stream_costs,
-                       'shapes': results}, f, indent=1)
+                       'shapes': results, 'sparse_fold_bench': fold_bench,
+                       'sparse_scans': sparse, 'build': build}, f,
+                      indent=1)
     log('gpu: %s' % card)
     print(json.dumps({'kernels': [{
         'name': 'onehot_dense', 'route': 'cuda', 'source': KERNEL_SOURCE,
         'replaces': KERNEL_REPLACES, 'launches': main_launches,
+        'build_launches': build['build_launches'],
         'max_abs_err': max(r['max_abs_err'] for r in results),
         'ms': main['ms'], 'plain_ms': main['plain_ms'],
         'bound_ms': main['bound_ms'], 'bound_by': main['bound_by'],

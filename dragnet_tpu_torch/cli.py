@@ -1,11 +1,15 @@
 """The port's command-line interface: `python -m dragnet_tpu_torch`.
 
 Counterpart of dragnet_tpu/cli.py for the commands this port covers:
-`scan` (on the device, DN_TORCH_DEVICE, default cuda), `datasource-add`
-and `datasource-list`.  Option parsing, breakdown expansion and output
-are the reference CLI's, so `scan` prints byte-identical results.  The
-configuration is the same file as bin/dn's ($DRAGNET_CONFIG or
-~/.dragnetrc).
+`scan`, `build` and `index-scan` (on the device, DN_TORCH_DEVICE,
+default cuda), `datasource-add`, `datasource-list`, `metric-add`,
+`metric-list`, `metric-remove` and `index-config`.  Option parsing,
+breakdown expansion and output are the reference CLI's, so the port
+prints byte-identical results and writes byte-identical index trees.
+Options the port cannot honour yet (`--warnings`, `--remote`,
+`--build-threads`, `--parse`, `--trace`) are unknown options: a usage
+error.  The configuration is the same file as bin/dn's
+($DRAGNET_CONFIG or ~/.dragnetrc).
 
 Exit codes: 2 for usage errors (with the usage text on stderr), 1 for
 fatal runtime errors ("dn: <message>").
@@ -21,7 +25,7 @@ from . import config as mod_config
 from . import query as mod_query
 from . import output as mod_output
 from .aggr import Aggregator
-from . import datasource_for_name
+from . import datasource_for_name, metrics_for_index, index_config
 
 ARG0 = 'dn'
 
@@ -32,26 +36,42 @@ dn datasource-add    [--backend=file] --path=DATA_PATH
                      [--time-field=FIELD] [--time-format=TIME_FORMAT]
                      [--data-format=json|json-skinner] DATASOURCE
 dn datasource-list   [-v]
-
+dn metric-add        [--breakdowns=BREAKDOWN[,...]] [--filter=FILTER]
+\t\t     DATASOURCE METRIC
+dn metric-list       [-v] DATASOURCE
+dn metric-remove     DATASOURCE METRIC
+dn build             [--before=START_TIME] [--after=END_TIME]
+                     [--interval=hour|day|all] [--index-config=CONFIG_FILE]
+                     [--dry-run] [--assetroot=ASSET_ROOT]
+                     DATASOURCE
 dn scan              [--before=START_TIME] [--after=END_TIME] [--filter=FILTER]
                      [--breakdowns=BREAKDOWN[,...]]
                      [--raw] [--points] [--counters] [--gnuplot]
                      DATASOURCE
+dn index-config      DATASOURCE
+dn index-scan        [--index-config=INDEX_CONFIG_FILE]
+                     [--interval=hour|day|all]
+                     [--before=START_TIME] [--after=END_TIME] [--filter=FILTER]
+                     [--breakdowns=BREAKDOWN[,...]] [--counters] DATASOURCE
 
-scan runs on DN_TORCH_DEVICE (default: cuda).
+scan, build and index-scan run on DN_TORCH_DEVICE (default: cuda).
 """
 
 # Option table (reference: bin/dn:146-215), the subset these commands
 # take.  Each entry: (names, type, default)
 DN_OPTIONS = [
     (['after', 'A'], 'date', None),
+    (['assetroot'], 'string', '/dragnet/assets'),
     (['backend'], 'string', None),
     (['before', 'B'], 'date', None),
     (['breakdowns', 'b'], 'arrayOfString', []),
     (['counters'], 'bool', None),
     (['data-format'], 'string', 'json'),
+    (['dry-run', 'n'], 'bool', False),
     (['filter', 'f'], 'string', None),
     (['gnuplot'], 'bool', None),
+    (['interval', 'i'], 'string', 'day'),
+    (['index-config'], 'string', None),
     (['index-path'], 'string', None),
     (['path'], 'string', None),
     (['points'], 'bool', None),
@@ -298,6 +318,46 @@ def cmd_datasource_list(ctx, argv):
         _datasource_print(out, dsname, ds, opts.verbose)
 
 
+def cmd_metric_add(ctx, argv):
+    opts = dn_parse_args(argv, ['breakdowns', 'filter'])
+    check_arg_count(opts, 2)
+    mconfig = {
+        'name': opts._args[1],
+        'datasource': opts._args[0],
+        'filter': opts.filter or None,
+        'breakdowns': opts.breakdowns,
+    }
+    _save(ctx, ctx['config'].metric_add(mconfig))
+
+
+def cmd_metric_remove(ctx, argv):
+    opts = dn_parse_args(argv, [])
+    check_arg_count(opts, 2)
+    _save(ctx, ctx['config'].metric_remove(opts._args[0], opts._args[1]))
+
+
+def cmd_metric_list(ctx, argv):
+    opts = dn_parse_args(argv, ['verbose'])
+    check_arg_count(opts, 1)
+    dsname = opts._args[0]
+    out = sys.stdout
+    out.write('%-20s %-20s\n' % ('DATASOURCE', 'METRIC'))
+    config = ctx['config']
+    if config.datasource_get(dsname) is None:
+        fatal(DNError('unknown datasource: "%s"' % dsname))
+    for metname, m in config.datasource_list_metrics(dsname):
+        out.write('%-20s %-20s\n' % (m.m_datasource, metname))
+        if not opts.verbose:
+            continue
+        if m.m_filter is not None:
+            out.write('%4s%-11s %s\n' % ('', 'filter:',
+                                         jsv.json_stringify(m.m_filter)))
+        if len(m.m_breakdowns) == 0:
+            continue
+        out.write('%4s%-11s %s\n' % ('', 'breakdowns:', ', '.join(
+            b['b_name'] for b in m.m_breakdowns)))
+
+
 # ---------------------------------------------------------------------------
 # scan
 # ---------------------------------------------------------------------------
@@ -321,6 +381,12 @@ def dn_query_config(opts):
 
 def dn_output(query, opts, result, dsname):
     """(reference: bin/dn:924-967)"""
+    if result.dry_run_files is not None:
+        sys.stderr.write('would scan files:\n')
+        for path in result.dry_run_files:
+            sys.stderr.write('    %s\n' % path)
+        return
+
     points = result.points or []
     if getattr(opts, 'points', None):
         mod_output.print_points(points, sys.stdout)
@@ -344,6 +410,10 @@ def dn_output(query, opts, result, dsname):
         result.pipeline.dump_counters(sys.stderr)
 
 
+def _device():
+    return os.environ.get('DN_TORCH_DEVICE') or 'cuda'
+
+
 def cmd_scan(ctx, argv):
     opts = dn_parse_args(argv, ['before', 'after', 'filter', 'breakdowns',
                                 'raw', 'points', 'counters', 'gnuplot'])
@@ -353,17 +423,127 @@ def cmd_scan(ctx, argv):
     if isinstance(ds, DNError):
         fatal(ds)
     query = dn_query_config(opts)
-    device = os.environ.get('DN_TORCH_DEVICE') or 'cuda'
     try:
-        result = ds.scan(query, device=device)
+        result = ds.scan(query, device=_device())
     except DNError as e:
         fatal(e)
     dn_output(query, opts, result, dsname)
 
 
+# ---------------------------------------------------------------------------
+# build / index-config / index-scan
+# ---------------------------------------------------------------------------
+
+def _read_index_config(filename):
+    try:
+        with open(filename) as f:
+            contents = f.read()
+    except OSError as e:
+        fatal(DNError('read "%s"' % filename, cause=DNError(str(e))))
+    try:
+        return jsv.json_parse(contents)
+    except ValueError as e:
+        fatal(DNError('parse "%s"' % filename, cause=DNError(str(e))))
+
+
+def cmd_build(ctx, argv):
+    opts = dn_parse_args(argv, ['after', 'before', 'counters', 'dry-run',
+                                'index-config', 'interval', 'assetroot'])
+    check_arg_count(opts, 1)
+    dsname = opts._args[0]
+    indexcfg = _read_index_config(opts.index_config) \
+        if opts.index_config else None
+
+    if opts.before is not None and opts.after is not None and \
+            opts.before < opts.after:
+        fatal(DNError('"before" time cannot be before "after" time'))
+    if opts.interval not in ('hour', 'day', 'all'):
+        fatal(DNError('interval not supported: "%s"' % opts.interval))
+
+    ds = datasource_for_name(ctx['config'], dsname)
+    if isinstance(ds, DNError):
+        fatal(ds)
+    metrics = metrics_for_index(ctx['config'], dsname,
+                                index_config=indexcfg)
+    if len(metrics) == 0:
+        fatal(DNError('no metrics defined for dataset "%s"' % dsname))
+
+    # the local write gate: a disk-critical index tree rejects the
+    # build up front with the clean retryable disk_full error instead
+    # of failing mid-publish
+    if not opts.dry_run:
+        from . import resources as mod_resources
+        res_conf = mod_config.resources_config()
+        if isinstance(res_conf, DNError):
+            fatal(res_conf)
+        try:
+            mod_resources.check_tree_writable(ds.ds_indexpath, res_conf,
+                                              what='build')
+        except DNError as e:
+            fatal(e)
+    try:
+        result = ds.build(metrics, opts.interval, time_after=opts.after,
+                          time_before=opts.before, dry_run=opts.dry_run,
+                          device=_device())
+    except DNError as e:
+        fatal(e)
+
+    if opts.dry_run:
+        dn_output(None, opts, result, dsname)
+        return
+    sys.stderr.write('indexes for "%s" built\n' % dsname)
+    if getattr(opts, 'counters', None):
+        result.pipeline.dump_counters(sys.stderr)
+
+
+def cmd_index_config(ctx, argv):
+    opts = dn_parse_args(argv, [])
+    check_arg_count(opts, 1)
+    import datetime
+    now = datetime.datetime.now(datetime.timezone.utc)
+    mtime = jsv.to_iso_string(int(now.timestamp() * 1000))
+    cfg = index_config(ctx['config'], opts._args[0], mtime)
+    if isinstance(cfg, DNError):
+        fatal(cfg)
+    sys.stdout.write(jsv.json_stringify(cfg) + '\n')
+
+
+def cmd_index_scan(ctx, argv):
+    opts = dn_parse_args(argv, ['before', 'after', 'filter', 'breakdowns',
+                                'counters', 'index-config', 'interval'])
+    opts.points = True
+    check_arg_count(opts, 1)
+    dsname = opts._args[0]
+    indexcfg = _read_index_config(opts.index_config) \
+        if opts.index_config else None
+    ds = datasource_for_name(ctx['config'], dsname)
+    if isinstance(ds, DNError):
+        fatal(ds)
+    metrics = metrics_for_index(ctx['config'], dsname,
+                                index_config=indexcfg)
+    if len(metrics) == 0:
+        fatal(DNError('no metrics defined for dataset "%s"' % dsname))
+    dsfilter = None
+    if indexcfg:
+        dsfilter = indexcfg['datasource'].get('filter')
+    try:
+        result = ds.index_scan(metrics, opts.interval, filter=dsfilter,
+                               time_after=opts.after,
+                               time_before=opts.before, device=_device())
+    except DNError as e:
+        fatal(e)
+    dn_output(None, opts, result, dsname)
+
+
 COMMANDS = {
     'datasource-add': cmd_datasource_add,
     'datasource-list': cmd_datasource_list,
+    'metric-add': cmd_metric_add,
+    'metric-list': cmd_metric_list,
+    'metric-remove': cmd_metric_remove,
+    'build': cmd_build,
+    'index-config': cmd_index_config,
+    'index-scan': cmd_index_scan,
     'scan': cmd_scan,
 }
 

@@ -1,8 +1,9 @@
 """Dragnet configuration: immutable in-memory model + local file backend.
 
 Counterpart of dragnet_tpu/config.py: the configuration model, its
-schema-validated load and the local file backend (the serve, cluster and
-device knobs are not ported).  Re-implements lib/config-common.js
+schema-validated load, the local file backend, and the knobs the index
+build reads: DN_DISK_* (resources_config) and DN_FAULTS (faults_config).
+The serve, cluster and device knobs are not ported.  Re-implements lib/config-common.js
 (clone-on-write DragnetConfig, versioned vmaj/vmin 0.0, schema-validated
 load) and lib/config-local.js (JSON file at $DRAGNET_CONFIG or
 ~/.dragnetrc, atomic tmp+rename save), so the port and bin/dn read and
@@ -304,6 +305,125 @@ def load_config(inp):
                            % (metconfig.get('name'), e))
         dc.dc_metrics[dsname][metconfig['name']] = metric
     return dc
+
+
+# --- resource-governance knobs (DN_DISK_* / DN_SERVE_MEM_BUDGET_MB) ---
+#
+# Same contract as the serve/remote knobs: parsed and validated in one
+# place (resources.py consumes them; `dn serve --validate` and
+# `dn follow --validate` check them up front).
+
+_RESOURCE_KNOBS = [
+    # free-space watermarks (percent of the filesystem): below LOW the
+    # governor pauses background disk consumers; below CRITICAL the
+    # member flips read-only (queries keep serving byte-identically)
+    ('DN_DISK_LOW_PCT', 'float', 10.0, 0.0),
+    ('DN_DISK_CRITICAL_PCT', 'float', 5.0, 0.0),
+    # statvfs/fd poll cadence for the governor
+    ('DN_RESOURCE_POLL_MS', 'int', 2000, 50),
+    # admission-level memory budget: the concurrent estimated request
+    # footprint `dn serve` admits before shedding with retry_after_ms
+    # (0 = disabled)
+    ('DN_SERVE_MEM_BUDGET_MB', 'int', 0, 0),
+    # minimum spare fds before the governor reports low pressure
+    # (0 disables the fd check)
+    ('DN_FD_HEADROOM', 'int', 64, 0),
+]
+
+
+def resources_config(env=None):
+    """The resolved resource-governor knobs (keys: disk_low_pct,
+    disk_critical_pct, poll_ms, mem_budget_mb, fd_headroom), or
+    DNError on the first malformed value — the shared fail-fast
+    contract `dn serve --validate` checks.  The critical watermark
+    must not exceed the low one (the mode machine is ordered)."""
+    if env is None:
+        env = os.environ
+    keys = {'DN_DISK_LOW_PCT': 'disk_low_pct',
+            'DN_DISK_CRITICAL_PCT': 'disk_critical_pct',
+            'DN_RESOURCE_POLL_MS': 'poll_ms',
+            'DN_SERVE_MEM_BUDGET_MB': 'mem_budget_mb',
+            'DN_FD_HEADROOM': 'fd_headroom'}
+    rv = {}
+    for name, kind, default, minimum in _RESOURCE_KNOBS:
+        key = keys[name]
+        raw = env.get(name)
+        if raw is None or raw == '':
+            rv[key] = default
+            continue
+        if kind == 'float':
+            try:
+                value = float(raw)
+            except ValueError:
+                value = None
+            if value is None or not minimum <= value <= 100.0:
+                return DNError('%s: expected a number in [%g, 100], '
+                               'got "%s"' % (name, minimum, raw))
+        else:
+            try:
+                value = int(raw)
+            except ValueError:
+                value = minimum - 1
+            if value < minimum:
+                return DNError('%s: expected an integer >= %d, '
+                               'got "%s"' % (name, minimum, raw))
+        rv[key] = value
+    if rv['disk_critical_pct'] > rv['disk_low_pct']:
+        return DNError('DN_DISK_CRITICAL_PCT (%g) must not exceed '
+                       'DN_DISK_LOW_PCT (%g)'
+                       % (rv['disk_critical_pct'],
+                          rv['disk_low_pct']))
+    return rv
+
+
+# --- fault-injection spec (DN_FAULTS) ---------------------------------
+
+def faults_config(env=None):
+    """Parse + validate DN_FAULTS=site:kind:rate[:seed],...  Returns
+    {'sites': {site: (kind, rate, seed)}} (empty when unset) or the
+    first violation as DNError — the same contract every other knob
+    follows, checked by `dn serve --validate` and raised at the first
+    armed injection seam otherwise (faults.fire)."""
+    if env is None:
+        env = os.environ
+    spec = env.get('DN_FAULTS', '')
+    sites = {}
+    if not spec:
+        return {'sites': sites}
+    from . import faults as mod_faults
+    for part in spec.split(','):
+        part = part.strip()
+        if not part:
+            continue
+        fields = part.split(':')
+        if len(fields) not in (3, 4):
+            return DNError('DN_FAULTS: expected site:kind:rate[:seed],'
+                           ' got "%s"' % part)
+        site, kind, rate = fields[0], fields[1], fields[2]
+        if site not in mod_faults.SITES:
+            return DNError('DN_FAULTS: unknown site "%s" (known: %s)'
+                           % (site, ', '.join(mod_faults.SITES)))
+        if kind not in mod_faults.KINDS:
+            return DNError('DN_FAULTS: unknown kind "%s" (known: %s)'
+                           % (kind, ', '.join(mod_faults.KINDS)))
+        try:
+            ratef = float(rate)
+        except ValueError:
+            ratef = -1.0
+        if not 0.0 < ratef <= 1.0:
+            return DNError('DN_FAULTS: rate must be in (0, 1], '
+                           'got "%s"' % rate)
+        seed = 0
+        if len(fields) == 4:
+            try:
+                seed = int(fields[3])
+            except ValueError:
+                return DNError('DN_FAULTS: seed must be an integer, '
+                               'got "%s"' % fields[3])
+        if site in sites:
+            return DNError('DN_FAULTS: site "%s" armed twice' % site)
+        sites[site] = (kind, ratef, seed)
+    return {'sites': sites}
 
 
 class ConfigBackendLocal(object):

@@ -1,13 +1,15 @@
-"""File-backend scan: input enumeration, the native parse stream and the
-scan engine.
+"""File-backend scan, build and index-scan: input enumeration, the
+native parse stream and the scan engines.
 
-Counterpart of dragnet_tpu/datasource_file.py `DatasourceFile.scan`,
-restricted to the native-parser lane (native/dnparse.cc) and its
-single-threaded engine step: input enumeration (strftime-pruned when the
-datasource has a time format), one pass over the concatenated file
-bytes (a partial trailing line joins across file boundaries), batches
-fed to the device scan (device_scan.py) or, when asked for, the host
-engine (engine.VectorScan).
+Counterpart of dragnet_tpu/datasource_file.py (`scan`, `build`,
+`index_scan`), restricted to the native-parser lane (native/dnparse.cc)
+and its single-threaded engine step: input enumeration (strftime-pruned
+when the datasource has a time format), one pass over the concatenated
+file bytes (a partial trailing line joins across file boundaries),
+batches fed to the device scan (device_scan.py) or, when asked for, the
+host engine (engine.VectorScan).  A build feeds ONE parse stream to
+every metric's scan (stacked on the device: DeviceScanStack) and hands
+each metric's aggregate to the index writer (index_build_mt.py).
 """
 
 import os
@@ -18,7 +20,9 @@ from .errors import DNError
 from . import ingest as mod_ingest
 from . import find as mod_find
 from . import native as mod_native
-from .engine import BATCH_SIZE, VectorScan
+from . import query as mod_query
+from .engine import BATCH_SIZE, NativeColumns, VectorPredicate, VectorScan
+from .ops.kernels import TRUE
 from .vpipe import Pipeline
 
 ENGINES = ('device', 'vector')
@@ -32,9 +36,10 @@ def create_datasource(dsconfig):
 
 
 class ScanResult(object):
-    def __init__(self, pipeline, points):
+    def __init__(self, pipeline, points=None, dry_run_files=None):
         self.pipeline = pipeline
         self.points = points
+        self.dry_run_files = dry_run_files
 
 
 class DatasourceFile(object):
@@ -44,6 +49,7 @@ class DatasourceFile(object):
         self.ds_timeformat = bc.get('timeFormat')
         self.ds_timefield = bc.get('timeField')
         self.ds_datapath = bc['path']
+        self.ds_indexpath = bc.get('indexPath')
         self.ds_filter = dsconfig.get('ds_filter')
 
     # -- input enumeration ------------------------------------------------
@@ -94,28 +100,28 @@ class DatasourceFile(object):
         device scan on `device` (CUDA unless the caller asks for the
         CPU); engine='vector' runs the host engine, which the device
         scan is held against."""
-        if engine not in ENGINES:
-            raise DNError('unknown scan engine "%s"' % engine)
+        _check_engine(engine)
         pipeline = Pipeline()
         ctx = self._scan_init(query.qc_after, query.qc_before, pipeline)
         if isinstance(ctx, DNError):
             raise ctx
         files, fmt = ctx
-        if mod_native.get_lib() is None:
-            raise DNError('native parser (native/dnparse.cc) unavailable: '
-                          'build it with "make -C native"')
+        _require_native()
         # parse stages first: --counters lists stages in creation order
         stages = mod_ingest.make_parser_stages(pipeline, fmt)
-        if engine == 'device':
-            from .device_scan import DeviceScan
-            scanner = DeviceScan(query, self.ds_timefield, pipeline,
-                                 ds_filter=self.ds_filter, device=device)
-        else:
-            scanner = VectorScan(query, self.ds_timefield, pipeline,
-                                 ds_filter=self.ds_filter)
+        scanner = self._make_scan(query, pipeline, self.ds_filter, device,
+                                  engine)
         self._scan_native(scanner, files, fmt, stages)
         scanner.finish()
         return ScanResult(pipeline, scanner.aggr.points())
+
+    def _make_scan(self, query, pipeline, ds_filter, device, engine):
+        if engine == 'device':
+            from .device_scan import DeviceScan
+            return DeviceScan(query, self.ds_timefield, pipeline,
+                              ds_filter=ds_filter, device=device)
+        return VectorScan(query, self.ds_timefield, pipeline,
+                          ds_filter=ds_filter)
 
     def _scan_native(self, scanner, files, fmt, stages):
         """Scan via the C++ columnar parser: one pass over the
@@ -124,23 +130,7 @@ class DatasourceFile(object):
         parser_stage, adapter_stage = stages
 
         skinner = fmt == 'json-skinner'
-        proj = scanner.projection()
-        if skinner:
-            paths = ['fields.' + p for p, h, d in proj] + ['value']
-            hints = [h for p, h, d in proj] + [False]
-            dicts = [d for p, h, d in proj] + [True]
-        else:
-            paths = [p for p, h, d in proj]
-            hints = [h for p, h, d in proj]
-            dicts = [d for p, h, d in proj]
-        parser = mod_native.NativeParser(paths, hints, dicts)
-        remap = {p: np_ for p, np_ in
-                 zip([p for p, h, d in proj], paths)} if skinner \
-            else None
-
-        # one provider for the whole scan so per-column caches
-        # (decoded array values etc.) persist across batches
-        src = _RemappedParser(parser, remap) if skinner else parser
+        parser, src = _native_parser(scanner.projection(), skinner)
 
         def flush():
             n = parser.batch_size()
@@ -161,6 +151,180 @@ class DatasourceFile(object):
             parser_stage.counters['noutputs'] = nlines - nbad
             if nbad:
                 parser_stage.counters['invalid json'] = nbad
+
+    # -- build / index-scan -----------------------------------------------
+
+    def check_time_args(self, time_after, time_before):
+        if time_after is not None and time_before is None:
+            return DNError('cannot specify --after without --before')
+        if time_before is not None and time_after is None:
+            return DNError('cannot specify --before without --after')
+        return None
+
+    def check_index_args(self, interval, needsindex, needstime):
+        if needsindex and self.ds_indexpath is None:
+            return DNError('datasource is missing "indexpath"')
+        if needstime and interval != 'all' and self.ds_timefield is None:
+            return DNError('datasource is missing "timefield"')
+        return None
+
+    def build(self, metrics, interval, time_after=None, time_before=None,
+              dry_run=False, device=None, engine='device'):
+        """Build the datasource's index tree for `metrics`: one pass
+        over raw data, each metric's aggregate written to
+        interval-chunked shards through the crash-safe journal.
+        `device`/`engine` as for scan()."""
+        from . import resources as mod_resources
+        # a full disk / exhausted fd table mid-build surfaces as the
+        # clean retryable disk_full DNError, never a traceback — the
+        # two-phase journal already leaves the tree pre-build or
+        # post-build, never torn
+        with mod_resources.translate_pressure_errors('index build'):
+            return self._index_scan_impl(
+                metrics, interval, self.ds_filter, time_after,
+                time_before, dry_run, 'index', device, engine)
+
+    def index_scan(self, metrics, interval, filter=None, time_after=None,
+                   time_before=None, device=None, engine='device'):
+        """The build's scan with tagged points (each carrying
+        __dn_metric) as the result instead of index files."""
+        return self._index_scan_impl(
+            metrics, interval, filter, time_after, time_before, False,
+            'points', device, engine)
+
+    def _index_scan_impl(self, metrics, interval, filter, time_after,
+                         time_before, dry_run, sink, device, engine):
+        """One pass over raw data feeding every metric's scan; output goes
+        to index files (build) or tagged points (index-scan).
+        (reference: lib/datasource-file.js:322-433)"""
+        _check_engine(engine)
+        pipeline = Pipeline()
+        error = self.check_time_args(time_after, time_before)
+        if error is None:
+            error = self.check_index_args(interval, sink == 'index', True)
+        if error is not None:
+            raise error
+
+        ctx = self._scan_init(time_after, time_before, pipeline)
+        if isinstance(ctx, DNError):
+            raise ctx
+        files, fmt = ctx
+
+        if dry_run:
+            return ScanResult(pipeline,
+                              dry_run_files=[p for p, st in files])
+
+        queries = [mod_query.metric_query(m, time_after, time_before,
+                                          interval, self.ds_timefield)
+                   for m in metrics]
+        _require_native()
+        scanners = self._index_scan_native(queries, files, fmt, filter,
+                                           pipeline, device, engine)
+
+        if sink == 'index':
+            # columnar hand-off: each metric's aggregate goes to the
+            # index writer as parallel key columns + weights
+            from . import index_build_mt as mod_ibmt
+            blocks = []
+            for s in scanners:
+                s.finish()
+                cols, weights = s.aggr.point_rows()
+                blocks.append((list(s.aggr.decomps), cols, weights))
+            mod_ibmt.write_index_blocks(metrics, interval,
+                                        self.ds_indexpath, blocks)
+            return ScanResult(pipeline)
+
+        tagged = []
+        for qi, s in enumerate(scanners):
+            s.finish()
+            for fields, value in s.aggr.points():
+                fields['__dn_metric'] = qi
+                tagged.append((fields, value))
+        return ScanResult(pipeline, points=tagged)
+
+    def _index_scan_native(self, queries, files, fmt, filter, pipeline,
+                           device, engine):
+        """Build fan-out over the native parser: ONE pass over raw bytes
+        feeds every metric's scan (the reference pipes one parse stream
+        into N StreamScans, lib/datasource-file.js:403-427).  On the
+        device the metrics fold through one DeviceScanStack per batch;
+        DN_STACK=0 keeps the per-scan device folds."""
+        stages = mod_ingest.make_parser_stages(pipeline, fmt)
+        parser_stage, adapter_stage = stages
+
+        # the datasource filter is evaluated once on the shared parse
+        # stream; each metric's own filter lives in its scan
+        ds_pred = ds_stage = holder = None
+        if filter is not None:
+            holder = _Holder()
+            ds_pred = VectorPredicate(filter, holder)
+            ds_stage = pipeline.stage('Datasource filter')
+        scanners = []
+        for q in queries:
+            scanners.append(self._make_scan(q, pipeline, None, device,
+                                            engine))
+            pipeline.stage('Add __dn_metric')
+
+        skinner = fmt == 'json-skinner'
+        proj = {}
+        if holder is not None:
+            for f in holder.filter_fields:
+                proj.setdefault(f, [False, True])
+        for s in scanners:
+            for p, h, d in s.projection():
+                ent = proj.setdefault(p, [False, False])
+                ent[0] = ent[0] or h
+                ent[1] = ent[1] or d
+        parser, src = _native_parser(
+            [(p, h, d) for p, (h, d) in proj.items()], skinner)
+
+        stack = None
+        if engine == 'device':
+            from .device_scan import make_stack
+            stack = make_stack(scanners)
+
+        def flush():
+            n = parser.batch_size()
+            if n == 0:
+                return
+            nlines, nbad = parser.counters()
+            _bump_parse_counters(parser_stage, adapter_stage,
+                                 nlines, nbad, n)
+            provider = NativeColumns(src)
+            weights = _batch_weights(skinner, parser, n)
+            alive0 = None
+            if ds_pred is not None:
+                alive0 = _eval_ds_filter(ds_pred, ds_stage, provider, n)
+            if stack is not None:
+                stack.process(provider, weights, alive0)
+            else:
+                for s in scanners:
+                    s._process(provider, weights, alive=alive0)
+            parser.reset_batch()
+
+        self._stream_native(files, parser, flush, BATCH_SIZE)
+        nlines, nbad = parser.counters()
+        if nlines:
+            parser_stage.counters['ninputs'] = nlines
+            parser_stage.counters['noutputs'] = nlines - nbad
+            if nbad:
+                parser_stage.counters['invalid json'] = nbad
+        return scanners
+
+    def _index_write(self, metrics, interval, tagged_points):
+        """Write tagged aggregated points (index_scan's result) into
+        interval-chunked index files via the bulk write path; the shard
+        set publishes through the crash-safe journal.  (reference:
+        lib/datasource-file.js:444-547)"""
+        from . import index_build_mt as mod_ibmt
+        writer = mod_ibmt.StreamingIndexWriter(metrics, interval,
+                                               self.ds_indexpath)
+        try:
+            writer.write_points(tagged_points)
+            writer.finish()
+        except BaseException:
+            writer.abort()
+            raise
 
     def _stream_native(self, files, parser, flush, batch_size):
         """Feed the concatenated file bytes to the native parser,
@@ -197,6 +361,61 @@ class DatasourceFile(object):
         if carry:
             parser.parse(carry)
         flush()
+
+
+def _native_parser(proj, skinner):
+    """(parser, provider source) for a projection [(path, date_hint,
+    need_dict)]: json-skinner reads `fields.<path>` plus `value`, and
+    the source presents those under the unprefixed names.  One source
+    per pass, so per-column caches persist across batches."""
+    if skinner:
+        paths = ['fields.' + p for p, h, d in proj] + ['value']
+        hints = [h for p, h, d in proj] + [False]
+        dicts = [d for p, h, d in proj] + [True]
+    else:
+        paths = [p for p, h, d in proj]
+        hints = [h for p, h, d in proj]
+        dicts = [d for p, h, d in proj]
+    parser = mod_native.NativeParser(paths, hints, dicts)
+    if not skinner:
+        return parser, parser
+    remap = {p: np_ for (p, h, d), np_ in zip(proj, paths)}
+    return parser, _RemappedParser(parser, remap)
+
+
+def _check_engine(engine):
+    if engine not in ENGINES:
+        raise DNError('unknown scan engine "%s"' % engine)
+
+
+def _require_native():
+    if mod_native.get_lib() is None:
+        raise DNError('native parser (native/dnparse.cc) unavailable: '
+                      'build it with "make -C native"')
+
+
+class _Holder(object):
+    """The datasource predicate's field registry (VectorPredicate
+    records the fields its leaves read here)."""
+
+    def __init__(self):
+        self.filter_fields = []
+
+
+def _eval_ds_filter(pred, stage, provider, n):
+    """The datasource filter over one batch: stage counters and the
+    alive mask every metric's scan starts from."""
+    stage.bump('ninputs', n)
+    out = pred.outcomes(provider)
+    nfail = int((out == 2).sum())
+    ndrop = int((out == 0).sum())
+    if nfail:
+        stage.bump('nfailedeval', nfail)
+    if ndrop:
+        stage.bump('nfilteredout', ndrop)
+    alive0 = out == TRUE
+    stage.bump('noutputs', int(alive0.sum()))
+    return alive0
 
 
 def _read_ahead(files, readsz):

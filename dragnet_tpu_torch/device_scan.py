@@ -31,16 +31,25 @@ values, out-of-i32-range numbers, array-typed values in filter
 fields, ...) takes the host engine for that batch, after the device
 buffer is flushed so insertion order survives.
 
-Not in this port yet: the sparse (high-cardinality) program — a query
-whose key space needs it raises DNError — and the pipelined dispatch.
-Batches upload with plain synchronous copies.
+A key space beyond the dense accumulator (MAX_DENSE_SEGMENTS) runs the
+SPARSE program instead: fused i64 keys sort-merged into a device-resident
+compacted set (keys, weight sums, first occurrence) of bounded capacity,
+grown by a host-side guard that flushes before a batch could overflow it.
+
+DeviceScanStack folds N metric scans (a `dn build`) per batch over one
+staged input dict, so a column several metrics read uploads once.
+
+Not in this port yet: the pipelined dispatch.  Batches upload with plain
+synchronous copies.
 """
+
+import os
 
 import numpy as np
 import torch
 
-from .errors import DNError
 from . import jsvalues as jsv
+from . import log as mod_log
 from . import native as mn
 from . import query as mod_query
 from .engine import (VectorScan, NativeColumns, MAX_DENSE_SEGMENTS,
@@ -57,6 +66,18 @@ I16MAX = 2 ** 15 - 1
 
 # numeric-row plans: outcome of <leaf op const> for an exact-int32 row
 NUM_FALSE, NUM_TRUE, NUM_EQ, NUM_NE, NUM_LE, NUM_GE = range(6)
+
+# device-resident sparse set (high-cardinality mode): initial capacity,
+# growth ceiling.  24 bytes/slot of device memory; the host-side
+# pressure guard flushes + grows before a batch could overflow the set
+SPARSE_CAP0 = 1 << 20
+SPARSE_CAP_MAX = 1 << 23
+
+LOG = mod_log.get('device-scan')
+
+# calls of the sparse fold (torch ops, no hand kernel): a run can show
+# that its batches went through the sparse program
+sparse_folds = {'fold_sparse': 0}
 
 
 def _pow2(x):
@@ -155,18 +176,29 @@ class DeviceScan(VectorScan):
     # speculative compacted-fetch width: one round trip when the
     # occurred count fits (the norm); a larger refetch otherwise
     COMPACT_K = 1 << 16
+    # whether DeviceScanStack may fold this scan with its siblings
+    STACKABLE = True
 
     def __init__(self, query, time_field, pipeline, ds_filter=None,
                  device=None):
         dev = resolve_device(device)
         VectorScan.__init__(self, query, time_field, pipeline,
                             ds_filter=ds_filter, device=dev)
+        # input-key namespace: '' standalone; DeviceScanStack assigns
+        # 'm<i>_' so per-scan inputs (leaf tables, translate tables,
+        # synth columns) coexist in one merged inputs dict while
+        # parser-derived columns stay shared across metrics
+        self._pfx = ''
         self._disabled = False
         self._sticky = None       # upload-profile state (_stage_device)
+        self._sparse_cap = SPARSE_CAP0
+        self._sparse_ub = 0       # unique-count upper bound this epoch
         self._plans = None        # built from the query
         self._epoch_sig = None
-        self._acc = None          # device-resident (dense, first, cvec)
-        self._acc_meta = None     # epoch ('caps', 'cols', 'ns')
+        # device-resident (dense, first, cvec), or in sparse mode
+        # (keys, wsum, first, cvec, stats=[nuniq, overflow])
+        self._acc = None
+        self._acc_meta = None     # epoch ('caps', 'cols', 'ns', ...)
         self._acc_batch = 0       # batches folded into the acc
         self._leaf_list = []      # [(key, Leaf)] in stable order
         self._leaf_tables = {}    # leaf idx -> (host_len, device tensor)
@@ -311,11 +343,17 @@ class DeviceScan(VectorScan):
 
     def _stage_device(self, provider, weights, alive, inputs):
         """Eligibility checks + device-input assembly for one batch,
-        writing host arrays into `inputs`.  Returns the staged
-        parameters (n, profile, caps, ns, total_w) or None when this
-        batch must take the host path.  Commits plan-state
-        (windows/caps) and flushes on epoch flips as side effects."""
+        writing host arrays into the caller's `inputs` (shared across
+        scans under DeviceScanStack: parser-derived columns use
+        unprefixed keys so N metric scans upload them once; per-scan
+        inputs carry self._pfx).  Returns the staged parameters
+        (n, profile, caps, ns, total_w) or None when this batch must
+        take the host path.  Commits plan-state (windows/caps) and
+        flushes on epoch flips as side effects — safe even if a
+        sibling scan later fails staging, since the host path computes
+        the same results regardless of plan state."""
         n = provider.n
+        pfx = self._pfx
 
         w = np.asarray(weights, dtype=np.float64)
         if len(w) != n or not np.all(np.isfinite(w)) or \
@@ -348,9 +386,10 @@ class DeviceScan(VectorScan):
         # numpy path)
         src = provider.parser
 
-        # per-batch memo: each parser accessor materializes a fresh
-        # array (ctypes copy); a field read twice pays that once
-        memo = {}
+        # per-batch memo on the SHARED provider: each parser accessor
+        # materializes a fresh array (ctypes copy); a field read twice
+        # (or by several stacked metrics) pays that once
+        memo = provider.__dict__.setdefault('_stage_memo', {})
 
         def _memo1(kind, f, fn):
             key = (kind, f)
@@ -463,6 +502,13 @@ class DeviceScan(VectorScan):
             use_dstats = first_ds is not None
             errs = None
             if use_dstats:
+                # SHARED keys: under dstats the ts column is a pure
+                # function of its source field ('tsf_<field>') and the
+                # error chain of the ordered field list, so stacked
+                # sibling scans reading the same date fields reuse one
+                # upload
+                terr_key = 'terr_' + '|'.join(
+                    fc['field'] for fc in self.synthetic)
                 for i, fc in enumerate(self.synthetic):
                     all_i32, nok = first_ds if i == 0 \
                         else _memo1('dstats', fc['field'], dstats_fn)
@@ -470,17 +516,21 @@ class DeviceScan(VectorScan):
                         return None
                     synth_vals[fc['name']] = _memo1(
                         'date', fc['field'], src.date_i32)
-                for fc in self.synthetic:
-                    err = _memo1('derr', fc['field'], src.date_err)
-                    errs = err if errs is None else \
-                        np.where(errs == 0, err, errs)
+                errs = inputs.get(terr_key)
+                if errs is None:
+                    for fc in self.synthetic:
+                        err = _memo1('derr', fc['field'], src.date_err)
+                        errs = err if errs is None else \
+                            np.where(errs == 0, err, errs)
             else:
+                terr_key = pfx + 'terr'
                 for fc in self.synthetic:
                     vals, err = provider.date_column(fc['field'])
                     synth_vals[fc['name']] = vals
                     errs = err if errs is None else \
                         np.where(errs == 0, err, errs)
             ok = errs == 0
+            sfield = {s['name']: s['field'] for s in self.synthetic}
             need = set()
             if self.time_bounds is not None:
                 need.add('dn_ts')
@@ -491,7 +541,7 @@ class DeviceScan(VectorScan):
                 v = synth_vals[name]
                 if use_dstats:
                     # already exact-i32 with error rows zeroed
-                    inputs['ts_' + name] = v
+                    inputs['tsf_' + sfield[name]] = v
                     continue
                 vo = v[ok]
                 if len(vo) and not (np.all(np.isfinite(vo)) and
@@ -499,9 +549,9 @@ class DeviceScan(VectorScan):
                                     vo.min() >= I32MIN and
                                     vo.max() <= I32MAX):
                     return None
-                inputs['ts_' + name] = np.where(ok, v, 0).astype(
+                inputs[pfx + 'ts_' + name] = np.where(ok, v, 0).astype(
                     np.int64).astype(np.int32)
-            inputs['terr'] = errs
+            inputs[terr_key] = errs
 
         # key columns: update windows/caps, assemble uploads
         new_caps = []
@@ -522,7 +572,7 @@ class DeviceScan(VectorScan):
                         provider.string_codes(p.name, p.column),
                         dtype=np.int64)
                     radix_now = len(p.column.dict.values)
-                    inputs['key_' + p.name] = _narrow(
+                    inputs[pfx + 'key_' + p.name] = _narrow(
                         'key_' + p.name, codes, 0,
                         max(radix_now - 1, 0))
                 else:
@@ -533,7 +583,7 @@ class DeviceScan(VectorScan):
                         self._trans_dev[p.name] = (
                             len(trans), self._upload(
                                 trans.astype(np.int32)))
-                    inputs['trans_' + p.name] = \
+                    inputs[pfx + 'trans_' + p.name] = \
                         self._trans_dev[p.name][1]
                     if ('str_' + p.name) not in inputs:
                         # (a field that is both filter and breakdown
@@ -633,18 +683,17 @@ class DeviceScan(VectorScan):
         ns = 1
         for c in new_caps:
             ns *= c
+        sparse = False
         if ns > MAX_DENSE_SEGMENTS:
-            # per-column codes are i32 on device, so a fused key beyond
-            # i64 or a cap beyond 2^31 can never run there: host path,
-            # as in the reference.  Anything else needs the sparse
-            # (high-cardinality) program, which this port lacks.
+            # high-cardinality: no dense accumulator fits, so run the
+            # SPARSE program (fused i64 keys sort-merged into a
+            # device-resident compacted set).  Per-column codes are i32
+            # on device, so a fused key beyond 2^62 or a cap beyond
+            # 2^31 can never run there: host path instead.
             if ns > (1 << 62) or max(new_caps) > (1 << 31):
                 self._disabled = True
                 return None
-            raise DNError(
-                'device scan: %d segments exceed the dense accumulator '
-                '(%d); the sparse (high-cardinality) device program is '
-                'not yet ported' % (ns, MAX_DENSE_SEGMENTS))
+            sparse = True
 
         # commit plan-state changes; an epoch flip flushes
         for p, cap, lo, host, wset in pending:
@@ -655,6 +704,12 @@ class DeviceScan(VectorScan):
             self._flush()
             self._epoch_sig = sig
 
+        # the overflow guard runs AFTER any epoch-flip flush (a flush
+        # resets the unique-count bound, which must then re-reserve
+        # THIS batch or the bound undercounts by a batch)
+        if sparse and not self._sparse_guard(n):
+            return None
+
         # leaf outcome tables (grown host-side, resident on device)
         for i, (key, leaf) in enumerate(self._leaf_list):
             d = provider.parser.dictionary(leaf.field)
@@ -663,7 +718,7 @@ class DeviceScan(VectorScan):
             if cur is None or cur[0] < len(table):
                 up = table if len(table) else np.zeros(1, dtype=np.int8)
                 self._leaf_tables[i] = (len(table), self._upload(up))
-            inputs['tab_%d' % i] = self._leaf_tables[i][1]
+            inputs[pfx + 'tab_%d' % i] = self._leaf_tables[i][1]
             if i not in self._ctabs:
                 ctab = np.zeros(16, dtype=np.int8)
                 ctab[mn.TAG_MISSING] = ERROR
@@ -672,37 +727,95 @@ class DeviceScan(VectorScan):
                 ctab[mn.TAG_TRUE] = leaf.outcome(True)
                 ctab[mn.TAG_OBJECT] = leaf.outcome({})
                 self._ctabs[i] = self._upload(ctab)
-            inputs['ctab_%d' % i] = self._ctabs[i]
+            inputs[pfx + 'ctab_%d' % i] = self._ctabs[i]
 
         profile = (w1, gen_alive,
                    {f: (hs, hn, an) for f, hs, hn, an in filter_profile},
-                   frozenset(kvalid_profile))
+                   frozenset(kvalid_profile), use_dstats,
+                   self._sparse_cap if sparse else 0)
         return (n, profile, tuple(new_caps), ns, total_w)
 
-    def _ensure_acc(self, caps, ns):
+    def _sparse_guard(self, n):
+        """Prevent resident-set overflow BEFORE folding a batch: track
+        an upper bound on uniques (exact count at last check + records
+        since); when this batch could overflow, sync-fetch the true
+        count from the accumulator, and if still at risk flush the
+        (correct-so-far) epoch and grow the capacity.  Returns False
+        when the scan must take the host path instead (capacity
+        ceiling: device permanently disabled for this scan)."""
+        while True:
+            cap = self._sparse_cap
+            if self._sparse_ub + n <= cap:
+                self._sparse_ub += n
+                return True
+            if self._acc is not None and len(self._acc) == 5:
+                nuniq = int(self._acc[4][0])
+                if nuniq + n <= cap:
+                    self._sparse_ub = nuniq + n
+                    return True
+            self._flush()
+            if cap >= SPARSE_CAP_MAX:
+                self._disabled = True
+                self.aggr.stage.bump_hidden('nsparseceiling', 1)
+                LOG.info('sparse set capacity ceiling reached; '
+                         'host path takes over', cap=cap)
+                return False
+            self._sparse_cap = cap * 4
+            self.aggr.stage.bump_hidden('nsparsegrow', 1)
+            LOG.debug('sparse set grown', cap=self._sparse_cap)
+
+    def _ensure_acc(self, caps, ns, sparse_cap=0):
         if self._acc is None:
-            ns = max(ns, 1)
             dev = self.device
-            self._acc = (
-                torch.zeros(ns, dtype=torch.int64, device=dev),
-                torch.full((ns,), I64MAX, dtype=torch.int64, device=dev),
-                torch.zeros(len(self._counter_spec), dtype=torch.int64,
-                            device=dev))
+            ncnt = len(self._counter_spec)
+            i64 = torch.int64
+            if sparse_cap:
+                self._acc = (
+                    torch.full((sparse_cap,), I64MAX, dtype=i64,
+                               device=dev),
+                    torch.zeros(sparse_cap, dtype=i64, device=dev),
+                    torch.full((sparse_cap,), I64MAX, dtype=i64,
+                               device=dev),
+                    torch.zeros(ncnt, dtype=i64, device=dev),
+                    torch.zeros(2, dtype=i64, device=dev))
+            else:
+                acc_ns = max(ns, 1)
+                self._acc = (
+                    torch.zeros(acc_ns, dtype=i64, device=dev),
+                    torch.full((acc_ns,), I64MAX, dtype=i64, device=dev),
+                    torch.zeros(ncnt, dtype=i64, device=dev))
             self._acc_meta = {
                 'caps': tuple(caps),
                 'cols': [(p.kind, p.lo) for p in self._plans],
-                'ns': ns,
+                'ns': max(ns, 1),
+                'sparse_cap': sparse_cap,
             }
             self._acc_batch = 0
 
-    def _run_staged(self, staged, inputs):
-        n, profile, caps, ns, total_w = staged
-        use_kernel = bool(caps) and cuda_kernels.should_use(ns, total_w)
-        self._ensure_acc(caps, ns)
-        args = {k: (self._upload(v) if isinstance(v, np.ndarray) else v)
+    def _upload_inputs(self, inputs):
+        return {k: (self._upload(v) if isinstance(v, np.ndarray) else v)
                 for k, v in inputs.items()}
-        self._fold(args, n, profile, caps, ns, use_kernel,
-                   self._acc_batch << 32)
+
+    def _run_staged(self, staged, inputs):
+        self._fold_staged(staged, self._upload_inputs(inputs))
+
+    def _fold_staged(self, staged, args):
+        """Fold one staged batch (inputs already on the device) into
+        this scan's resident accumulator: the sparse fold, or the dense
+        body through the one-hot kernel or index_add_."""
+        n, profile, caps, ns, total_w = staged
+        sparse_cap = profile[-1]
+        self._ensure_acc(caps, ns, sparse_cap=sparse_cap)
+        base = self._acc_batch << 32
+        if sparse_cap:
+            # the guard reserved this batch in the bound already; the
+            # set's occupied prefix is at most the bound before it
+            self._fold_sparse(args, n, profile, caps,
+                              min(sparse_cap, self._sparse_ub - n), base)
+        else:
+            use_kernel = bool(caps) and cuda_kernels.should_use(ns,
+                                                                total_w)
+            self._fold(args, n, profile, caps, ns, use_kernel, base)
         self._acc_batch += 1
 
     # -- the device program -------------------------------------------------
@@ -710,8 +823,12 @@ class DeviceScan(VectorScan):
     def _body(self, args, n, profile, caps, ns, use_kernel, acc_dense):
         """One batch on the device -> (dense i64[ns], first i32[ns],
         cvec i32[ncounters]).  On the kernel route the weights go
-        straight into `acc_dense` and dense is None."""
-        w1, gen_alive, fprof, kvalid_skip = profile
+        straight into `acc_dense` and dense is None.  In sparse mode
+        -> (cvec, fused i64[n] with dead rows at I64MAX, weights
+        i64[n])."""
+        w1, gen_alive, fprof, kvalid_skip, use_dstats, sparse_cap = \
+            profile
+        pfx = self._pfx
         dev = self.device
         i32 = torch.int32
         i8 = torch.int8
@@ -752,11 +869,12 @@ class DeviceScan(VectorScan):
                 # every row numeric: tags/str uploads were skipped
                 return leaf_num_out(i, f)
             tags = args['tags_' + f].to(torch.int64)
-            out = args['ctab_%d' % i][tags]
+            out = args[pfx + 'ctab_%d' % i][tags]
             if has_str:
                 out = torch.where(
                     tags == mn.TAG_STRING,
-                    args['tab_%d' % i][as_index(args['str_' + f])], out)
+                    args[pfx + 'tab_%d' % i][as_index(args['str_' + f])],
+                    out)
             if not has_num:
                 return out
             numm = (tags == mn.TAG_INT) | (tags == mn.TAG_NUMBER)
@@ -801,9 +919,19 @@ class DeviceScan(VectorScan):
             alive = alive & (out == TRUE)
             counters.append(isum(alive))
 
+        # ts/terr keys mirror _stage_device: shared field-keyed
+        # uploads under dstats, scan-private otherwise
+        sfield = {s['name']: s['field'] for s in self.synthetic}
+
+        def ts_arg(name):
+            return args['tsf_' + sfield[name]] if use_dstats \
+                else args[pfx + 'ts_' + name]
+
         if self.synthetic:
             counters.append(isum(alive))
-            terr = args['terr']
+            terr = args['terr_' + '|'.join(
+                fc['field'] for fc in self.synthetic)] if use_dstats \
+                else args[pfx + 'terr']
             counters.append(isum(alive & (terr == 1)))   # UNDEF
             counters.append(isum(alive & (terr == 2)))   # BADDATE
             alive = alive & (terr == 0)
@@ -811,7 +939,7 @@ class DeviceScan(VectorScan):
 
         if self.time_bounds is not None:
             counters.append(isum(alive))
-            ts = args['ts_dn_ts']
+            ts = ts_arg('dn_ts')
             lo, hi = self.time_bounds
             ok = torch.ones(n, dtype=torch.bool, device=dev)
             # uploaded ts values are exact-i32, so a bound outside i32
@@ -838,13 +966,13 @@ class DeviceScan(VectorScan):
         for p in self._plans:
             if p.kind == 'str':
                 if p.host_translate:
-                    codes.append(as_i32(args['key_' + p.name]))
+                    codes.append(as_i32(args[pfx + 'key_' + p.name]))
                 else:
-                    codes.append(args['trans_' + p.name][
+                    codes.append(args[pfx + 'trans_' + p.name][
                         as_index(args['str_' + p.name])])
                 continue
             if p.field.startswith('\0synth:'):
-                v = as_i32(args['ts_' + p.field[len('\0synth:'):]])
+                v = as_i32(ts_arg(p.field[len('\0synth:'):]))
             else:
                 if p.name not in kvalid_skip:
                     valid = args['kvalid_' + p.name]
@@ -857,8 +985,22 @@ class DeviceScan(VectorScan):
                 codes.append(torch.div(v, p.step, rounding_mode='floor')
                              - p.lo)
         counters.append(nnon)
-        counters.append(torch.zeros((), dtype=i32, device=dev))
+        # nspillrecords: records aggregated through the sparse program
+        counters.append(isum(alive) if sparse_cap
+                        else torch.zeros((), dtype=i32, device=dev))
         cvec = torch.stack(counters)
+
+        if sparse_cap:
+            # sparse mode: fused i64 keys + weights; the fold
+            # sort-merges them into the resident compacted set
+            i64 = torch.int64
+            fused = torch.zeros(n, dtype=i64, device=dev)
+            for c, cap in zip(codes, caps):
+                fused = fused * cap + c.to(i64)
+            fused = torch.where(alive, fused, I64MAX)
+            wb = alive.to(i64) if w1 else \
+                torch.where(alive, weights, 0).to(i64)
+            return cvec, fused, wb
 
         if not codes:
             w = alive.to(i32) if w1 else torch.where(alive, weights, 0)
@@ -903,6 +1045,19 @@ class DeviceScan(VectorScan):
         torch.minimum(acc_first, bfirst, out=acc_first)
         acc_cvec += cvec.to(torch.int64)
 
+    def _fold_sparse(self, args, n, profile, caps, occupied, base):
+        """One batch sort-merged into the resident sparse set: its row
+        keys take first occurrence (batch_base | row) and weight 1 or
+        its weight; see fold_sparse."""
+        cvec, fused, wb = self._body(args, n, profile, caps, 0, False,
+                                     None)
+        first_b = torch.where(
+            fused != I64MAX,
+            torch.arange(n, dtype=torch.int64, device=self.device) + base,
+            I64MAX)
+        self._acc = fold_sparse(self._acc, cvec, fused, wb, first_b,
+                                occupied)
+
     # -- flush: fetch + ordered merge ---------------------------------------
 
     def _flush(self):
@@ -920,6 +1075,12 @@ class DeviceScan(VectorScan):
         # (kept out of the --counters dump for golden byte parity)
         if nbatches:
             self.aggr.stage.bump_hidden('ndevicebatches', nbatches)
+        sparse_ub = self._sparse_ub
+        self._sparse_ub = 0
+
+        if meta['sparse_cap']:
+            self._flush_sparse(acc, meta, sparse_ub)
+            return
 
         if not meta['cols']:
             self._emit_counters(acc[2].cpu().numpy())
@@ -936,6 +1097,74 @@ class DeviceScan(VectorScan):
         # are already engine-dictionary codes; bucket codes offset
         # by the window origin give raw ordinals
         self._decode_emit(meta, segs, wsum)
+
+    def _flush_sparse(self, acc, meta, sparse_ub):
+        """Flush the sparse (high-cardinality) accumulator: the set is
+        already compact, so fetch its occupied slots ordered by first
+        occurrence (decoded + narrowed on device), sized by the
+        epoch's unique-count upper bound."""
+        k0 = _pow2(max(min(sparse_ub, meta['sparse_cap']), 1)) \
+            if sparse_ub else self.COMPACT_K
+        cols, wsum, cvec, stats = _sparse_fetch(acc, k0, meta['caps'])
+        self.aggr.stage.bump_hidden('ncompactflush', 1)
+        if int(stats[1]):
+            # the host pressure guard exists to make this unreachable;
+            # if it ever trips, results are incomplete — fail loudly
+            raise RuntimeError(
+                'device sparse aggregation overflowed its resident set'
+                ' (cap=%d); results would be incomplete'
+                % meta['sparse_cap'])
+        self._emit_counters(cvec)
+        self._emit_cols(meta, cols, wsum)
+
+
+def fold_sparse(acc, cvec, fused, wb, first_b, occupied=None):
+    """Sparse fold: sort-merge one batch's fused i64 keys (dead rows at
+    I64MAX), i64 weights and first-occurrence keys into the resident
+    compacted set `acc` = (keys, wsum, first, cvec, stats), returning
+    the new accumulator.  keys/first take the per-key min
+    (first-occurrence order preserved exactly), weights sum, and the
+    unique count rides along in stats[0] so the host pressure guard
+    can read it without a full fetch; stats[1] is the sticky overflow
+    flag.
+
+    The set keeps its occupied slots sorted by key in a prefix, with
+    I64MAX / 0 / I64MAX past it, so only `occupied` (an upper bound on
+    the prefix; default the whole set) plus the batch are sorted and
+    rewritten.  Run ids past the capacity land in one extra slot of a
+    cap + 1 buffer that is sliced off (torch's scatters would raise on
+    them); the overflow flag makes that loud at flush."""
+    sparse_folds['fold_sparse'] += 1
+    keys0, wsum0, first0, cvec0, stats0 = acc
+    cap = int(keys0.shape[0])
+    occ = cap if occupied is None else max(0, min(int(occupied), cap))
+    i64 = torch.int64
+    k = torch.cat([keys0[:occ], fused])
+    order = torch.argsort(k)
+    ks = k[order]
+    ws = torch.cat([wsum0[:occ], wb])[order]
+    fs = torch.cat([first0[:occ], first_b])[order]
+    newrun = torch.ones_like(ks, dtype=torch.bool)
+    newrun[1:] = ks[1:] != ks[:-1]
+    seg = torch.cumsum(newrun, 0, dtype=i64) - 1
+    nuniq = (newrun & (ks != I64MAX)).sum(dtype=i64)
+    # the rewritten prefix: every unique of the merge fits in it when
+    # the guard's bound holds (slots past it are untouched sentinels)
+    m = min(cap, int(k.shape[0]))
+    seg = torch.clamp_max(seg, m)
+    dev = ks.device
+    keys1 = torch.full((m + 1,), I64MAX, dtype=i64, device=dev)
+    keys1.scatter_reduce_(0, seg, ks, 'amin', include_self=True)
+    wsum1 = torch.zeros(m + 1, dtype=i64, device=dev)
+    wsum1.index_add_(0, seg, ws)
+    first1 = torch.full((m + 1,), I64MAX, dtype=i64, device=dev)
+    first1.scatter_reduce_(0, seg, fs, 'amin', include_self=True)
+    keys0[:m] = keys1[:m]
+    wsum0[:m] = wsum1[:m]
+    first0[:m] = first1[:m]
+    over = torch.maximum(stats0[1], (nuniq > cap).to(i64))
+    return (keys0, wsum0, first0, cvec0 + cvec.to(i64),
+            torch.stack([nuniq, over]))
 
 
 def _compact_program(acc, k):
@@ -980,6 +1209,73 @@ def _dense_full_result(acc):
     return segs, dense[segs].astype(np.float64), cvec
 
 
+def _narrow_dtype(cap):
+    if cap <= 256:
+        return torch.uint8
+    if cap <= 32768:
+        return torch.int16
+    return torch.int32
+
+
+def _sparse_program(acc, k, caps):
+    """Compacting fetch of the sparse set: occupied slots ordered by
+    first occurrence, with the fused keys DECODED to per-column codes on
+    device and every output dtype-narrowed (the fewest bytes that
+    represent the result), plus a flag that triggers the full-precision
+    refetch for weight sums beyond i32."""
+    keys, wsum, first, cvec, stats = acc
+    order = torch.argsort(first, stable=True)[:k]
+    ks = keys[order]
+    cols = []
+    div = 1
+    for cap_i in reversed(caps):
+        c = torch.remainder(torch.div(ks, div, rounding_mode='floor'),
+                            cap_i)
+        cols.append(c.to(_narrow_dtype(cap_i)))
+        div *= cap_i
+    cols.reverse()
+    ws = wsum[order]
+    wof = ((ws > I32MAX) | (ws < I32MIN)).any()
+    return cols, ws.to(torch.int32), wof, cvec, stats
+
+
+def _sparse_program_full(acc, k):
+    """Full-precision fetch (i64 keys + weights): used when a weight
+    sum overflows i32 (the wof flag)."""
+    keys, wsum, first, cvec, stats = acc
+    order = torch.argsort(first, stable=True)[:k]
+    return keys[order], wsum[order], cvec, stats
+
+
+def _sparse_fetch(acc, k0, caps):
+    """Fetch the sparse accumulator's occupied slots in exact
+    first-occurrence order: (per-column code arrays i64, weights f64,
+    cvec, stats).  One round trip when the unique count fits the
+    speculative width."""
+    cap = int(acc[0].shape[0])
+    k = min(cap, k0)
+    while True:
+        cols, w32, wof, cvec, stats = _sparse_program(acc, k, tuple(caps))
+        st = stats.cpu().numpy()
+        n = int(st[0])
+        if n > k:
+            if k < cap:
+                k = min(cap, _pow2(n))
+                continue
+            # n > capacity: genuine overflow — fetch what exists and
+            # let the caller's stats[1] check raise loudly
+            n = k
+        if bool(wof):
+            keys, wsum, cvec, stats = _sparse_program_full(acc, k)
+            kn = keys[:n].cpu().numpy()
+            return (_decode_fused(kn, caps),
+                    wsum[:n].cpu().numpy().astype(np.float64),
+                    cvec.cpu().numpy(), st)
+        return ([c[:n].cpu().numpy().astype(np.int64) for c in cols],
+                w32[:n].cpu().numpy().astype(np.float64),
+                cvec.cpu().numpy(), st)
+
+
 def _decode_fused(keys, caps):
     """Host-side fused-key decode."""
     rem = keys.copy()
@@ -988,3 +1284,78 @@ def _decode_fused(keys, caps):
         cols[ci] = rem % caps[ci]
         rem = rem // caps[ci]
     return cols
+
+
+class DeviceScanStack(object):
+    """One staged input dict per batch for an N-metric build.
+
+    Every scan stages its inputs into ONE merged dict (parser-derived
+    columns use shared keys, so a column read by several metrics is
+    uploaded once; per-scan inputs carry an 'm<i>_' prefix), then each
+    scan folds the batch into its own device-resident accumulator —
+    dense (one-hot kernel or index_add_) or sparse.  Scans keep their
+    own accumulators, flush and emission, so per-scan results (and the
+    index artifacts) are byte-identical to the unstacked path.
+
+    The reference jits the N folds into one combined program, caches it
+    across builds (_STACK_CACHE) and memoizes the program keys
+    (_pkey_memo); eager torch ops compile nothing, so the port has
+    neither."""
+
+    def __init__(self, scans):
+        self.scans = list(scans)
+        # shared sticky upload-profile state: widening decisions apply
+        # to the shared physical inputs, so all scans must agree
+        shared = {'w1': True, 'gen_alive': True, 'filter': {},
+                  'kvalid': {}, 'dtypes': {}}
+        for i, s in enumerate(self.scans):
+            assert s.STACKABLE
+            s._pfx = 'm%d_' % i
+            s._sticky = shared
+
+    def process(self, provider, weights, alive):
+        """Process one batch for every scan: the stacked device fold
+        when every scan stages successfully, else the per-scan paths
+        (each of which may still use its own device fold or the host
+        engine).  Exactly one of these runs per batch, so insertion
+        order and results match the unstacked path."""
+        if self._device_eligible(provider) and \
+                self._process_device(provider, weights, alive):
+            return
+        for s in self.scans:
+            s._process(provider, weights, alive=alive)
+
+    def _device_eligible(self, provider):
+        # the forced lane: no escalation or audition to wait for
+        return isinstance(provider, NativeColumns) and \
+            not any(s._disabled for s in self.scans)
+
+    def _process_device(self, provider, weights, alive):
+        inputs = {}
+        staged = []
+        for s in self.scans:
+            st = s._stage_device(provider, weights, alive, inputs)
+            if st is None:
+                return False
+            staged.append(st)
+        args = self.scans[0]._upload_inputs(inputs)
+        for s, st in zip(self.scans, staged):
+            s._fold_staged(st, args)
+            # telemetry: this batch went through the stacked fold
+            # (kept out of --counters for golden byte parity)
+            s.aggr.stage.bump_hidden('nstackedbatches', 1)
+        return True
+
+
+def make_stack(scanners):
+    """A DeviceScanStack when the scanner set supports it (>= 2 device
+    scans), else None (callers keep the per-scan loop).  DN_STACK=0
+    disables stacking (per-scan device folds still run)."""
+    if os.environ.get('DN_STACK', '1') == '0':
+        return None
+    if len(scanners) < 2:
+        return None
+    if not all(isinstance(s, DeviceScan) and s.STACKABLE
+               for s in scanners):
+        return None
+    return DeviceScanStack(scanners)

@@ -1,0 +1,597 @@
+"""Batched, parallel index build: columnar bucket routing and a shard
+writer pool.
+
+Counterpart (a copy) of dragnet_tpu/index_build_mt.py.  A per-point
+write path would flatten aggregates into field dicts tagged with
+__dn_metric, format one ISO timestamp per dict to pick its hour/day
+shard, call sink.write() once per point and flush every interval shard
+sequentially.  This module owns the write side's three fixes:
+
+* Columnar blocks: the Aggregator exports each metric's result as
+  parallel key columns + weights (Aggregator.point_rows, the same
+  decoded values points() emits) — no per-point dicts, no re-lookup of
+  breakdown fields by name per point.
+
+* Vectorized bucketing: hour/day shard membership is derived from the
+  __dn_ts column with integer floor-division in one numpy pass; the
+  ISO label is formatted once per *bucket*, not once per point
+  (bucket-min values are step-aligned, so flooring to the interval
+  span reproduces the old prefix-of-to_iso_string label exactly).
+
+* A shard writer pool: each bucket's sink is created, bulk-written
+  (sink.write_rows), flushed, and cache-invalidated by exactly one
+  DN_BUILD_THREADS worker (auto = min(6, cpus-1); 0 = the sequential
+  loop).  Output files are byte-identical for any worker count — every
+  shard's bytes depend only on its own rows, whose order is pinned to
+  the emission order — and the first error re-raises deterministically
+  in bucket order after the pool drains.  Undrained pools are caught
+  by watchdog.LeakCheck at exit.
+
+StreamingIndexWriter covers the other producer of index files, the
+stdin point stream of `dn index-read`: points arrive in bounded chunks
+(the old path materialized the whole stream), route through the same
+bulk write path, and flush on the same pool.
+"""
+
+import os
+import threading
+from collections import OrderedDict
+
+import numpy as np
+
+from .errors import DNError
+from . import jsvalues as jsv
+from .index_sink import (make_index_sink, metric_catalog_rows,
+                         point_metric, point_row)
+from .watchdog import LeakCheck
+
+# a flush executor that is never drained means some shards may never
+# have been written (or their errors never surfaced)
+_EXECUTOR_LEAKS = LeakCheck(
+    'index-build flush executor(s) never drained; index shards may be '
+    'missing', lambda ex: not ex.closed)
+
+# -- post-write notification ------------------------------------------------
+#
+# Every completed index write (build fan-out, streaming index-read,
+# the `_index_write` path) already invalidates the reader caches shard
+# by shard (shard_cache_invalidate); these hooks additionally tell
+# long-lived observers — `dn serve`'s lifecycle layer — that a write
+# LANDED, so they can retire whole-tree derived state (find memo,
+# handle cache sweeps) and count invalidations coherently.
+
+_WRITE_HOOKS_LOCK = threading.Lock()
+_WRITE_HOOKS = []
+
+
+def register_index_write_hook(fn):
+    """fn(indexroot, shard_paths) runs after every completed index
+    write.  Hook errors are swallowed (writers must not fail because
+    an observer did)."""
+    with _WRITE_HOOKS_LOCK:
+        _WRITE_HOOKS.append(fn)
+
+
+def unregister_index_write_hook(fn):
+    with _WRITE_HOOKS_LOCK:
+        if fn in _WRITE_HOOKS:
+            _WRITE_HOOKS.remove(fn)
+
+
+def _notify_index_written(indexroot, paths):
+    with _WRITE_HOOKS_LOCK:
+        hooks = list(_WRITE_HOOKS)
+    for fn in hooks:
+        try:
+            fn(indexroot, list(paths))
+        except Exception:
+            pass
+
+
+def build_threads():
+    """Worker-pool size for the index-write fan-out.  DN_BUILD_THREADS:
+    auto (default) = min(6, cpus - 1) — one core stays with the caller
+    (which in the build path just submitted and waits, but in the
+    streaming path keeps parsing stdin while shards flush); at least 1,
+    0 = sequential."""
+    v = os.environ.get('DN_BUILD_THREADS', 'auto')
+    if v != 'auto':
+        try:
+            return max(0, int(v))
+        except ValueError:
+            return 0
+    return max(1, min(6, (os.cpu_count() or 2) - 1))
+
+
+# interval -> (span_seconds, iso-prefix length).  The shard label is
+# the prefix of the bucket start's ISO timestamp with 'T' -> '-'
+# ('2014-07-02' / '2014-07-02-13'), exactly what the per-point
+# to_iso_string slicing produced.
+_INTERVALS = {
+    'hour': (3600, len('2014-07-02T00')),
+    'day': (86400, len('2014-07-02')),
+}
+
+
+def interval_span(interval):
+    """Seconds per shard for an hour/day interval (DNError otherwise,
+    matching the sequential path's message)."""
+    if interval not in _INTERVALS:
+        raise DNError('unsupported interval: "%s"' % interval)
+    return _INTERVALS[interval][0]
+
+
+def bucket_label(bucket_s, interval):
+    """Shard filename stem for a bucket start (seconds, span-aligned)."""
+    prefixlen = _INTERVALS[interval][1]
+    return jsv.to_iso_string(bucket_s * 1000)[:prefixlen] \
+        .replace('T', '-')
+
+
+def bucket_starts(ts_values, span):
+    """Floor a __dn_ts column to its interval span in one vectorized
+    pass — the per-point to_iso_string + date_parse round trip reduced
+    to integer arithmetic.  Accepts the Python-number columns the
+    Aggregator emits (bucket-min ints; floats tolerated); non-numeric
+    values raise the same DNError contract the sinks use."""
+    if not ts_values:
+        return np.zeros(0, dtype=np.int64)
+    try:
+        arr = np.asarray(ts_values)
+        if arr.dtype == object or arr.dtype.kind not in 'iuf':
+            raise ValueError(arr.dtype)
+        return (np.floor_divide(arr, span) * span).astype(np.int64)
+    except (ValueError, TypeError, OverflowError):
+        # mixed/huge values: exact Python floor division, still no
+        # per-point string formatting
+        out = []
+        for t in ts_values:
+            if not jsv.is_number(t):
+                raise DNError('index point has non-numeric "__dn_ts": '
+                              '%r' % (t,))
+            out.append(int(t // span) * span)
+        return np.asarray(out, dtype=np.int64)
+
+
+# -- flush pool ------------------------------------------------------------
+
+class SinkFlushExecutor(object):
+    """Run per-bucket build tasks across worker threads AND the
+    caller's thread (the caller has no merge work during a build, so
+    it claims tasks like any worker instead of idling — on a 2-core
+    host DN_BUILD_THREADS=1 means two active flushers).
+
+    Tasks are claimed in bucket order off a shared cursor; each runs
+    entirely on one thread (so a sink is only ever touched by a single
+    thread).  Errors are collected per task index, tasks ordered after
+    the earliest known failure are skipped (the sequential loop would
+    never have reached them), and after everything drains the earliest
+    error — by bucket order, deterministically — is re-raised."""
+
+    def __init__(self, nworkers):
+        assert nworkers >= 1, nworkers
+        self.closed = False
+        _EXECUTOR_LEAKS.track(self)
+        self.nworkers = nworkers
+        self.lock = threading.Lock()
+        self.first_err = None          # (seq, exception)
+        self.threads = []
+        self._tasks = []
+        self._next = 0
+
+    def _drain(self):
+        while True:
+            with self.lock:
+                seq = self._next
+                if seq >= len(self._tasks):
+                    return
+                self._next = seq + 1
+                skip = self.first_err is not None and \
+                    seq > self.first_err[0]
+            if skip:
+                continue
+            try:
+                self._tasks[seq]()
+            except BaseException as e:
+                with self.lock:
+                    if self.first_err is None or seq < self.first_err[0]:
+                        self.first_err = (seq, e)
+
+    def run(self, tasks):
+        """Execute every task; must be called exactly once.  Raises the
+        earliest (bucket-order) task error after all threads drain."""
+        self._tasks = list(tasks)
+        try:
+            for _ in range(self.nworkers):
+                t = threading.Thread(target=self._drain, daemon=True)
+                t.start()
+                self.threads.append(t)
+            self._drain()              # the caller works too
+        finally:
+            self.close()
+        if self.first_err is not None:
+            raise self.first_err[1]
+
+    def close(self):
+        if self.closed:
+            return
+        with self.lock:
+            self._next = len(self._tasks)    # stop claiming
+        for t in self.threads:
+            t.join()
+        self.threads = []
+        self.closed = True
+
+
+def run_flush_tasks(tasks, nworkers=None):
+    """Run per-bucket build tasks on the DN_BUILD_THREADS pool
+    (nworkers overrides; 0 = the in-order sequential loop, identical
+    output bytes either way — a single task skips the pool)."""
+    if nworkers is None:
+        nworkers = build_threads()
+    if nworkers <= 0 or len(tasks) <= 1:
+        for task in tasks:
+            task()
+        return
+    ex = SinkFlushExecutor(min(nworkers, len(tasks)))
+    ex.run(tasks)
+
+
+# -- build-side entry: columnar blocks -> sharded index files --------------
+
+def _breakdown_positions(decomp_names, metric):
+    """Column index of each of the metric's breakdowns within its
+    aggregate's decomposition tuple (duplicate names: last wins, the
+    dict-fields behavior of the per-point path)."""
+    pos = {name: i for i, name in enumerate(decomp_names)}
+    sel = []
+    for b in metric.m_breakdowns:
+        if b['b_name'] not in pos:
+            raise DNError('point is missing breakdown "%s"'
+                          % b['b_name'])
+        sel.append(pos[b['b_name']])
+    return sel
+
+
+def _prepare_task(metrics, indexpath, config, parts, catalog, suffix,
+                  out, i):
+    """One bucket's PREPARE, run by exactly one worker: create the
+    sink (per-build tmp suffix), bulk-append every metric's rows, and
+    write the complete tmp file — no rename yet; the journaled commit
+    phase (_publish_buckets) renames every prepared shard at once.
+    `catalog` is the shared metric_catalog_rows result — identical in
+    every shard, serialized once per build instead of once per
+    shard."""
+    def task():
+        sink = make_index_sink(metrics, indexpath, config=config,
+                               catalog=catalog, tmp_suffix=suffix)
+        out[i] = sink
+        try:
+            for mi, keycols, values in parts:
+                sink.write_rows(mi, keycols, values)
+            sink.prepare()
+        except BaseException:
+            sink.abort()      # crash hygiene: no tmp litter
+            out[i] = None
+            raise
+    return task
+
+
+def publish_prepared(journal, sinks, paths, extra_paths=None,
+                     deletes=None, integrity_remove=None):
+    """The commit phase shared by the block, streaming, and follow
+    publishers: land the journal's commit record (THE commit point),
+    rename every prepared tmp into place in bucket order, retire the
+    journal.
+
+    `extra_paths` is the append-merge publish seam `dn follow` rides:
+    non-shard files (its durable checkpoint) whose complete tmps were
+    pre-written at journal.tmp_for(final).  They join the SAME commit
+    record and rename after the shards, so a batch's shard updates and
+    its checkpoint land atomically-or-not-at-all across kill -9 — the
+    checkpoint can never claim bytes whose shards rolled back, nor
+    miss bytes whose shards rolled forward.
+
+    Rename failures do NOT discard state: the commit record makes the
+    tmps durable publish intent, so every remaining tmp and the
+    journal stay on disk and the loop keeps renaming what it can —
+    the recovery sweep finishes the publish once this process dies,
+    or the next build over the tree supersedes the intent
+    (index_journal.cleanup_own_stale).  The earliest bucket-order
+    error still re-raises so the caller reports the failure.
+
+    Integrity: every prepared shard tmp is checksummed (size + crc32)
+    BEFORE the commit record lands; the checksums ride the record (so
+    a crash between record and catalog is recovered by the sweep's
+    roll-forward) and land in the per-tree `.dn_integrity.json`
+    catalog after the renames — verified reads (DN_VERIFY) and `dn
+    scrub` compare committed bytes against exactly what this publish
+    wrote.  extra_paths (the follow checkpoint, not a shard) are
+    excluded: the catalog describes the queryable shard set.
+
+    `deletes` + `integrity_remove` are the compactor's supersede
+    seam: generation shards consumed by a rewrite ride the commit
+    record and are unlinked (and de-catalogued) only AFTER every
+    rename lands — a crash at any instant leaves either the full old
+    generation set or the compacted shard (possibly plus stale
+    generations the roll-forward/next pass retires), never a tree
+    missing rows."""
+    from . import integrity as mod_integrity
+    from .index_query_mt import shard_cache_invalidate
+    from .obs import metrics as obs_metrics
+    extra_paths = list(extra_paths or [])
+    with obs_metrics.timed_stage('index_build.commit',
+                                 nshards=len(paths)):
+        integ = mod_integrity.integrity_entries(
+            [os.path.abspath(p) for p in paths],
+            tmp_for=journal.tmp_for)
+        try:
+            journal.record_commit(list(paths) + extra_paths,
+                                  integrity=integ, deletes=deletes,
+                                  integrity_remove=integrity_remove)
+        except BaseException:
+            # PRE-commit failure (e.g. ENOSPC on the record itself):
+            # nothing was published, so the prepared tmps are not
+            # recoverable intent — discard them all.  A retry loop
+            # (follow's publish backoff) must never fill the disk
+            # with one stranded prepared set per failed attempt.
+            for sink in sinks:
+                if sink is not None:
+                    sink.abort()
+            for path in extra_paths:
+                try:
+                    os.unlink(journal.tmp_for(path))
+                except OSError:
+                    pass
+            raise
+        err = None
+        for sink, path in zip(sinks, paths):
+            try:
+                sink.commit(discard_on_error=False)
+                shard_cache_invalidate(path)
+            except BaseException as e:
+                if err is None:
+                    err = e
+        for path in extra_paths:
+            try:
+                os.rename(journal.tmp_for(path), path)
+            except OSError as e:
+                if err is None:
+                    err = e
+        if err is not None:
+            raise err
+        mod_integrity.record_published(integ)
+        if deletes or integrity_remove:
+            from . import index_journal as mod_journal
+            mod_journal.apply_commit_deletes({
+                'deletes': list(deletes or []),
+                'integrity_remove': dict(integrity_remove or {})})
+        journal.retire()
+
+
+def _publish_buckets(metrics, indexroot, buckets, catalog, nworkers):
+    """Two-phase publish of one build's whole shard set.  `buckets` is
+    [(indexpath, config, parts)] in bucket order.  Phase 1 prepares
+    every shard's complete tmp on the flush pool; phase 2 is
+    publish_prepared.  A crash at any instant leaves a tree the
+    recovery sweep lands on exactly pre-build (no commit record: tmps
+    quarantined) or exactly post-build (commit record: renames
+    finished) — never a mix.  Prepare-phase errors keep the seed
+    contract: the earliest bucket-order error re-raises and no tmp
+    litter survives."""
+    from . import index_journal as mod_journal
+    from .obs import metrics as obs_metrics
+    from .obs import trace as obs_trace
+
+    mod_journal.sweep_index_tree(indexroot)
+    mod_journal.cleanup_own_stale(indexroot)
+    journal = mod_journal.BuildJournal(indexroot)
+    paths = [p for p, config, parts in buckets]
+    sinks = [None] * len(buckets)
+    tasks = [_prepare_task(metrics, path, config, parts, catalog,
+                           journal.tmp_suffix, sinks, i)
+             for i, (path, config, parts) in enumerate(buckets)]
+    try:
+        with obs_metrics.timed_stage('index_build.prepare',
+                                     nshards=len(buckets)):
+            run_flush_tasks(tasks, nworkers)
+    except BaseException:
+        for sink in sinks:
+            if sink is not None:
+                sink.abort()
+        raise
+    with obs_trace.span('index_build.publish', nshards=len(paths)):
+        publish_prepared(journal, sinks, paths)
+        _notify_index_written(indexroot, paths)
+
+
+def write_index_blocks(metrics, interval, indexroot, blocks,
+                       nworkers=None):
+    """Write per-metric columnar aggregate blocks into interval-chunked
+    index files.  `blocks` is one (decomp_names, key_columns, weights)
+    triple per metric — Aggregator.point_rows output plus its decomp
+    names — in metric order.  Behaviorally identical to the retired
+    per-point loop (same files, same bytes, same dn_start config) for
+    any worker count; the shard set publishes through the crash-safe
+    journal (_publish_buckets)."""
+    catalog = metric_catalog_rows(metrics)
+    if interval == 'all':
+        parts = []
+        for mi, (names, cols, weights) in enumerate(blocks):
+            sel = _breakdown_positions(names, metrics[mi])
+            parts.append((mi, [cols[p] for p in sel], weights))
+        allpath = os.path.join(indexroot, 'all')
+        _publish_buckets(metrics, indexroot,
+                         [(allpath, None, parts)], catalog, nworkers)
+        return
+
+    span = interval_span(interval)
+    root = os.path.join(indexroot, 'by_' + interval)
+
+    buckets = OrderedDict()     # bucket_s -> [(mi, keycols, values)]
+    for mi, (names, cols, weights) in enumerate(blocks):
+        if not weights:
+            continue
+        if '__dn_ts' not in names:
+            raise DNError('point is missing breakdown "__dn_ts"')
+        sel = _breakdown_positions(names, metrics[mi])
+        bs = bucket_starts(cols[names.index('__dn_ts')], span)
+        uniq, inv = np.unique(bs, return_inverse=True)
+        inv = inv.reshape(-1)   # numpy-2 return_inverse shape quirk
+        if len(uniq) == 1:
+            # single-shard metric: append the columns whole
+            buckets.setdefault(int(uniq[0]), []).append(
+                (mi, [cols[p] for p in sel], weights))
+            continue
+        # stable sort by bucket keeps each bucket's rows in emission
+        # order — the property that makes the output byte-identical to
+        # the per-point sequential loop
+        order = np.argsort(inv, kind='stable').tolist()
+        counts = np.bincount(inv).tolist()
+        pos = 0
+        selcols = [cols[p] for p in sel]
+        for k, b in enumerate(uniq.tolist()):
+            idxs = order[pos:pos + counts[k]]
+            pos += counts[k]
+            buckets.setdefault(int(b), []).append(
+                (mi,
+                 [[col[i] for i in idxs] for col in selcols],
+                 [weights[i] for i in idxs]))
+
+    ordered = []
+    for bucket_s in sorted(buckets):
+        indexpath = os.path.join(
+            root, bucket_label(bucket_s, interval) + '.sqlite')
+        ordered.append((indexpath, {'dn_start': bucket_s},
+                        buckets[bucket_s]))
+    _publish_buckets(metrics, indexroot, ordered, catalog, nworkers)
+
+
+# -- streaming entry: tagged point chunks -> sharded index files -----------
+
+class StreamingIndexWriter(object):
+    """Incremental tagged-point index writer (the `dn index-read`
+    path): chunks of (fields, value) points — each carrying
+    __dn_metric and, for hour/day intervals, __dn_ts — route to
+    per-bucket sinks through the bulk write path, and finish() flushes
+    every sink on the build pool.  Peak memory is bounded by the chunk
+    size plus the sinks' own buffering (for the SQLite engine rows go
+    straight to disk; DNC buffers unique aggregate tuples, the
+    reference's own memory model), not by the stream length.
+
+    Sinks are created on the caller's thread and flushed by exactly
+    one worker; access is serialized by the task structure."""
+
+    def __init__(self, metrics, interval, indexroot):
+        from . import index_journal as mod_journal
+        self.metrics = metrics
+        self.interval = interval
+        self.indexroot = indexroot
+        # every sink writes tmps under this build's id; finish()
+        # publishes the whole set through the commit journal
+        mod_journal.sweep_index_tree(indexroot)
+        mod_journal.cleanup_own_stale(indexroot)
+        self._journal = mod_journal.BuildJournal(indexroot)
+        self._catalog = metric_catalog_rows(metrics)
+        self._names = [[b['b_name'] for b in m.m_breakdowns]
+                       for m in metrics]
+        if interval == 'all':
+            self.span = None
+            self.root = indexroot
+        else:
+            self.span = interval_span(interval)
+            self.root = os.path.join(indexroot, 'by_' + interval)
+        self.sinks = OrderedDict()      # bucket_s (or None) -> sink
+        self.sinkpaths = {}
+
+    def _sink_for(self, bucket_s):
+        sink = self.sinks.get(bucket_s)
+        if sink is None:
+            if bucket_s is None:
+                indexpath = os.path.join(self.root, 'all')
+                config = None
+            else:
+                indexpath = os.path.join(
+                    self.root,
+                    bucket_label(bucket_s, self.interval) + '.sqlite')
+                config = {'dn_start': bucket_s}
+            sink = make_index_sink(self.metrics, indexpath,
+                                   config=config,
+                                   catalog=self._catalog,
+                                   tmp_suffix=self._journal.tmp_suffix)
+            self.sinks[bucket_s] = sink
+            self.sinkpaths[bucket_s] = indexpath
+        return sink
+
+    def write_points(self, points):
+        """Route one bounded chunk of tagged points.  Rows are grouped
+        per (bucket, metric) in first-appearance order — for the
+        metric-major streams index-scan emits, the resulting insert
+        order is identical to the per-point loop's."""
+        groups = OrderedDict()
+        for fields, value in points:
+            mi = point_metric(fields, len(self.metrics))
+            if self.span is None:
+                bucket_s = None
+            else:
+                dnts = fields.get('__dn_ts')
+                if not jsv.is_number(dnts):
+                    raise DNError('index point has non-numeric '
+                                  '"__dn_ts": %r' % (dnts,))
+                bucket_s = int(dnts // self.span) * self.span
+            groups.setdefault((bucket_s, mi), []).append(
+                (point_row(fields, self._names[mi]), value))
+        for (bucket_s, mi), rows in groups.items():
+            sink = self._sink_for(bucket_s)
+            if self._names[mi]:
+                keycols = [list(c) for c in
+                           zip(*[r for r, v in rows])]
+            else:
+                keycols = []
+            sink.write_rows(mi, keycols, [v for r, v in rows])
+
+    def abort(self):
+        """Discard everything: close every sink and best-effort unlink
+        its tmp file (mid-stream failure must leave the index
+        directory clean)."""
+        for sink in self.sinks.values():
+            sink.abort()
+
+    def finish(self, nworkers=None):
+        """Publish every bucket sink through the two-phase journal:
+        prepare each complete tmp on the pool, land the commit record,
+        then rename the whole set (see _publish_buckets — same crash
+        contract).  On a prepare error the remaining sinks are aborted
+        (no tmp litter) and the earliest bucket-order error
+        re-raises."""
+        if self.span is None and not self.sinks:
+            # an 'all' build always writes its (possibly empty) index
+            # file — a zero-point stream must still produce a queryable
+            # catalog, exactly like the per-point path did
+            self._sink_for(None)
+        entries = list(self.sinks.items())
+        done = [False] * len(entries)
+
+        def make_task(i, sink):
+            def task():
+                try:
+                    sink.prepare()
+                except BaseException:
+                    sink.abort()
+                    raise
+                done[i] = True
+            return task
+
+        tasks = [make_task(i, sink)
+                 for i, (key, sink) in enumerate(entries)]
+        try:
+            run_flush_tasks(tasks, nworkers)
+        except BaseException:
+            for i, (key, sink) in enumerate(entries):
+                if not done[i]:
+                    sink.abort()
+            raise
+        paths = [self.sinkpaths[key] for key, sink in entries]
+        publish_prepared(self._journal, [s for k, s in entries],
+                         paths)
+        _notify_index_written(self.indexroot, paths)

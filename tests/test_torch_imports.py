@@ -49,6 +49,35 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert not bad
 
 
+def test_port_relative_imports_resolve():
+    """Every relative import in the port names a module (or a name in
+    one) that the port itself has: a copied module cannot reach back
+    into a module the port left out."""
+    import importlib
+    missing = []
+    for path in _port_sources():
+        rel = os.path.relpath(path, ROOT)
+        if not rel.startswith('dragnet_tpu_torch'):
+            continue
+        pkg = os.path.dirname(rel).split(os.sep)
+        with open(path) as f:
+            tree = ast.parse(f.read(), filename=path)
+        for node in ast.walk(tree):
+            if not isinstance(node, ast.ImportFrom) or node.level == 0:
+                continue
+            base = pkg[:len(pkg) - (node.level - 1)]
+            modname = '.'.join(base + ([node.module] if node.module
+                                       else []))
+            mod = importlib.import_module(modname)
+            for a in node.names:
+                if not hasattr(mod, a.name):
+                    try:
+                        importlib.import_module(modname + '.' + a.name)
+                    except ImportError:
+                        missing.append((rel, modname, a.name))
+    assert not missing
+
+
 def test_default_device_without_cuda_raises(monkeypatch, tmp_path):
     from dragnet_tpu_torch.errors import DNError
     from dragnet_tpu_torch.ops import resolve_device
@@ -62,11 +91,20 @@ def test_default_device_without_cuda_raises(monkeypatch, tmp_path):
     data = tmp_path / 'd.log'
     data.write_text('{"host":"a"}\n')
     ds = DatasourceFile({'ds_backend': 'file', 'ds_format': 'json',
-                         'ds_backend_config': {'path': str(data)}})
+                         'ds_backend_config': {
+                             'path': str(data),
+                             'indexPath': str(tmp_path / 'idx')}})
     q = tquery.query_load({'breakdowns': [{'name': 'host'}]})
     with pytest.raises(DNError, match='CUDA'):
         ds.scan(q)
     assert ds.scan(q, device='cpu').points == [({'host': 'a'}, 1)]
+    m = tquery.metric_deserialize({'name': 'm', 'breakdowns': [
+        {'name': 'host', 'field': 'host'}]})
+    for call in (ds.index_scan, ds.build):
+        with pytest.raises(DNError, match='CUDA'):
+            call([m], 'all')
+    assert ds.index_scan([m], 'all', device='cpu').points == \
+        [({'host': 'a', '__dn_metric': 0}, 1)]
 
 
 def test_cli_scan_without_cuda_fails(monkeypatch, tmp_path, capsys):
@@ -82,3 +120,25 @@ def test_cli_scan_without_cuda_fails(monkeypatch, tmp_path, capsys):
     monkeypatch.setenv('DN_TORCH_DEVICE', 'cpu')
     assert cli.main(['scan', '-b', 'host', 'd']) == 0
     assert 'a' in capsys.readouterr().out
+
+
+def test_cli_build_without_cuda_fails(monkeypatch, tmp_path, capsys):
+    """`build` and `index-scan` take the device from DN_TORCH_DEVICE as
+    `scan` does: no CUDA, no silent CPU build."""
+    from dragnet_tpu_torch import cli
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    monkeypatch.setenv('DRAGNET_CONFIG', str(tmp_path / 'rc'))
+    monkeypatch.delenv('DN_TORCH_DEVICE', raising=False)
+    data = tmp_path / 'd.log'
+    data.write_text('{"host":"a"}\n')
+    assert cli.main(['datasource-add', 'd', '--path=' + str(data),
+                     '--index-path=' + str(tmp_path / 'idx')]) == 0
+    assert cli.main(['metric-add', '-b', 'host', 'd', 'm']) == 0
+    for cmd in (['build', '--interval=all', 'd'],
+                ['index-scan', '--interval=all', 'd']):
+        assert cli.main(cmd) == 1
+        assert 'CUDA' in capsys.readouterr().err
+    assert not (tmp_path / 'idx').exists()
+    monkeypatch.setenv('DN_TORCH_DEVICE', 'cpu')
+    assert cli.main(['build', '--interval=all', 'd']) == 0
+    assert (tmp_path / 'idx' / 'all').exists()
