@@ -59,13 +59,27 @@ it happened; any failed check exits non-zero:
            engines, identical.  Prints wall s and records/s of both
            builds, the index writer's share, shards and bytes, and
            whether libdnindex.so was loaded.
-7. main    the kernel again, on the fused keys the main path gave it:
+7. query   `dn query` on the card: N records spread over 30 days, the
+           three metrics of phase 6 built on the card with
+           --interval=hour (720 shards) and --interval=day (30 shards),
+           then QUERY_CASES through the CLI (--points --counters) on the
+           card and with the port's host engine on the same tree,
+           byte for byte.  The stacked queries must aggregate on the
+           device (the hidden `index device sums` counter, a non-zero
+           dispatch count of the slot-packed fold); the bare query must
+           take its host route; the windowed query must prune.  Prints
+           per query the wall time of both engines, the fold's device
+           ms per dispatch (CUDA events), dispatches, upload bytes, the
+           host seconds of load / sort / aggregate and the fold's
+           bound, and a `query` JSON line.
+8. main    the kernel again, on the fused keys the main path gave it:
    keys    the largest batch of each kernel query at each segment count
            (the time window, and with it the accumulator, grows during
            the timestamp query), captured in phase 4.
-8. result  the card's name and power limit (nvidia-smi), a `kernels`
-           JSON line (launches on the main path and on the build, times,
-           bound), and as the last line {"ok": true, "device": {...}}.
+9. result  the card's name and power limit (nvidia-smi), a `kernels`
+           JSON line (launches on the main path, the build and the
+           query phase, times, bound), and as the last line
+           {"ok": true, "device": {...}}.
 
 Without CUDA, or without the rest of the repository beside it, the
 script exits non-zero and prints no result.
@@ -154,6 +168,33 @@ BUILD_METRICS = [
     ('byurl', 'timestamp[field=time,date,aggr=lquantize,step=60],host,'
      'req.url,latency[aggr=quantize]', 'sparse'),
 ]
+
+# phase 7: the records spread over 30 days from 2014-05-01 UTC, and
+# (name, query arguments, the aggregation route expected on the card).
+# Each resolves to one of BUILD_METRICS (find_metric takes the first
+# that covers the breakdowns and the filter's fields): byurl, requests,
+# requests, byurl and byhour.
+QUERY_MIN_MS = 1398902400000
+QUERY_DAYS = 30
+QUERY_CASES = [
+    ('a host x url, day', ['-b', 'host,req.url', '--interval=day'],
+     'device'),
+    ('b method x status >= 500, hour',
+     ['-b', 'req.method,res.statusCode', '-f',
+      '{"ge":["res.statusCode",500]}', '--interval=hour'], 'device'),
+    ('c (b) over one week, hour',
+     ['-b', 'req.method,res.statusCode', '-f',
+      '{"ge":["res.statusCode",500]}', '--interval=hour',
+      '--after', '2014-05-08', '--before', '2014-05-15'], 'device'),
+    ('d host x url x latency, hour',
+     ['-b', 'host,req.url,latency[aggr=quantize]', '--interval=hour'],
+     'device'),
+    ('e no breakdowns, hour', ['--interval=hour'], 'host: no breakdowns'),
+]
+# K7's least traffic: each row's local code and weight (16 B), each
+# translation entry (8 B), each accumulator segment read and written
+# (16 B)
+K7_ROW_BYTES, K7_TAB_BYTES, K7_SEG_BYTES = 16, 8, 16
 
 
 def log(msg):
@@ -583,8 +624,8 @@ class Timers(object):
         return out
 
 
-def fmt_times(times):
-    return ', '.join('%s %.2f' % kv for kv in sorted(
+def fmt_times(times, digits=2):
+    return ', '.join('%s %.*f' % (k, digits, v) for k, v in sorted(
         times.items(), key=lambda kv: -kv[1]))
 
 
@@ -1038,6 +1079,247 @@ def build_phase(cli, mod_ds, ck, tmp, data, records):
                        for i, (m, _, _) in enumerate(BUILD_METRICS)}}
 
 
+class FoldTimer(object):
+    """CUDA events around each call of device_index._fold_program, and
+    the host-side sizes of the work K7 must do (rows, translation
+    entries, accumulator segments)."""
+
+    def __init__(self, spy, mod_di):
+        import torch
+        self.events = []
+        self.rows = self.tab = self.segs = 0
+
+        def wrap_fold(orig):
+            def fold(lmat, wmat, ttabs, acc):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                rv = orig(lmat, wmat, ttabs, acc)
+                e1.record()
+                self.events.append((e0, e1))
+                return rv
+            return fold
+
+        def wrap_stage(orig):
+            def stage(inv_sl):
+                local, ttable, nlocal = orig(inv_sl)
+                self.rows += len(local)
+                self.tab += nlocal
+                return local, ttable, nlocal
+            return stage
+
+        def wrap_batched(orig):
+            def batched(inv, weights, nuniq, **k):
+                rv = orig(inv, weights, nuniq, **k)
+                if rv is not None:
+                    self.segs += nuniq
+                return rv
+            return batched
+        spy.wrap(mod_di, '_fold_program', wrap_fold)
+        spy.wrap(mod_di, '_stage_shard', wrap_stage)
+        spy.wrap(mod_di, 'batched_sums', wrap_batched)
+
+    def take(self):
+        """(device ms per dispatch list, bound ms) since the last take."""
+        import torch
+        torch.cuda.synchronize()
+        ms = [a.elapsed_time(b) for a, b in self.events]
+        nbytes = (self.rows * K7_ROW_BYTES + self.tab * K7_TAB_BYTES +
+                  self.segs * K7_SEG_BYTES)
+        self.events = []
+        self.rows = self.tab = self.segs = 0
+        return ms, nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def query_phase(cli, ck, tmp, records, seed):
+    """Phase 7: `dn query` over index trees built on the card, each of
+    QUERY_CASES through the CLI on the card (the K1 launch count and
+    the fold's engagement zeroed just before the queries, read just
+    after) and with the port's host engine on the same tree."""
+    import torch
+    from dragnet_tpu_torch import native as mod_native
+    from dragnet_tpu_torch import device_index as mod_di
+    from dragnet_tpu_torch import datasource_file as mod_dsf
+    from dragnet_tpu_torch import index_query_mt as mod_iqmt
+    from dragnet_tpu_torch.obs import metrics as obs_metrics
+    from dragnet_tpu_torch.config import ConfigBackendLocal
+    from dragnet_tpu_torch import datasource_for_name
+    data = os.path.join(tmp, 'month.log')
+    t0 = time.monotonic()
+    mod_native.gen_to_file(records, data, mindate_ms=QUERY_MIN_MS,
+                           maxdate_ms=QUERY_MIN_MS + QUERY_DAYS * 86400000,
+                           seed=seed)
+    log('query data: %d records over %d days (%d bytes) in %.2f s'
+        % (records, QUERY_DAYS, os.path.getsize(data),
+           time.monotonic() - t0))
+    rc, _, err = run_cli(cli, [
+        'datasource-add', 'month', '--path=' + data, '--time-field=time',
+        '--index-path=' + os.path.join(tmp, 'idx_month')])
+    check(rc == 0, 'datasource-add failed: %s' % err)
+    for metric, breakdowns, _route in BUILD_METRICS:
+        rc, _, err = run_cli(cli, ['metric-add', '-b', breakdowns,
+                                   'month', metric])
+        check(rc == 0, 'metric-add %s failed: %s' % (metric, err))
+    builds = {}
+    for interval in ('hour', 'day'):
+        t0 = time.monotonic()
+        rc, _, err = run_cli(cli, ['build', '--interval=' + interval,
+                                   'month'])
+        torch.cuda.synchronize()
+        builds[interval] = time.monotonic() - t0
+        check(rc == 0, 'build --interval=%s failed: %s' % (interval, err))
+        shards = os.listdir(os.path.join(tmp, 'idx_month',
+                                         'by_' + interval))
+        log('query tree: build --interval=%s on the card %.2f s, %d '
+            'shards' % (interval, builds[interval],
+                        len([s for s in shards if s.endswith('.sqlite')])))
+    _, config = ConfigBackendLocal().load()
+    ds = datasource_for_name(config, 'month')
+
+    spy = Spy()
+    results = []
+    captured = []
+    stages = {}
+
+    def wrap_query(orig):
+        def query(self, *a, **k):
+            rv = orig(self, *a, **k)
+            captured.append(rv)
+            return rv
+        return query
+
+    def wrap_timed(orig):
+        @contextlib.contextmanager
+        def timed_stage(name, *a, **k):
+            t0 = time.perf_counter()
+            try:
+                with orig(name, *a, **k) as sp:
+                    yield sp
+            finally:
+                stages[name] = stages.get(name, 0.0) + \
+                    time.perf_counter() - t0
+        return timed_stage
+    spy.wrap(mod_dsf.DatasourceFile, 'query', wrap_query)
+    spy.wrap(obs_metrics, 'timed_stage', wrap_timed)
+    folds = FoldTimer(spy, mod_di)
+    timers = Timers()
+    for owner, name, label in (
+            (mod_di, '_stage_shard', 'staging'),
+            (mod_di, '_pad_slot', 'staging'),
+            (mod_di, '_fold_program', 'fold submit'),
+            (mod_di, '_device_fold', 'pack + upload + fetch')):
+        timers.wrap(spy, owner, name, label)
+    try:
+        # the query path: counts zeroed just before, read just after
+        ck.reset_launches()
+        mod_di._reset_engagement()
+        for name, qargs, route in QUERY_CASES:
+            argv = ['query', '--points', '--counters'] + qargs + ['month']
+            mod_iqmt.shard_cache_clear()
+            runs = []
+            for attempt in range(2):
+                e0 = mod_di.stats_doc()
+                stages.clear()
+                timers.take(0.0)
+                t0 = time.monotonic()
+                rc, out, err = run_cli(cli, argv)
+                torch.cuda.synchronize()
+                dt = time.monotonic() - t0
+                check(rc == 0, '%s: query failed: %s' % (name, err))
+                e1 = mod_di.stats_doc()
+                fold_ms, bound_ms = folds.take()
+                runs.append({
+                    'wall_s': dt, 'out': out, 'err': err,
+                    'dispatches': e1['dispatches'] - e0['dispatches'],
+                    'h2d_bytes': e1['h2d_bytes'] - e0['h2d_bytes'],
+                    'rows': e1['rows'] - e0['rows'],
+                    'routes': {r: n - e0['routes'].get(r, 0)
+                               for r, n in e1['routes'].items()
+                               if n != e0['routes'].get(r, 0)},
+                    'fold_ms': fold_ms, 'bound_ms': bound_ms,
+                    'stages': dict(stages),
+                    'device_times': timers.take(0.0),
+                    'index_list': dict(
+                        [s for s in captured[-1].pipeline.stages
+                         if s.name == 'Index List'][0].counters)})
+            # the host engine on the same tree, the same rendering
+            opts = cli.dn_parse_args(argv[1:], [
+                'before', 'after', 'filter', 'breakdowns', 'raw',
+                'points', 'counters', 'interval', 'gnuplot', 'dry-run'])
+            query = cli.dn_query_config(opts)
+            stages.clear()
+            t0 = time.monotonic()
+            hres = ds.query(query, opts.interval, engine='vector')
+            hout, herr = io.StringIO(), io.StringIO()
+            with contextlib.redirect_stdout(hout), \
+                    contextlib.redirect_stderr(herr):
+                cli.dn_output(query, opts, hres, 'month')
+            ht = time.monotonic() - t0
+            host_stages = dict(stages)
+            for r in runs:
+                check(r['out'] == hout.getvalue() and
+                      r['err'] == herr.getvalue(),
+                      '%s: device output differs from the host engine'
+                      % name)
+                check(r['routes'] == {route: 1},
+                      '%s: expected the route %r, got %r'
+                      % (name, route, r['routes']))
+                il = r['index_list']
+                if route == 'device':
+                    check(il.get('index device sums') == 1 and
+                          r['dispatches'] > 0,
+                          '%s: the device fold did not run: %r, %d '
+                          'dispatches' % (name, il, r['dispatches']))
+                else:
+                    check('index device sums' not in il and
+                          r['dispatches'] == 0,
+                          '%s: the host route engaged the device' % name)
+            check(hout.getvalue().count('\n') > 0 and
+                  'Index List' in herr.getvalue(),
+                  '%s: empty result' % name)
+            il = runs[0]['index_list']
+            if '--after' in qargs:
+                check(il.get('index shards pruned', 0) > 0,
+                      '%s: no shard pruned: %r' % (name, il))
+            npoints = hout.getvalue().count('\n')
+            r = runs[1]
+            fold_ms = r['fold_ms']
+            log('query %-33s device %.3f s (first %.3f s) | host %.3f s '
+                '| identical, %d points | %d index rows, shards queried '
+                '%d pruned %d | route %s'
+                % (name, r['wall_s'], runs[0]['wall_s'], ht, npoints,
+                   r['rows'], il.get('index shards queried', 0),
+                   il.get('index shards pruned', 0), route))
+            if fold_ms:
+                log('    K7 fold: %d dispatches, device ms per dispatch '
+                    '%.4f (min %.4f, max %.4f, total %.3f), bound %.4f '
+                    'ms, H2D %d bytes'
+                    % (len(fold_ms), sum(fold_ms) / len(fold_ms),
+                       min(fold_ms), max(fold_ms), sum(fold_ms),
+                       r['bound_ms'], r['h2d_bytes']))
+            log('    host s: %s | inside aggregate: %s | host engine: %s'
+                % (fmt_times(r['stages'], 4),
+                   fmt_times({k: v for k, v in r['device_times'].items()
+                              if k != 'rest'}, 4),
+                   fmt_times(host_stages, 4)))
+            results.append({
+                'name': name, 'args': qargs, 'route': route,
+                'points': npoints, 'host_s': ht,
+                'device_s': [x['wall_s'] for x in runs],
+                'dispatches': r['dispatches'], 'rows': r['rows'],
+                'h2d_bytes': r['h2d_bytes'], 'fold_ms': fold_ms,
+                'bound_ms': r['bound_ms'], 'stages': r['stages'],
+                'host_stages': host_stages,
+                'aggregate_parts': r['device_times'],
+                'shards_queried': il.get('index shards queried', 0),
+                'shards_pruned': il.get('index shards pruned', 0)})
+        query_launches = ck.launches['onehot_dense']
+    finally:
+        spy.restore()
+    return {'builds_s': builds, 'queries': results,
+            'onehot_launches': query_launches}
+
+
 def main_path_keys(ck, captured, reps):
     """Phase 5: the kernel on the fused keys the main path gave it, the
     largest batch of each query at each segment count."""
@@ -1135,6 +1417,7 @@ def main():
                                                     args.records)
         sparse = sparse_phase(cli, mod_ds, ds, args.records)
         build = build_phase(cli, mod_ds, ck, tmp, data, args.records)
+        queries = query_phase(cli, ck, tmp, args.records, args.seed)
     torch.cuda.synchronize()
 
     # 5. the kernel on the main path's own keys, and on uniform keys at
@@ -1172,13 +1455,21 @@ def main():
         with open(args.json, 'w') as f:
             json.dump({'card': card, 'stream_lookup_ms': stream_costs,
                        'shapes': results, 'sparse_fold_bench': fold_bench,
-                       'sparse_scans': sparse, 'build': build}, f,
+                       'sparse_scans': sparse, 'build': build,
+                       'query': queries}, f,
                       indent=1)
+    print(json.dumps({'query': [
+        {k: q[k] for k in ('name', 'route', 'points', 'device_s',
+                           'host_s', 'dispatches', 'rows', 'h2d_bytes',
+                           'bound_ms', 'stages')} for q in
+        queries['queries']], 'builds_s': queries['builds_s']}),
+        flush=True)
     log('gpu: %s' % card)
     print(json.dumps({'kernels': [{
         'name': 'onehot_dense', 'route': 'cuda', 'source': KERNEL_SOURCE,
         'replaces': KERNEL_REPLACES, 'launches': main_launches,
         'build_launches': build['build_launches'],
+        'query_launches': queries['onehot_launches'],
         'max_abs_err': max(r['max_abs_err'] for r in results),
         'ms': main['ms'], 'plain_ms': main['plain_ms'],
         'bound_ms': main['bound_ms'], 'bound_by': main['bound_by'],

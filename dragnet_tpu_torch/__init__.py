@@ -1,5 +1,5 @@
-"""dragnet-tpu on PyTorch and CUDA: `dn scan`, `dn build` and
-`dn index-scan` with the device lane on an NVIDIA GPU.
+"""dragnet-tpu on PyTorch and CUDA: `dn scan`, `dn build`,
+`dn index-scan` and `dn query` with the device lane on an NVIDIA GPU.
 
 The port of the dragnet_tpu package (the JAX reference, which stays
 beside it) to torch.  It imports neither jax nor dragnet_tpu: the

@@ -1,14 +1,14 @@
 """The port's command-line interface: `python -m dragnet_tpu_torch`.
 
 Counterpart of dragnet_tpu/cli.py for the commands this port covers:
-`scan`, `build` and `index-scan` (on the device, DN_TORCH_DEVICE,
-default cuda), `datasource-add`, `datasource-list`, `metric-add`,
-`metric-list`, `metric-remove` and `index-config`.  Option parsing,
-breakdown expansion and output are the reference CLI's, so the port
-prints byte-identical results and writes byte-identical index trees.
-Options the port cannot honour yet (`--warnings`, `--remote`,
-`--build-threads`, `--parse`, `--trace`) are unknown options: a usage
-error.  The configuration is the same file as bin/dn's
+`scan`, `build`, `index-scan` and `query` (on the device,
+DN_TORCH_DEVICE, default cuda), `datasource-add`, `datasource-list`,
+`metric-add`, `metric-list`, `metric-remove` and `index-config`.
+Option parsing, breakdown expansion and output are the reference CLI's,
+so the port prints byte-identical results and writes byte-identical
+index trees.  Options the port cannot honour yet (`--warnings`,
+`--remote`, `--parse`, `--trace`, and `--assetroot` on `query`) are
+unknown options: a usage error.  The configuration is the same file as bin/dn's
 ($DRAGNET_CONFIG or ~/.dragnetrc).
 
 Exit codes: 2 for usage errors (with the usage text on stderr), 1 for
@@ -43,6 +43,11 @@ dn metric-remove     DATASOURCE METRIC
 dn build             [--before=START_TIME] [--after=END_TIME]
                      [--interval=hour|day|all] [--index-config=CONFIG_FILE]
                      [--dry-run] [--assetroot=ASSET_ROOT]
+                     [--build-threads=auto|N] DATASOURCE
+dn query             [--before=START_TIME] [--after=END_TIME] [--filter=FILTER]
+                     [--breakdowns=BREAKDOWN[,...]] [--interval=hour|day|all]
+                     [--raw] [--points] [--counters] [--gnuplot]
+                     [--dry-run] [--iq-threads=auto|N] [--iq-stack=auto|0|1]
                      DATASOURCE
 dn scan              [--before=START_TIME] [--after=END_TIME] [--filter=FILTER]
                      [--breakdowns=BREAKDOWN[,...]]
@@ -54,7 +59,7 @@ dn index-scan        [--index-config=INDEX_CONFIG_FILE]
                      [--before=START_TIME] [--after=END_TIME] [--filter=FILTER]
                      [--breakdowns=BREAKDOWN[,...]] [--counters] DATASOURCE
 
-scan, build and index-scan run on DN_TORCH_DEVICE (default: cuda).
+scan, build, index-scan and query run on DN_TORCH_DEVICE (default: cuda).
 """
 
 # Option table (reference: bin/dn:146-215), the subset these commands
@@ -65,6 +70,8 @@ DN_OPTIONS = [
     (['backend'], 'string', None),
     (['before', 'B'], 'date', None),
     (['breakdowns', 'b'], 'arrayOfString', []),
+    # index-build writer pool override; DN_BUILD_THREADS for one run
+    (['build-threads'], 'string', None),
     (['counters'], 'bool', None),
     (['data-format'], 'string', 'json'),
     (['dry-run', 'n'], 'bool', False),
@@ -72,6 +79,10 @@ DN_OPTIONS = [
     (['gnuplot'], 'bool', None),
     (['interval', 'i'], 'string', 'day'),
     (['index-config'], 'string', None),
+    # index-query worker pool override; DN_IQ_THREADS for one run
+    (['iq-threads'], 'string', None),
+    # stacked index-query override; DN_IQ_STACK for one run: auto|0|1
+    (['iq-stack'], 'string', None),
     (['index-path'], 'string', None),
     (['path'], 'string', None),
     (['points'], 'bool', None),
@@ -246,6 +257,50 @@ def dn_parse_args(argv, useroptions):
     return opts
 
 
+def _env_scope(envname, value):
+    """Set `envname` for the duration of one command (None leaves it
+    untouched): the datasource layer reads the env, and it must be
+    restored because tests drive these entry points in-process."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def scope():
+        prior = os.environ.get(envname)
+        if value is not None:
+            os.environ[envname] = value
+        try:
+            yield
+        finally:
+            if value is not None:
+                if prior is None:
+                    os.environ.pop(envname, None)
+                else:
+                    os.environ[envname] = prior
+    return scope()
+
+
+def _pool_flag_env(optname, value, envname):
+    """Plumb a per-run worker-pool flag (--iq-threads,
+    --build-threads) through its env var for the duration of the
+    command.  Unlike the env var, a bad explicit flag value is a
+    usage error, not a silent fallback to sequential."""
+    if value is not None and value != 'auto':
+        try:
+            if int(value) < 0:
+                raise ValueError(value)
+        except ValueError:
+            raise UsageError('bad value for "%s": "%s"'
+                             % (optname, value))
+    return _env_scope(envname, value)
+
+
+def _mode_flag_env(optname, value, envname, allowed):
+    """_pool_flag_env for enumerated-mode flags (--iq-stack)."""
+    if value is not None and value not in allowed:
+        raise UsageError('bad value for "%s": "%s"' % (optname, value))
+    return _env_scope(envname, value)
+
+
 def check_arg_count(opts, expected):
     if len(opts._args) < expected:
         raise UsageError('missing arguments')
@@ -359,7 +414,7 @@ def cmd_metric_list(ctx, argv):
 
 
 # ---------------------------------------------------------------------------
-# scan
+# scan / query
 # ---------------------------------------------------------------------------
 
 def dn_query_config(opts):
@@ -430,6 +485,28 @@ def cmd_scan(ctx, argv):
     dn_output(query, opts, result, dsname)
 
 
+def cmd_query(ctx, argv):
+    opts = dn_parse_args(argv, ['before', 'after', 'filter', 'breakdowns',
+                                'raw', 'points', 'counters', 'interval',
+                                'gnuplot', 'dry-run', 'iq-threads',
+                                'iq-stack'])
+    check_arg_count(opts, 1)
+    dsname = opts._args[0]
+    ds = datasource_for_name(ctx['config'], dsname)
+    if isinstance(ds, DNError):
+        fatal(ds)
+    query = dn_query_config(opts)
+    with _pool_flag_env('iq-threads', opts.iq_threads, 'DN_IQ_THREADS'), \
+            _mode_flag_env('iq-stack', opts.iq_stack, 'DN_IQ_STACK',
+                           ('auto', '0', '1')):
+        try:
+            result = ds.query(query, opts.interval, dry_run=opts.dry_run,
+                              device=_device())
+        except DNError as e:
+            fatal(e)
+    dn_output(query, opts, result, dsname)
+
+
 # ---------------------------------------------------------------------------
 # build / index-config / index-scan
 # ---------------------------------------------------------------------------
@@ -448,7 +525,8 @@ def _read_index_config(filename):
 
 def cmd_build(ctx, argv):
     opts = dn_parse_args(argv, ['after', 'before', 'counters', 'dry-run',
-                                'index-config', 'interval', 'assetroot'])
+                                'index-config', 'interval', 'assetroot',
+                                'build-threads'])
     check_arg_count(opts, 1)
     dsname = opts._args[0]
     indexcfg = _read_index_config(opts.index_config) \
@@ -481,12 +559,15 @@ def cmd_build(ctx, argv):
                                               what='build')
         except DNError as e:
             fatal(e)
-    try:
-        result = ds.build(metrics, opts.interval, time_after=opts.after,
-                          time_before=opts.before, dry_run=opts.dry_run,
-                          device=_device())
-    except DNError as e:
-        fatal(e)
+    with _pool_flag_env('build-threads', opts.build_threads,
+                        'DN_BUILD_THREADS'):
+        try:
+            result = ds.build(metrics, opts.interval,
+                              time_after=opts.after,
+                              time_before=opts.before,
+                              dry_run=opts.dry_run, device=_device())
+        except DNError as e:
+            fatal(e)
 
     if opts.dry_run:
         dn_output(None, opts, result, dsname)
@@ -545,6 +626,7 @@ COMMANDS = {
     'index-config': cmd_index_config,
     'index-scan': cmd_index_scan,
     'scan': cmd_scan,
+    'query': cmd_query,
 }
 
 

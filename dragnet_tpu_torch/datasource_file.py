@@ -1,15 +1,19 @@
-"""File-backend scan, build and index-scan: input enumeration, the
-native parse stream and the scan engines.
+"""File-backend scan, build, index-scan and query: input enumeration,
+the native parse stream, the scan engines and the index walk.
 
 Counterpart of dragnet_tpu/datasource_file.py (`scan`, `build`,
-`index_scan`), restricted to the native-parser lane (native/dnparse.cc)
-and its single-threaded engine step: input enumeration (strftime-pruned
-when the datasource has a time format), one pass over the concatenated
-file bytes (a partial trailing line joins across file boundaries),
-batches fed to the device scan (device_scan.py) or, when asked for, the
-host engine (engine.VectorScan).  A build feeds ONE parse stream to
-every metric's scan (stacked on the device: DeviceScanStack) and hands
-each metric's aggregate to the index writer (index_build_mt.py).
+`index_scan`, `query`), restricted to the native-parser lane
+(native/dnparse.cc) and its single-threaded engine step: input
+enumeration (strftime-pruned when the datasource has a time format),
+one pass over the concatenated file bytes (a partial trailing line
+joins across file boundaries), batches fed to the device scan
+(device_scan.py) or, when asked for, the host engine
+(engine.VectorScan).  A build feeds ONE parse stream to every metric's
+scan (stacked on the device: DeviceScanStack) and hands each metric's
+aggregate to the index writer (index_build_mt.py).  A query walks the
+index tree and answers through the rollup planner, the stacked path
+(index_query_stack.py, its weight sums on the device: device_index.py)
+or the per-shard loop (index_query_mt.py), in the reference's order.
 """
 
 import os
@@ -17,15 +21,19 @@ import os
 import numpy as np
 
 from .errors import DNError
+from . import log as mod_log
 from . import ingest as mod_ingest
 from . import find as mod_find
 from . import native as mod_native
 from . import query as mod_query
+from .aggr import Aggregator
 from .engine import BATCH_SIZE, NativeColumns, VectorPredicate, VectorScan
 from .ops.kernels import TRUE
 from .vpipe import Pipeline
 
 ENGINES = ('device', 'vector')
+
+LOG = mod_log.get('datasource-file')
 
 
 def create_datasource(dsconfig):
@@ -325,6 +333,199 @@ class DatasourceFile(object):
         except BaseException:
             writer.abort()
             raise
+
+    # -- query ------------------------------------------------------------
+
+    def index_find_params(self, interval, time_after, time_before):
+        """(reference: lib/dragnet-impl.js:194-236)"""
+        if interval == 'day':
+            return (os.path.join(self.ds_indexpath, 'by_day'),
+                    '%Y-%m-%d.sqlite', time_after, time_before)
+        if interval == 'hour':
+            return (os.path.join(self.ds_indexpath, 'by_hour'),
+                    '%Y-%m-%d-%H.sqlite', time_after, time_before)
+        if interval == 'all':
+            return (os.path.join(self.ds_indexpath, 'all'), None, None,
+                    None)
+        return DNError('unsupported interval: "%s"' % interval)
+
+    def _cached_index_walk(self, root, pipeline):
+        """The unbounded index-tree walk, memoized on the directory's
+        stat identity (index_query_mt.cached_find_walk)."""
+        from . import index_query_mt as mod_iqmt
+        return mod_iqmt.cached_find_walk(root, pipeline)
+
+    def index_query_paths(self, query, interval, pipeline):
+        """Enumerate the shard files an index query over `query` x
+        `interval` would read: argument checks, the crash-recovery
+        sweep, the (possibly memoized) tree walk, and the
+        journal/tmp/quarantine litter filter — everything up to (not
+        including) time-range pruning.  Returns (root, timeformat,
+        files) with files as (path, statbuf) pairs in find order."""
+        error = self.check_time_args(query.qc_after, query.qc_before)
+        if error is None:
+            error = self.check_index_args(interval, True, False)
+        if error is not None:
+            raise error
+
+        params = self.index_find_params(interval or 'all', query.qc_after,
+                                        query.qc_before)
+        if isinstance(params, DNError):
+            raise params
+        root, timeformat, after, before = params
+
+        # crash-recovery sweep (TTL-throttled): a builder that died
+        # mid-publish must be rolled forward/back before this reader
+        # walks the tree (index_journal)
+        from . import index_journal as mod_journal
+        mod_journal.maybe_sweep(self.ds_indexpath)
+
+        if before is None and pipeline.warn_func is None:
+            # unbounded query over a flat index tree: the whole-tree
+            # walk (one stat per shard) is memoized on the directory's
+            # stat identity — stage counters replay byte-identically
+            files = self._cached_index_walk(root, pipeline)
+        else:
+            files = self._find(root, timeformat, after, before, pipeline)
+        if isinstance(files, DNError):
+            raise files
+        # never open build machinery as a shard: journals, in-flight
+        # tmps (a concurrent builder's), and the quarantine directory
+        # stay out of the shard set
+        files = [(p, st) for p, st in files
+                 if not mod_journal.is_index_litter(p)]
+        if timeformat is not None:
+            # follow --append mini-generations: bounded finds
+            # enumerate exact in-window filenames and can never name
+            # a `<shard>.sqlite-gNNNNNN`; splice existing generations
+            # in after their bases (unbounded walks see them
+            # naturally)
+            from . import rollup as mod_rollup
+            files = mod_rollup.augment_generation_files(root, files)
+        return root, timeformat, files
+
+    def query(self, query, interval, dry_run=False, device=None,
+              engine='device'):
+        """Query the indexes.  engine='device' aggregates the stacked
+        path's weight sums on `device` (CUDA unless the caller asks for
+        the CPU; DN_INDEX_DEVICE=0 pins the host bincount);
+        engine='vector' keeps them on the host.  (reference:
+        lib/datasource-file.js:573-691)"""
+        from . import device_index as mod_di
+        _check_engine(engine)
+        pipeline = Pipeline()
+        root, timeformat, files = self.index_query_paths(
+            query, interval, pipeline)
+
+        if dry_run:
+            return ScanResult(pipeline,
+                              dry_run_files=[p for p, st in files])
+        if engine == 'device':
+            from .ops import resolve_device
+            device = resolve_device(device)
+
+        index_list = pipeline.stage('Index List')
+        aggr = Aggregator(query,
+                          stage=pipeline.stage('Index Result Aggregator'))
+
+        # Shard fan-out (index_query_mt): time-range pruning by shard
+        # filename, then a DN_IQ_THREADS worker pool over the shard
+        # handle cache, merged in find order — byte-identical to the
+        # sequential loop
+        from . import index_query_mt as mod_iqmt
+        paths = [p for p, st in files]
+        paths, npruned = mod_iqmt.prune_shards(
+            paths, timeformat, query.qc_after, query.qc_before)
+        # time-bounded finds never enumerate out-of-window shards, so
+        # count the tree's skipped files for the pruned counter (the
+        # found list can only re-prune what enumeration missed)
+        npruned = max(npruned, mod_iqmt.count_pruned_shards(
+            root, timeformat, query.qc_after, query.qc_before))
+        if npruned:
+            index_list.bump_hidden('index shards pruned', npruned)
+        index_list.bump_hidden('index shards queried', len(paths))
+
+        # verified reads (integrity.py): a catalogued shard that is
+        # MISSING from the walk (quarantined after a corrupt detect,
+        # or externally deleted) must degrade explicitly — a clean
+        # retryable error naming the shard — never silently short
+        # result bytes
+        from . import integrity as mod_integrity
+        if mod_integrity.verify_mode() != 'off':
+            mod_integrity.check_missing(
+                self.ds_indexpath, paths,
+                subdir=os.path.basename(root)
+                if timeformat is not None else None,
+                timeformat=timeformat, after_ms=query.qc_after,
+                before_ms=query.qc_before)
+
+        nworkers = mod_iqmt.iq_threads()
+        LOG.debug('query start', indexroot=root, nindexes=len(paths),
+                  npruned=npruned, nworkers=nworkers,
+                  interval=interval)
+
+        aggr_stage = aggr.stage
+
+        def merge(items):
+            # per-shard aggregates arrive as key items (the
+            # Aggregator wire format) in emission order: write_key
+            # replays them byte-identically to re-writing the
+            # shard's points.  Counter parity with the per-point
+            # write() loop: one Index List input/output and one
+            # aggregator-stage input per point, bumped in bulk.
+            npts = len(items)
+            if npts == 0:
+                return
+            index_list.bump('ninputs', npts)
+            index_list.bump('noutputs', npts)
+            aggr_stage.bump('ninputs', npts)
+            aggr.merge_key_items(items)
+
+        # Query planner (rollup.py): serve from the coarsest covering
+        # rollup shards and fold follow mini-generations into their
+        # logical base shard.  plan_query returns None whenever the
+        # walk is plain per-file shards — the stacked/pooled paths
+        # below then run completely untouched.
+        from . import rollup as mod_rollup
+        plan = mod_rollup.plan_query(self.ds_indexpath,
+                                     interval or 'all', paths, query)
+        if plan is not None:
+            index_list.bump_hidden('index shards via rollup',
+                                   plan['ncovered'])
+            index_list.bump_hidden('rollup shards queried',
+                                   plan['nrollup'])
+
+            def query_one(path, q):
+                if nworkers <= 0:
+                    return mod_iqmt.query_shard_once(path, q)
+                return mod_iqmt._query_shard_cached(path, q)
+
+            mod_rollup.execute_plan(plan, query, query_one, merge)
+            mod_di.note_route('rollup plan')
+            return ScanResult(pipeline, points=aggr.points())
+
+        # Stacked cross-shard execution (index_query_stack, default):
+        # shard readers only LOAD matching column blocks, and one
+        # vectorized filter+group-by over the concatenated batch
+        # replaces the per-shard mask -> groupby -> merge loop, its
+        # weight sums on the device lane.  Falls back to the
+        # per-shard loop when the query shape or the exactness gate
+        # (non-integer weights) demands it, or under DN_IQ_STACK=0.
+        from . import index_query_stack as mod_iqs
+        if not mod_iqs.stack_enabled():
+            route = 'per-shard: DN_IQ_STACK=0'
+        elif not mod_iqs.stack_eligible(query):
+            route = 'per-shard: breakdown not stack-eligible'
+        elif mod_iqs.run_stacked(paths, query, aggr, index_list,
+                                 engine=engine, device=device):
+            route = None
+        else:
+            route = 'per-shard: weights past the exactness gate'
+        if route is not None:
+            mod_iqmt.run_shard_queries(paths, query, nworkers, merge)
+            mod_di.note_route(route)
+
+        return ScanResult(pipeline, points=aggr.points())
 
     def _stream_native(self, files, parser, flush, batch_size):
         """Feed the concatenated file bytes to the native parser,

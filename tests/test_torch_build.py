@@ -445,10 +445,11 @@ def test_port_cli_metric_build_index_scan(cli_env, monkeypatch):
 
 
 @pytest.mark.parametrize('bad', [['--warnings'], ['--remote', 'x'],
-                                 ['--build-threads', '2'],
+                                 ['--iq-stack', '0'],
                                  ['--parse', 'host'], ['--trace']])
 def test_port_cli_build_unsupported_options(cli_env, monkeypatch, bad):
-    """Options the port cannot honour yet are usage errors (exit 2)."""
+    """Options the port cannot honour yet are usage errors (exit 2),
+    as is a `query` option given to `build`."""
     env, tmp = cli_env
     got = _port_cli(monkeypatch, env, ['build'] + bad + ['muskie'])
     assert got.returncode == 2

@@ -142,3 +142,41 @@ def test_cli_build_without_cuda_fails(monkeypatch, tmp_path, capsys):
     monkeypatch.setenv('DN_TORCH_DEVICE', 'cpu')
     assert cli.main(['build', '--interval=all', 'd']) == 0
     assert (tmp_path / 'idx' / 'all').exists()
+
+
+def test_query_without_cuda_fails(monkeypatch, tmp_path, capsys):
+    """`query` takes the device from DN_TORCH_DEVICE as `scan` does: no
+    CUDA, no silent CPU query, whatever route the query would take."""
+    from dragnet_tpu_torch import cli
+    from dragnet_tpu_torch.errors import DNError
+    from dragnet_tpu_torch import query as tquery
+    from dragnet_tpu_torch.datasource_file import DatasourceFile
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    monkeypatch.setenv('DRAGNET_CONFIG', str(tmp_path / 'rc'))
+    monkeypatch.delenv('DN_TORCH_DEVICE', raising=False)
+    data = tmp_path / 'd.log'
+    data.write_text('{"host":"a"}\n')
+    assert cli.main(['datasource-add', 'd', '--path=' + str(data),
+                     '--index-path=' + str(tmp_path / 'idx')]) == 0
+    assert cli.main(['metric-add', '-b', 'host', 'd', 'm']) == 0
+    monkeypatch.setenv('DN_TORCH_DEVICE', 'cpu')
+    assert cli.main(['build', '--interval=all', 'd']) == 0
+    monkeypatch.delenv('DN_TORCH_DEVICE')
+    capsys.readouterr()
+    for cmd in (['query', '--interval=all', '-b', 'host', 'd'],
+                ['query', '--interval=all', 'd']):
+        assert cli.main(cmd) == 1
+        assert 'CUDA' in capsys.readouterr().err
+    ds = DatasourceFile({'ds_backend': 'file', 'ds_format': 'json',
+                         'ds_backend_config': {
+                             'path': str(data),
+                             'indexPath': str(tmp_path / 'idx')}})
+    q = tquery.query_load({'breakdowns': [{'name': 'host'}]})
+    with pytest.raises(DNError, match='CUDA'):
+        ds.query(q, 'all')
+    assert ds.query(q, 'all', device='cpu').points == [({'host': 'a'}, 1)]
+    assert ds.query(q, 'all', engine='vector').points == \
+        [({'host': 'a'}, 1)]
+    monkeypatch.setenv('DN_TORCH_DEVICE', 'cpu')
+    assert cli.main(['query', '--interval=all', '-b', 'host', 'd']) == 0
+    assert 'a' in capsys.readouterr().out
