@@ -72,14 +72,31 @@ it happened; any failed check exits non-zero:
            ms per dispatch (CUDA events), dispatches, upload bytes, the
            host seconds of load / sort / aggregate and the fold's
            bound, and a `query` JSON line.
-8. main    the kernel again, on the fused keys the main path gave it:
+8. auto    the default engine (DN_ENGINE=auto), after phases 3-7 ran
+           the forced lane (DN_ENGINE=jax) against the single-threaded
+           host engine: per phase 4 query, the host engine at one
+           worker and at the default count, auto with an empty verdict
+           cache, again with the cache it wrote, and auto with eager
+           constants (escalate after 1,024 records, no accelerator
+           requirement, no remaining-time bar, margin 0; the stream
+           waits for a fed audition instead of racing it), which must
+           take over on the card, K1 launching on the two kernel
+           queries and never on the scatter query; each output equal
+           to the forced lane's.  Then an eager auto build, through the
+           stack, its tree equal to phase 6's, and a default one; then
+           auto queries (a) and (d) of phase 7: the first auditions
+           (CUDA is warm), both paths equal, the repeat follows the
+           persisted verdict.  Prints every route (escalation record,
+           audition and probation rates, device batches, cached
+           verdicts) and an `auto` JSON line.
+9. main    the kernel again, on the fused keys the main path gave it:
    keys    the largest batch of each kernel query at each segment count
            (the time window, and with it the accumulator, grows during
            the timestamp query), captured in phase 4.
-9. result  the card's name and power limit (nvidia-smi), a `kernels`
-           JSON line (launches on the main path, the build and the
-           query phase, times, bound), and as the last line
-           {"ok": true, "device": {...}}.
+10. result the card's name and power limit (nvidia-smi), a `kernels`
+           JSON line (launches on the main path, the build, the query
+           phase and the eager auto runs, times, bound), and as the
+           last line {"ok": true, "device": {...}}.
 
 Without CUDA, or without the rest of the repository beside it, the
 script exits non-zero and prints no result.
@@ -191,6 +208,13 @@ QUERY_CASES = [
      'device'),
     ('e no breakdowns, hour', ['--interval=hour'], 'host: no breakdowns'),
 ]
+# phase 8: auto's constants for the eager runs (the tests' values:
+# escalate after 1,024 records, no accelerator requirement, no
+# remaining-time bar, margin 0), and the phase 7 queries it runs
+AUTO_EAGER = {'ESCALATE_RECORDS': 1024, 'REQUIRE_ACCELERATOR': False,
+              'MIN_REMAINING_SECONDS': 0.0, 'UNKNOWN_SIZE_RECORDS': 0,
+              'SHADOW_MARGIN': 0.0}
+AUTO_QUERY_CASES = ('a', 'd')
 # K7's least traffic: each row's local code and weight (16 B), each
 # translation entry (8 B), each accumulator segment read and written
 # (16 B)
@@ -554,6 +578,7 @@ def main_path(cli, mod_ds, ck, ds, records):
                   'launched %d times' % (name, nl))
     main_launches = ck.launches['onehot_dense']
     main_s = time.monotonic() - t_main
+    forced = {q[0]: (q[3], q[4], q[5]) for q in per_query}
     mod_ds.DeviceScan._try_device = orig_try
     ck.onehot_dense_into = orig_kernel
     log('main path: %.2f s, one-hot kernel launches %d'
@@ -571,7 +596,7 @@ def main_path(cli, mod_ds, ck, ds, records):
         log('host %-36s %8.2f s  %11.0f records/s  identical output '
             '(%d points)' % (name, ht, records / ht,
                              out.count('\n')))
-    return shapes, captured, main_launches
+    return shapes, captured, main_launches, forced
 
 
 class Spy(object):
@@ -1180,6 +1205,7 @@ def query_phase(cli, ck, tmp, records, seed):
     results = []
     captured = []
     stages = {}
+    outputs = {}
 
     def wrap_query(orig):
         def query(self, *a, **k):
@@ -1256,6 +1282,7 @@ def query_phase(cli, ck, tmp, records, seed):
                 cli.dn_output(query, opts, hres, 'month')
             ht = time.monotonic() - t0
             host_stages = dict(stages)
+            outputs[name] = (hout.getvalue(), herr.getvalue())
             for r in runs:
                 check(r['out'] == hout.getvalue() and
                       r['err'] == herr.getvalue(),
@@ -1317,7 +1344,307 @@ def query_phase(cli, ck, tmp, records, seed):
     finally:
         spy.restore()
     return {'builds_s': builds, 'queries': results,
-            'onehot_launches': query_launches}
+            'onehot_launches': query_launches}, outputs
+
+
+@contextlib.contextmanager
+def env_scope(**env):
+    """Set (a value) or unset (None) environment variables for the
+    length of a block, then restore them."""
+    saved = {k: os.environ.get(k) for k in env}
+    for k, v in env.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def fmt_route(doc):
+    """One line for a scan's route record (DeviceScan.route_doc)."""
+    if doc.get('engine') == 'VectorScan':
+        return 'host engine (VectorScan)'
+    parts = ['escalated at record %d' % doc['escalated_at']
+             if doc['escalated'] else 'stayed on the host',
+             'device batches %d' % doc['device_batches'],
+             'probe %s' % doc.get('probe_status')]
+    if doc.get('cached_verdict') is not None:
+        parts.append('cached verdict %s' % doc['cached_verdict'])
+    if doc.get('audition'):
+        a = doc['audition']
+        parts.append('audition %s' % (
+            'failed' if a.get('failed') else
+            '%s (device %s records/s, host %s; replay %.3f s)'
+            % ('won' if a['won'] else 'lost', a['device_rate'],
+               a['host_rate'], a['replay_s'])))
+    if doc.get('probation'):
+        p = doc['probation']
+        parts.append('probation %s (device %s records/s, host %s)'
+                     % ('passed' if p['won'] else 'lost',
+                        p['device_rate'], p['host_rate']))
+    return ', '.join(parts)
+
+
+def auto_phase(cli, mod_ds, ck, tmp, records, forced, query_outputs):
+    """Phase 8: the default engine.  For each main-path query the host
+    engine at one and at the default worker count, auto with an empty
+    verdict cache, again with the cache it wrote, and auto with eager
+    constants (which must take over on the card) and the same constants
+    racing the audition against the stream, as a user's run does; then
+    eager builds (waiting, then racing) and a default auto build, and
+    auto queries that audition and then follow their verdict.  Every
+    output must equal the forced device lane's.  K1's count is zeroed
+    just before each run, read when the stream is taken over (the
+    audition's own launches come before) and read just after."""
+    import torch
+    from dragnet_tpu_torch import config as mod_config
+    from dragnet_tpu_torch import datasource_file as mod_dsf
+    from dragnet_tpu_torch import device_index as mod_di
+    from dragnet_tpu_torch import index_query_mt as mod_iqmt
+    from dragnet_tpu_torch import metrics_for_index
+    cache = os.path.join(tmp, 'auditions')
+    scans = []
+    routes = []
+    spy = Spy()
+
+    def wrap_scan(orig):
+        def scan(self, *a, **k):
+            rv = orig(self, *a, **k)
+            routes.append(self.last_route)
+            return rv
+        return scan
+    spy.wrap(mod_dsf.DatasourceFile, 'scan', wrap_scan)
+    # K1's count at the first takeover of a run
+    at_takeover = []
+
+    def wrap_escalated(orig):
+        def note(self):
+            if self.route['escalated_at'] is None and not at_takeover:
+                at_takeover.append(ck.launches['onehot_dense'])
+            return orig(self)
+        return note
+    # held through the builds too (the scans' spy is restored first)
+    tspy = Spy()
+    tspy.wrap(mod_ds.AutoDeviceScan, '_note_escalated', wrap_escalated)
+
+    def eager(spy, wait):
+        consts = dict(AUTO_EAGER, AWAIT_DECISION=wait)
+        for name, v in consts.items():
+            spy.wrap(mod_ds.AutoDeviceScan, name, lambda orig, v=v: v)
+
+    def reset():
+        ck.reset_launches()
+        del at_takeover[:]
+
+    def after_takeover():
+        n = ck.launches['onehot_dense']
+        return n - at_takeover[0] if at_takeover else 0
+
+    def run(argv, env, want):
+        """(seconds, K1 launches, of them after the takeover)"""
+        with env_scope(**env):
+            reset()
+            t0 = time.monotonic()
+            rc, out, err = run_cli(cli, argv)
+            torch.cuda.synchronize()
+            dt = time.monotonic() - t0
+            launches = ck.launches['onehot_dense']
+        check(rc == 0, '%s: failed: %s' % (argv, err))
+        check((out, err) == want, '%s under %s: output differs from the '
+              'forced device lane' % (argv, env))
+        return dt, launches, after_takeover()
+
+    auto_launches = 0
+    try:
+        for name, qargs, kroute in QUERIES:
+            argv = ['scan', '--points', '--counters'] + qargs + ['muskie']
+            fout, ferr, fdt = forced[name]
+            row = {'name': name, 'forced_s': fdt}
+            row['vector_1_s'] = run(argv, {'DN_ENGINE': 'vector',
+                                           'DN_SCAN_THREADS': '0'},
+                                    (fout, ferr))[0]
+            row['vector_mt_s'] = run(argv, {'DN_ENGINE': 'vector',
+                                            'DN_SCAN_THREADS': None},
+                                     (fout, ferr))[0]
+            auto_env = {'DN_ENGINE': 'auto', 'DN_SCAN_THREADS': None,
+                        'DN_AUDITION_CACHE': '1',
+                        'DN_TORCH_CACHE_DIR': cache}
+            for label in ('cold', 'warm'):
+                dt, nl, _ = run(argv, auto_env, (fout, ferr))
+                row['auto_%s_s' % label] = dt
+                row['auto_%s_route' % label] = routes[-1][0]
+                row['auto_%s_launches' % label] = nl
+            warm = row['auto_warm_route']
+            row['warm_skipped_audition'] = \
+                warm.get('cached_verdict') is not None
+            # eager constants, the stream waiting for its decision: the
+            # takeover must reach the card; then racing, as users run
+            for wait in (True, False):
+                espy = Spy()
+                eager(espy, wait)
+                try:
+                    dt, nl, na = run(argv, dict(auto_env,
+                                                DN_AUDITION_CACHE='0'),
+                                     (fout, ferr))
+                finally:
+                    espy.restore()
+                if wait:
+                    row.update(auto_eager_s=dt,
+                               auto_eager_route=routes[-1][0],
+                               auto_eager_launches=nl,
+                               auto_eager_takeover_launches=na)
+                else:
+                    row.update(auto_racing_s=dt,
+                               auto_racing_route=routes[-1][0],
+                               auto_racing_takeover_launches=na)
+            doc = row['auto_eager_route']
+            nl = row['auto_eager_launches']
+            na = row['auto_eager_takeover_launches']
+            dt = row['auto_eager_s']
+            check(doc['escalated'] and doc['device_batches'] > 0,
+                  '%s: eager auto never took over on the card: %r'
+                  % (name, doc))
+            if kroute == 'kernel':
+                check(na == doc['device_batches'],
+                      '%s: K1 launched %d times after the eager takeover '
+                      'for %d device batches' % (name, na,
+                                                 doc['device_batches']))
+            else:
+                check(nl == 0, '%s: K1 launched %d times on the scatter '
+                      'query' % (name, nl))
+            auto_launches += na
+            log('auto scan %-36s forced %.2f s | vector 1 thread %.2f s '
+                '(%.0f records/s) | vector MT %.2f s (%.0f records/s) | '
+                'auto cold %.2f s (%.0f records/s) | warm %.2f s | eager '
+                '%.2f s, K1 launches %d (%d after the takeover) | racing '
+                '%.2f s | identical output'
+                % (name, fdt, row['vector_1_s'],
+                   records / row['vector_1_s'], row['vector_mt_s'],
+                   records / row['vector_mt_s'], row['auto_cold_s'],
+                   records / row['auto_cold_s'], row['auto_warm_s'],
+                   dt, nl, na, row['auto_racing_s']))
+            log('    auto cold: %s' % fmt_route(row['auto_cold_route']))
+            log('    auto warm: %s (%s)' % (
+                fmt_route(warm), 'skipped the audition: cached verdict'
+                if row['warm_skipped_audition'] else
+                'no verdict was persisted, nothing to skip'))
+            log('    auto eager: %s' % fmt_route(doc))
+            log('    auto eager, racing: %s, K1 launches after the '
+                'takeover %d' % (fmt_route(row['auto_racing_route']),
+                                 row['auto_racing_takeover_launches']))
+            scans.append(row)
+    finally:
+        spy.restore()
+
+    # builds: eager (through the stack, the tree held to phase 6's),
+    # eager racing the audition, and with the default constants
+    _, config = mod_config.ConfigBackendLocal().load()
+    metrics = metrics_for_index(config, 'idx')
+    ref_tree = tree_files(os.path.join(tmp, 'idx_device'))
+    builds = {}
+    for label in ('eager', 'racing', 'default'):
+        idx = os.path.join(tmp, 'idx_auto_' + label)
+        dsconfig = dict(config.datasource_get('idx'))
+        dsconfig['ds_backend_config'] = dict(
+            dsconfig['ds_backend_config'], indexPath=idx)
+        bds = mod_dsf.DatasourceFile(dsconfig)
+        bspy = Spy()
+        if label != 'default':
+            eager(bspy, label == 'eager')
+        try:
+            with env_scope(DN_SCAN_THREADS=None, DN_AUDITION_CACHE='0'):
+                reset()
+                t0 = time.monotonic()
+                res = bds.build(metrics, 'hour', engine='auto',
+                                device=DEVICE)
+                torch.cuda.synchronize()
+                dt = time.monotonic() - t0
+                nl = ck.launches['onehot_dense']
+                na = after_takeover()
+        finally:
+            bspy.restore()
+        tree = tree_files(idx)
+        check(tree.keys() == ref_tree.keys() and
+              all(tree[k] == ref_tree[k] for k in tree),
+              'auto build (%s): the tree differs from phase 6\'s' % label)
+        stacked = sum(st.counters.get('nstackedbatches', 0)
+                      for st in res.pipeline.stages)
+        if label == 'eager':
+            check(stacked > 0 and all(d['escalated']
+                                      for d in bds.last_route),
+                  'eager auto build did not take over through the stack: '
+                  '%d stacked batches, %r' % (stacked, bds.last_route))
+            check(na > 0, 'eager auto build: K1 did not launch after the '
+                  'takeover')
+            auto_launches += na
+        builds[label] = {'s': dt, 'stacked_batches': stacked,
+                         'launches': nl, 'takeover_launches': na,
+                         'routes': bds.last_route}
+        log('auto build %-7s %.2f s (%.0f records/s) | stacked batches %d '
+            '| K1 launches %d (%d after the takeover) | tree identical to '
+            'phase 6 | %s'
+            % (label, dt, records / dt, stacked, nl, na,
+               '; '.join(fmt_route(d) for d in bds.last_route)))
+
+    tspy.restore()
+
+    # queries: the first auditions (CUDA is warm in this process), the
+    # repeat follows the persisted verdict
+    iq = []
+    with env_scope(DN_ENGINE='auto', DN_AUDITION_CACHE='1',
+                   DN_TORCH_CACHE_DIR=os.path.join(tmp, 'auditions_iq')):
+        for name, qargs, _route in QUERY_CASES:
+            if name[0] not in AUTO_QUERY_CASES:
+                continue
+            argv = ['query', '--points', '--counters'] + qargs + ['month']
+            runs = []
+            for attempt in range(2):
+                mod_iqmt.shard_cache_clear()
+                e0 = mod_di.stats_doc()
+                dt = run(argv, {}, query_outputs[name])[0]
+                e1 = mod_di.stats_doc()
+                routes_run = {r: n - e0['routes'].get(r, 0)
+                              for r, n in e1['routes'].items()
+                              if n != e0['routes'].get(r, 0)}
+                runs.append({'s': dt, 'routes': routes_run,
+                             'auditions': e1['auditions'] -
+                             e0['auditions'],
+                             'audition': e1['last_audition']})
+            first, second = runs
+            aud = first['audition']
+            check(first['routes'] == {'audition': 1} and
+                  first['auditions'] == 1 and aud['equal'],
+                  '%s: the first auto query did not audition: %r'
+                  % (name, first))
+            want = 'device: audition verdict' if aud['won'] \
+                else 'host: audition verdict'
+            check(second['routes'] == {want: 1} and
+                  second['auditions'] == 0,
+                  '%s: the repeat did not follow the verdict (%s): %r'
+                  % (name, want, second['routes']))
+            iq.append({'name': name, 'first_s': first['s'],
+                       'repeat_s': second['s'], 'key': aud['key'],
+                       'won': aud['won'],
+                       'device_rate': aud['device_rate'],
+                       'host_rate': aud['host_rate'],
+                       'repeat_route': want})
+            log('auto query %-33s first %.3f s: audition, sums equal, '
+                'device %s: %.0f rows/s vs host bincount %.0f rows/s '
+                '(%s) | repeat %.3f s: route %s | identical output'
+                % (name, first['s'], 'won' if aud['won'] else 'lost',
+                   aud['device_rate'], aud['host_rate'], aud['key'],
+                   second['s'], want))
+    log('auto: auditions %d in the query phase'
+        % mod_di.stats_doc()['auditions'])
+    return {'scans': scans, 'builds': builds, 'queries': iq,
+            'auto_launches': auto_launches}
 
 
 def main_path_keys(ck, captured, reps):
@@ -1393,6 +1720,12 @@ def main():
                time.monotonic() - t0))
         os.environ['DRAGNET_CONFIG'] = os.path.join(tmp, 'dragnetrc')
         os.environ['DN_TORCH_DEVICE'] = DEVICE
+        # phases 3-7: the forced device lane (DN_ENGINE=jax), held
+        # against the single-threaded host engine as in earlier runs;
+        # phase 8 runs the default engine
+        os.environ['DN_ENGINE'] = 'jax'
+        os.environ['DN_SCAN_THREADS'] = '0'
+        os.environ['DN_AUDITION_CACHE'] = '0'
         rc, out, err = run_cli(cli, [
             'datasource-add', 'muskie', '--path=' + data,
             '--time-field=time', '--filter={"ne":["host","zzz"]}'])
@@ -1413,11 +1746,14 @@ def main():
             log('cold %-36s %8.3f s  (%d records, first scans of the '
                 'process)' % (name, time.monotonic() - t0, COLD_RECORDS))
 
-        shapes, captured, main_launches = main_path(cli, mod_ds, ck, ds,
-                                                    args.records)
+        shapes, captured, main_launches, forced = main_path(
+            cli, mod_ds, ck, ds, args.records)
         sparse = sparse_phase(cli, mod_ds, ds, args.records)
         build = build_phase(cli, mod_ds, ck, tmp, data, args.records)
-        queries = query_phase(cli, ck, tmp, args.records, args.seed)
+        queries, query_outputs = query_phase(cli, ck, tmp, args.records,
+                                             args.seed)
+        auto = auto_phase(cli, mod_ds, ck, tmp, args.records, forced,
+                          query_outputs)
     torch.cuda.synchronize()
 
     # 5. the kernel on the main path's own keys, and on uniform keys at
@@ -1456,7 +1792,7 @@ def main():
             json.dump({'card': card, 'stream_lookup_ms': stream_costs,
                        'shapes': results, 'sparse_fold_bench': fold_bench,
                        'sparse_scans': sparse, 'build': build,
-                       'query': queries}, f,
+                       'query': queries, 'auto': auto}, f,
                       indent=1)
     print(json.dumps({'query': [
         {k: q[k] for k in ('name', 'route', 'points', 'device_s',
@@ -1464,12 +1800,17 @@ def main():
                            'bound_ms', 'stages')} for q in
         queries['queries']], 'builds_s': queries['builds_s']}),
         flush=True)
+    print(json.dumps({'auto': {
+        'scans': [{k: v for k, v in r.items()} for r in auto['scans']],
+        'builds': auto['builds'], 'queries': auto['queries']}}),
+        flush=True)
     log('gpu: %s' % card)
     print(json.dumps({'kernels': [{
         'name': 'onehot_dense', 'route': 'cuda', 'source': KERNEL_SOURCE,
         'replaces': KERNEL_REPLACES, 'launches': main_launches,
         'build_launches': build['build_launches'],
         'query_launches': queries['onehot_launches'],
+        'auto_launches': auto['auto_launches'],
         'max_abs_err': max(r['max_abs_err'] for r in results),
         'ms': main['ms'], 'plain_ms': main['plain_ms'],
         'bound_ms': main['bound_ms'], 'bound_by': main['bound_by'],

@@ -1,8 +1,10 @@
 """The port's command-line interface: `python -m dragnet_tpu_torch`.
 
 Counterpart of dragnet_tpu/cli.py for the commands this port covers:
-`scan`, `build`, `index-scan` and `query` (on the device,
-DN_TORCH_DEVICE, default cuda), `datasource-add`, `datasource-list`,
+`scan`, `build`, `index-scan` and `query` (on DN_TORCH_DEVICE, default
+cuda, with the engine DN_ENGINE names, as bin/dn reads it: auto by
+default, jax for the device lane, vector for the host engine),
+`datasource-add`, `datasource-list`,
 `metric-add`, `metric-list`, `metric-remove` and `index-config`.
 Option parsing, breakdown expansion and output are the reference CLI's,
 so the port prints byte-identical results and writes byte-identical
@@ -59,7 +61,11 @@ dn index-scan        [--index-config=INDEX_CONFIG_FILE]
                      [--before=START_TIME] [--after=END_TIME] [--filter=FILTER]
                      [--breakdowns=BREAKDOWN[,...]] [--counters] DATASOURCE
 
-scan, build, index-scan and query run on DN_TORCH_DEVICE (default: cuda).
+scan, build, index-scan and query run on DN_TORCH_DEVICE (default: cuda)
+with the engine DN_ENGINE names: auto (the default: the multithreaded
+host engine, the device taking the stream over once it wins an
+audition), jax (the device from the first batch) or vector (the host
+engine).  DN_ENGINE=host is not yet ported.
 """
 
 # Option table (reference: bin/dn:146-215), the subset these commands
@@ -469,6 +475,20 @@ def _device():
     return os.environ.get('DN_TORCH_DEVICE') or 'cuda'
 
 
+# DN_ENGINE as bin/dn reads it (dragnet_tpu/engine.py engine_mode),
+# mapped onto the port's engine names; any other value is the host
+# engine there, and here
+ENGINE_MODES = {'auto': 'auto', 'jax': 'device', 'vector': 'vector'}
+
+
+def _engine():
+    mode = os.environ.get('DN_ENGINE', 'auto')
+    if mode == 'host':
+        fatal(DNError('DN_ENGINE=host (the per-record engine) is not yet '
+                      'ported; use auto, jax or vector'))
+    return ENGINE_MODES.get(mode, 'vector')
+
+
 def cmd_scan(ctx, argv):
     opts = dn_parse_args(argv, ['before', 'after', 'filter', 'breakdowns',
                                 'raw', 'points', 'counters', 'gnuplot'])
@@ -479,7 +499,7 @@ def cmd_scan(ctx, argv):
         fatal(ds)
     query = dn_query_config(opts)
     try:
-        result = ds.scan(query, device=_device())
+        result = ds.scan(query, device=_device(), engine=_engine())
     except DNError as e:
         fatal(e)
     dn_output(query, opts, result, dsname)
@@ -501,7 +521,7 @@ def cmd_query(ctx, argv):
                            ('auto', '0', '1')):
         try:
             result = ds.query(query, opts.interval, dry_run=opts.dry_run,
-                              device=_device())
+                              device=_device(), engine=_engine())
         except DNError as e:
             fatal(e)
     dn_output(query, opts, result, dsname)
@@ -565,7 +585,8 @@ def cmd_build(ctx, argv):
             result = ds.build(metrics, opts.interval,
                               time_after=opts.after,
                               time_before=opts.before,
-                              dry_run=opts.dry_run, device=_device())
+                              dry_run=opts.dry_run, device=_device(),
+                              engine=_engine())
         except DNError as e:
             fatal(e)
 
@@ -610,7 +631,8 @@ def cmd_index_scan(ctx, argv):
     try:
         result = ds.index_scan(metrics, opts.interval, filter=dsfilter,
                                time_after=opts.after,
-                               time_before=opts.before, device=_device())
+                               time_before=opts.before, device=_device(),
+                               engine=_engine())
     except DNError as e:
         fatal(e)
     dn_output(None, opts, result, dsname)

@@ -3,14 +3,16 @@ the native parse stream, the scan engines and the index walk.
 
 Counterpart of dragnet_tpu/datasource_file.py (`scan`, `build`,
 `index_scan`, `query`), restricted to the native-parser lane
-(native/dnparse.cc) and its single-threaded engine step: input
-enumeration (strftime-pruned when the datasource has a time format),
-one pass over the concatenated file bytes (a partial trailing line
-joins across file boundaries), batches fed to the device scan
-(device_scan.py) or, when asked for, the host engine
-(engine.VectorScan).  A build feeds ONE parse stream to every metric's
-scan (stacked on the device: DeviceScanStack) and hands each metric's
-aggregate to the index writer (index_build_mt.py).  A query walks the
+(native/dnparse.cc): input enumeration (strftime-pruned when the
+datasource has a time format), one pass over the concatenated file
+bytes (a partial trailing line joins across file boundaries), batches
+fed to the forced device scan (engine='device'), to the host engine
+(engine.VectorScan) on DN_SCAN_THREADS workers (scan_mt.py), or under
+engine='auto' to those workers until the device takes the stream over
+(_takeover_stream, device_scan.AutoDeviceScan).  A build feeds ONE
+parse stream to every metric's scan (stacked on the device:
+DeviceScanStack) and hands each metric's aggregate to the index writer
+(index_build_mt.py).  A query walks the
 index tree and answers through the rollup planner, the stacked path
 (index_query_stack.py, its weight sums on the device: device_index.py)
 or the per-shard loop (index_query_mt.py), in the reference's order.
@@ -31,7 +33,7 @@ from .engine import BATCH_SIZE, NativeColumns, VectorPredicate, VectorScan
 from .ops.kernels import TRUE
 from .vpipe import Pipeline
 
-ENGINES = ('device', 'vector')
+ENGINES = ('device', 'auto', 'vector')
 
 LOG = mod_log.get('datasource-file')
 
@@ -53,6 +55,8 @@ class ScanResult(object):
 class DatasourceFile(object):
     def __init__(self, dsconfig):
         bc = dsconfig['ds_backend_config']
+        # the route of the last scan or build (_route_doc)
+        self.last_route = None
         self.ds_format = dsconfig.get('ds_format')
         self.ds_timeformat = bc.get('timeFormat')
         self.ds_timefield = bc.get('timeField')
@@ -104,10 +108,13 @@ class DatasourceFile(object):
 
     def scan(self, query, device=None, engine='device'):
         """Scan raw data to execute a query.  Returns a ScanResult whose
-        points are the aggregated output.  engine='device' runs the
-        device scan on `device` (CUDA unless the caller asks for the
-        CPU); engine='vector' runs the host engine, which the device
-        scan is held against."""
+        points are the aggregated output.  engine='device' (the CLI's
+        DN_ENGINE=jax) runs the device scan on `device` (CUDA unless the
+        caller asks for the CPU); engine='auto' runs the multithreaded
+        host engine with the device's mid-stream takeover
+        (device_scan.AutoDeviceScan; the host engine alone when the
+        caller asked for the CPU); engine='vector' runs the host engine,
+        which the device scan is held against."""
         _check_engine(engine)
         pipeline = Pipeline()
         ctx = self._scan_init(query.qc_after, query.qc_before, pipeline)
@@ -115,43 +122,139 @@ class DatasourceFile(object):
             raise ctx
         files, fmt = ctx
         _require_native()
-        # parse stages first: --counters lists stages in creation order
-        stages = mod_ingest.make_parser_stages(pipeline, fmt)
-        scanner = self._make_scan(query, pipeline, self.ds_filter, device,
-                                  engine)
-        self._scan_native(scanner, files, fmt, stages)
+        scanner = self._scan_native(query, files, fmt, pipeline, device,
+                                    engine)
         scanner.finish()
+        self.last_route = _route_doc([scanner])
         return ScanResult(pipeline, scanner.aggr.points())
 
-    def _make_scan(self, query, pipeline, ds_filter, device, engine):
-        if engine == 'device':
-            from .device_scan import DeviceScan
-            return DeviceScan(query, self.ds_timefield, pipeline,
-                              ds_filter=ds_filter, device=device)
-        return VectorScan(query, self.ds_timefield, pipeline,
-                          ds_filter=ds_filter)
+    def _scan_cls(self, engine, device):
+        """The scan class for `engine` on `device`
+        (device_scan.scan_class); tests pin it to a subclass."""
+        from .device_scan import scan_class
+        return scan_class(engine, device)
 
-    def _scan_native(self, scanner, files, fmt, stages):
+    def _make_scan(self, cls, query, pipeline, ds_filter, device):
+        if cls is VectorScan:
+            return VectorScan(query, self.ds_timefield, pipeline,
+                              ds_filter=ds_filter)
+        return cls(query, self.ds_timefield, pipeline,
+                   ds_filter=ds_filter, device=device)
+
+    def _scan_native(self, query, files, fmt, pipeline, device, engine):
         """Scan via the C++ columnar parser: one pass over the
         concatenated bytes, projected fields only, batched into the
-        engine."""
+        engine.  With DN_SCAN_THREADS > 0 the host engine step runs on
+        worker threads pipelined behind the parse (scan_mt), with
+        byte-identical results; under auto the device may take the
+        stream over from them (_takeover_stream)."""
+        from . import scan_mt
+        # parse stages first: --counters lists stages in creation order
+        stages = mod_ingest.make_parser_stages(pipeline, fmt)
         parser_stage, adapter_stage = stages
+        stage_offset = len(pipeline.stages)
+        scan_cls = self._scan_cls(engine, device)
+        scanner = self._make_scan(scan_cls, query, pipeline,
+                                  self.ds_filter, device)
 
         skinner = fmt == 'json-skinner'
-        parser, src = _native_parser(scanner.projection(), skinner)
+        proj = scanner.projection()
+        parser, src = _native_parser(proj, skinner)
+        paths, hints, dicts = parser.projection
+        remap = src.remap if skinner else None
 
-        def flush():
-            n = parser.batch_size()
-            if n == 0:
-                return
-            nlines, nbad = parser.counters()
-            _bump_parse_counters(parser_stage, adapter_stage,
-                                 nlines, nbad, n)
-            weights = _batch_weights(skinner, parser, n)
-            scanner.write_native_batch(src, weights)
-            parser.reset_batch()
+        nworkers = scan_mt.scan_threads()
+        use_mt = nworkers > 0 and scan_cls is VectorScan
+        # auto runs the MT host engine too: workers are plain
+        # VectorScans, and the device path (the main scanner) can TAKE
+        # OVER the stream once its background probe succeeds and it
+        # wins its audition — or hand back if it loses probation
+        auto_mt = nworkers > 0 and getattr(scan_cls, 'AUTO_STREAM', False)
+        progress_fn = getattr(scanner, 'set_progress', None)
 
-        self._stream_native(files, parser, flush, BATCH_SIZE)
+        if use_mt or auto_mt:
+            def build_worker(wp):
+                wscan = VectorScan(query, self.ds_timefield, wp,
+                                   ds_filter=self.ds_filter)
+                # workers drain per batch through the recorder; the
+                # deferred columnar merge would hold rows past drain
+                wscan._defer_enabled = False
+                rec = scan_mt.BatchRecorder(wscan.aggr.stage)
+                wscan.aggr = rec
+
+                def process(snap):
+                    wsrc = _RemappedParser(snap, remap) if skinner \
+                        else snap
+                    wscan._process(NativeColumns(wsrc),
+                                   _batch_weights(skinner, snap,
+                                                  snap.batch_size()))
+                    return rec.drain()
+                return process
+
+            def new_executor():
+                # one radix merge per executor epoch: finalize() runs
+                # inside finish(), so a device takeover (or the final
+                # drain) always observes this executor's batches fully
+                # merged, in order
+                radix = scan_mt.RadixMerge(scanner)
+                return scan_mt.MTScanExecutor(nworkers, build_worker,
+                                              radix.apply_calls,
+                                              pipeline, stage_offset,
+                                              finish_fn=radix.finalize)
+
+            def device_batch(dsrc, n):
+                nlines, nbad = parser.counters()
+                _bump_parse_counters(parser_stage, adapter_stage,
+                                     nlines, nbad, n)
+                weights = _batch_weights(skinner, parser, n)
+                scanner.write_native_batch(dsrc, weights)
+                parser.reset_batch()
+                if scanner._disabled:
+                    scanner._flush()
+                    return False     # hand back to the MT executor
+                return True
+
+            def submit_batch(ex, n):
+                snap = scan_mt.ParserSnapshot(parser, paths, hints, dicts)
+                parser.reset_batch()
+                _bump_parse_counters(parser_stage, adapter_stage,
+                                     snap.nlines, snap.nbad, n)
+                if auto_mt:
+                    scanner.note_external_batch(n)
+                    scanner.shadow_feed(snap, n)
+                ex.submit(snap)
+
+            if auto_mt:
+                from .device_scan import DeviceScan
+                scanner.enable_shadow(
+                    lambda: [DeviceScan(query, self.ds_timefield,
+                                        Pipeline(),
+                                        ds_filter=self.ds_filter,
+                                        device=scanner.device)],
+                    lambda snap: NativeColumns(
+                        _RemappedParser(snap, remap) if skinner
+                        else snap),
+                    lambda snap, n: _batch_weights(skinner, snap, n))
+
+            self._takeover_stream(
+                files, parser, BATCH_SIZE, progress_fn, new_executor,
+                submit_batch,
+                scanner.take_over_now if auto_mt else None,
+                lambda: src, device_batch)
+        else:
+            def flush():
+                n = parser.batch_size()
+                if n == 0:
+                    return
+                nlines, nbad = parser.counters()
+                _bump_parse_counters(parser_stage, adapter_stage,
+                                     nlines, nbad, n)
+                weights = _batch_weights(skinner, parser, n)
+                scanner.write_native_batch(src, weights)
+                parser.reset_batch()
+
+            self._stream_native(files, parser, flush, BATCH_SIZE,
+                                progress=progress_fn)
         # counters even when the final batch was empty
         nlines, nbad = parser.counters()
         if nlines:
@@ -159,6 +262,7 @@ class DatasourceFile(object):
             parser_stage.counters['noutputs'] = nlines - nbad
             if nbad:
                 parser_stage.counters['invalid json'] = nbad
+        return scanner
 
     # -- build / index-scan -----------------------------------------------
 
@@ -238,6 +342,7 @@ class DatasourceFile(object):
                 s.finish()
                 cols, weights = s.aggr.point_rows()
                 blocks.append((list(s.aggr.decomps), cols, weights))
+            self.last_route = _route_doc(scanners)
             mod_ibmt.write_index_blocks(metrics, interval,
                                         self.ds_indexpath, blocks)
             return ScanResult(pipeline)
@@ -248,6 +353,7 @@ class DatasourceFile(object):
             for fields, value in s.aggr.points():
                 fields['__dn_metric'] = qi
                 tagged.append((fields, value))
+        self.last_route = _route_doc(scanners)
         return ScanResult(pipeline, points=tagged)
 
     def _index_scan_native(self, queries, files, fmt, filter, pipeline,
@@ -255,23 +361,35 @@ class DatasourceFile(object):
         """Build fan-out over the native parser: ONE pass over raw bytes
         feeds every metric's scan (the reference pipes one parse stream
         into N StreamScans, lib/datasource-file.js:403-427).  On the
-        device the metrics fold through one DeviceScanStack per batch;
-        DN_STACK=0 keeps the per-scan device folds."""
+        device the metrics fold through one DeviceScanStack per batch
+        (DN_STACK=0 keeps the per-scan device folds); the host engine
+        runs on DN_SCAN_THREADS workers, and under auto the device takes
+        the stream over for all metrics together."""
+        from . import scan_mt
         stages = mod_ingest.make_parser_stages(pipeline, fmt)
         parser_stage, adapter_stage = stages
+        stage_offset = len(pipeline.stages)
+        scan_cls = self._scan_cls(engine, device)
 
-        # the datasource filter is evaluated once on the shared parse
-        # stream; each metric's own filter lives in its scan
-        ds_pred = ds_stage = holder = None
-        if filter is not None:
-            holder = _Holder()
-            ds_pred = VectorPredicate(filter, holder)
-            ds_stage = pipeline.stage('Datasource filter')
-        scanners = []
-        for q in queries:
-            scanners.append(self._make_scan(q, pipeline, None, device,
-                                            engine))
-            pipeline.stage('Add __dn_metric')
+        def make_scan_set(pl, cls):
+            """The datasource predicate (+ its stage) and one scan per
+            metric, with the same stage layout on the main and every
+            worker pipeline.  The datasource filter is evaluated once on
+            the shared parse stream; each metric's own filter lives in
+            its scan."""
+            pred = stage = holder = None
+            if filter is not None:
+                holder = _Holder()
+                pred = VectorPredicate(filter, holder)
+                stage = pl.stage('Datasource filter')
+            scans = []
+            for q in queries:
+                scans.append(self._make_scan(cls, q, pl, None, device))
+                pl.stage('Add __dn_metric')
+            return pred, stage, scans, holder
+
+        ds_pred, ds_stage, scanners, holder = make_scan_set(pipeline,
+                                                            scan_cls)
 
         skinner = fmt == 'json-skinner'
         proj = {}
@@ -285,21 +403,28 @@ class DatasourceFile(object):
                 ent[1] = ent[1] or d
         parser, src = _native_parser(
             [(p, h, d) for p, (h, d) in proj.items()], skinner)
+        paths, hints, dicts = parser.projection
+        remap = src.remap if skinner else None
 
         stack = None
-        if engine == 'device':
+        if scan_cls is not VectorScan:
             from .device_scan import make_stack
             stack = make_stack(scanners)
 
-        def flush():
-            n = parser.batch_size()
-            if n == 0:
-                return
-            nlines, nbad = parser.counters()
-            _bump_parse_counters(parser_stage, adapter_stage,
-                                 nlines, nbad, n)
-            provider = NativeColumns(src)
-            weights = _batch_weights(skinner, parser, n)
+        nworkers = scan_mt.scan_threads()
+        use_mt = nworkers > 0 and scan_cls is VectorScan
+        # auto builds mirror the scan path: MT host workers by default,
+        # with a coordinated device takeover (and hand-back on lost
+        # probation) across all metric scanners
+        auto_mt = nworkers > 0 and getattr(scan_cls, 'AUTO_STREAM', False)
+
+        def set_all_progress(done, total):
+            for s in scanners:
+                s.set_progress(done, total)
+        progress_fn = set_all_progress \
+            if any(hasattr(s, 'set_progress') for s in scanners) else None
+
+        def process_main(provider, weights, n):
             alive0 = None
             if ds_pred is not None:
                 alive0 = _eval_ds_filter(ds_pred, ds_stage, provider, n)
@@ -308,9 +433,124 @@ class DatasourceFile(object):
             else:
                 for s in scanners:
                     s._process(provider, weights, alive=alive0)
-            parser.reset_batch()
 
-        self._stream_native(files, parser, flush, BATCH_SIZE)
+        if use_mt or auto_mt:
+            def build_worker(wp):
+                wpred, wstage, wscans, _ = make_scan_set(wp, VectorScan)
+                recs = []
+                for s in wscans:
+                    s._defer_enabled = False   # drained per batch
+                    rec = scan_mt.BatchRecorder(s.aggr.stage)
+                    s.aggr = rec
+                    recs.append(rec)
+
+                def process(snap):
+                    n = snap.batch_size()
+                    provider = NativeColumns(
+                        _RemappedParser(snap, remap) if skinner
+                        else snap)
+                    weights = _batch_weights(skinner, snap, n)
+                    alive0 = None
+                    if wpred is not None:
+                        alive0 = _eval_ds_filter(wpred, wstage,
+                                                 provider, n)
+                    out = []
+                    for s, rec in zip(wscans, recs):
+                        s._process(provider, weights, alive=alive0)
+                        out.append(rec.drain())
+                    return out
+                return process
+
+            def new_executor():
+                # one radix merge per metric scanner per executor epoch
+                radixes = [scan_mt.RadixMerge(s) for s in scanners]
+
+                def apply_result(results):
+                    for radix, calls in zip(radixes, results):
+                        radix.apply_calls(calls)
+
+                def finish_fn():
+                    for radix in radixes:
+                        radix.finalize()
+                return scan_mt.MTScanExecutor(nworkers, build_worker,
+                                              apply_result, pipeline,
+                                              stage_offset,
+                                              finish_fn=finish_fn)
+
+            def take_over():
+                if not scanners[0].take_over_now():
+                    return False
+                # share the probe result so sibling scanners don't
+                # each wait on their own probe thread
+                for s in scanners[1:]:
+                    s._backend_ok = scanners[0]._backend_ok
+                    s.probe_status = scanners[0].probe_status
+                return True
+
+            def device_batch(dsrc, n):
+                nlines, nbad = parser.counters()
+                _bump_parse_counters(parser_stage, adapter_stage,
+                                     nlines, nbad, n)
+                process_main(NativeColumns(dsrc),
+                             _batch_weights(skinner, parser, n), n)
+                parser.reset_batch()
+                if any(s._disabled for s in scanners):
+                    # coordinated hand-back: all metric scanners leave
+                    # the device together
+                    for s in scanners:
+                        s._flush()
+                        s._disabled = True
+                    return False
+                return True
+
+            def submit_batch(ex, n):
+                snap = scan_mt.ParserSnapshot(parser, paths, hints, dicts)
+                parser.reset_batch()
+                _bump_parse_counters(parser_stage, adapter_stage,
+                                     snap.nlines, snap.nbad, n)
+                if auto_mt:
+                    for s in scanners:
+                        s.note_external_batch(n)
+                    scanners[0].shadow_feed(snap, n)
+                ex.submit(snap)
+
+            if auto_mt:
+                from .device_scan import DeviceScan
+                dev = scanners[0].device
+                # the audition replays every metric's scan, so the
+                # measured rate reflects the whole build fan-out
+                scanners[0].enable_shadow(
+                    lambda: [DeviceScan(q, self.ds_timefield, Pipeline(),
+                                        ds_filter=None, device=dev)
+                             for q in queries],
+                    lambda snap: NativeColumns(
+                        _RemappedParser(snap, remap) if skinner
+                        else snap),
+                    lambda snap, n: _batch_weights(skinner, snap, n),
+                    # production passes the shared ds-filter mask as a
+                    # non-None alive; the replay must match that shape
+                    make_alive=(
+                        (lambda n: np.ones(n, dtype=bool))
+                        if filter is not None else None))
+
+            self._takeover_stream(
+                files, parser, BATCH_SIZE, progress_fn, new_executor,
+                submit_batch, take_over if auto_mt else None,
+                lambda: src, device_batch)
+        else:
+            def flush():
+                n = parser.batch_size()
+                if n == 0:
+                    return
+                nlines, nbad = parser.counters()
+                _bump_parse_counters(parser_stage, adapter_stage,
+                                     nlines, nbad, n)
+                process_main(NativeColumns(src),
+                             _batch_weights(skinner, parser, n), n)
+                parser.reset_batch()
+
+            self._stream_native(files, parser, flush, BATCH_SIZE,
+                                progress=progress_fn)
         nlines, nbad = parser.counters()
         if nlines:
             parser_stage.counters['ninputs'] = nlines
@@ -318,6 +558,43 @@ class DatasourceFile(object):
             if nbad:
                 parser_stage.counters['invalid json'] = nbad
         return scanners
+
+    def _takeover_stream(self, files, parser, batch_size, progress,
+                         new_executor, submit_batch, take_over,
+                         make_device_src, device_batch):
+        """The MT-host / device takeover state machine shared by scan
+        and build: batches go to the MT executor until take_over()
+        (auto mode's escalation decision) fires, then to the device
+        scanner(s) via device_batch; a False from device_batch (lost
+        probation) drains back to a fresh MT executor.  Batch order —
+        and therefore the aggregator's insertion order — is preserved
+        across both transitions: the executor is fully drained before
+        any device batch flushes, and the device accumulator is flushed
+        before the next executor starts."""
+        state = {'ex': new_executor(), 'src': None}
+
+        def flush():
+            n = parser.batch_size()
+            if n == 0:
+                return
+            if state['ex'] is not None and take_over is not None and \
+                    take_over():
+                state['ex'].finish()
+                state['ex'] = None
+                state['src'] = make_device_src()
+            if state['ex'] is None:
+                if not device_batch(state['src'], n):
+                    state['src'] = None
+                    state['ex'] = new_executor()
+                return
+            submit_batch(state['ex'], n)
+
+        try:
+            self._stream_native(files, parser, flush, batch_size,
+                                progress=progress)
+        finally:
+            if state['ex'] is not None:
+                state['ex'].finish()
 
     def _index_write(self, metrics, interval, tagged_points):
         """Write tagged aggregated points (index_scan's result) into
@@ -409,7 +686,10 @@ class DatasourceFile(object):
         """Query the indexes.  engine='device' aggregates the stacked
         path's weight sums on `device` (CUDA unless the caller asks for
         the CPU; DN_INDEX_DEVICE=0 pins the host bincount);
-        engine='vector' keeps them on the host.  (reference:
+        engine='vector' keeps them on the host; engine='auto' follows a
+        persisted `iq:` verdict, auditions in a process whose CUDA is
+        warm, and otherwise stays on the host
+        (device_index.lane_decision).  (reference:
         lib/datasource-file.js:573-691)"""
         from . import device_index as mod_di
         _check_engine(engine)
@@ -420,7 +700,9 @@ class DatasourceFile(object):
         if dry_run:
             return ScanResult(pipeline,
                               dry_run_files=[p for p, st in files])
-        if engine == 'device':
+        if engine in ('device', 'auto'):
+            # no silent CPU under auto either: the device is resolved
+            # (and CUDA required unless the CPU was asked for) up front
             from .ops import resolve_device
             device = resolve_device(device)
 
@@ -527,12 +809,18 @@ class DatasourceFile(object):
 
         return ScanResult(pipeline, points=aggr.points())
 
-    def _stream_native(self, files, parser, flush, batch_size):
+    def _stream_native(self, files, parser, flush, batch_size,
+                       progress=None):
         """Feed the concatenated file bytes to the native parser,
         flushing a batch whenever enough records accumulate (partial
         trailing lines join across file boundaries — catstreams
         semantics).  The bulk of each read chunk is parsed in place
-        (zero-copy span); only the carry-spanning line is stitched."""
+        (zero-copy span); only the carry-spanning line is stitched.
+
+        progress(bytes_done, bytes_total), when given, is called before
+        each flush — auto mode's device-switch heuristic estimates
+        remaining work from it (total is 0 when sizes are unknowable,
+        e.g. character devices)."""
         # larger reads amortize the multithreaded parse's fork/join; the
         # cap bounds how far a batch can overshoot the flush threshold
         # (flush is only checked between reads).  DN_READ_SIZE overrides
@@ -542,8 +830,14 @@ class DatasourceFile(object):
             readsz = int(os.environ.get('DN_READ_SIZE', 0)) or readsz
         except ValueError:
             pass
+        total = 0
+        for path, st in files:
+            sz = getattr(st, 'st_size', 0) if st is not None else 0
+            total += sz if sz and sz > 0 else 0
+        done = 0
         carry = b''
         for chunk in _read_ahead(files, readsz):
+            done += len(chunk)
             nl = chunk.rfind(b'\n')
             if nl == -1:
                 carry += chunk
@@ -558,9 +852,13 @@ class DatasourceFile(object):
                 parser.parse_at(arr[start:].ctypes.data, nl + 1 - start)
             carry = chunk[nl + 1:]
             if parser.batch_size() >= batch_size:
+                if progress is not None:
+                    progress(done, total)
                 flush()
         if carry:
             parser.parse(carry)
+        if progress is not None:
+            progress(done, total)
         flush()
 
 
@@ -568,7 +866,9 @@ def _native_parser(proj, skinner):
     """(parser, provider source) for a projection [(path, date_hint,
     need_dict)]: json-skinner reads `fields.<path>` plus `value`, and
     the source presents those under the unprefixed names.  One source
-    per pass, so per-column caches persist across batches."""
+    per pass, so per-column caches persist across batches.  The
+    parser's (paths, hints, dicts) ride on it as `projection` (the MT
+    path snapshots batches by them)."""
     if skinner:
         paths = ['fields.' + p for p, h, d in proj] + ['value']
         hints = [h for p, h, d in proj] + [False]
@@ -578,6 +878,7 @@ def _native_parser(proj, skinner):
         hints = [h for p, h, d in proj]
         dicts = [d for p, h, d in proj]
     parser = mod_native.NativeParser(paths, hints, dicts)
+    parser.projection = (paths, hints, dicts)
     if not skinner:
         return parser, parser
     remap = {p: np_ for (p, h, d), np_ in zip(proj, paths)}
@@ -587,6 +888,16 @@ def _native_parser(proj, skinner):
 def _check_engine(engine):
     if engine not in ENGINES:
         raise DNError('unknown scan engine "%s"' % engine)
+
+
+def _route_doc(scanners):
+    """Which engine answered a scan or build: the device scans' route
+    records (device_scan.DeviceScan.route_doc), or the host engine's
+    name.  One entry per metric scan."""
+    return [s.route_doc() if hasattr(s, 'route_doc')
+            else {'engine': type(s).__name__, 'escalated': False,
+                  'device_batches': 0}
+            for s in scanners]
 
 
 def _require_native():

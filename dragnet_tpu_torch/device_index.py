@@ -23,15 +23,21 @@ one scatter-add of every shard's rows into dense bucket tensors:
   — the host bincount's type, part of byte identity.
 
 Lane routing (`lane_decision`): DN_INDEX_DEVICE=0 pins the host
-`np.bincount`; otherwise the port's device engine (its default) forces
-the device and its host engine stays on the host.  The reference's
-audition-gated `auto` comes with the port's auto routing; its
-residency pins come with `dn serve`.
+`np.bincount`; otherwise the device engine (DN_ENGINE=jax) forces the
+device and the host engine stays on the host.  Under auto the lane is
+audition-gated, as in the reference: a fresh persisted `iq:` verdict
+that the device won this query shape sends it to the device; with no
+verdict, a process that has already initialized CUDA auditions (both
+paths run, timed, compared exactly, the verdict persisted in the
+port's audition cache, device_scan.audition_cache_put); otherwise the
+host answers — a cold `dn query` never pays CUDA's start-up to ask.
+The reference's residency pins come with `dn serve`.
 
 Exactness: integer atomics are exact and independent of order, so the
 i64 sums of the integer weights the stacked gate admits are bit-equal
 to the host path.  There is no silent host fallback: on the device lane
-a failed fold raises.  The host bincount runs only on the structural
+a failed fold raises, and so does an audition whose device sums differ
+from the host's.  The host bincount runs only on the structural
 routes (a segment count past the dense ceiling, no rows), and every
 route a query takes is recorded in the engagement snapshot
 (`stats_doc()['routes']`).
@@ -48,6 +54,8 @@ _ENGAGE = {
     'shards': 0,
     'rows': 0,
     'h2d_bytes': 0,
+    'auditions': 0,
+    'last_audition': None,
     'last_lane': None,
     'last_route': None,
     'routes': {},
@@ -57,9 +65,10 @@ _MAX_SLOTS = 64
 
 def _reset_engagement():
     """Test/bench hook: zero the per-process engagement snapshot."""
-    for k in ('dispatches', 'shards', 'rows', 'h2d_bytes'):
+    for k in ('dispatches', 'shards', 'rows', 'h2d_bytes', 'auditions'):
         _ENGAGE[k] = 0
     _ENGAGE['last_lane'] = _ENGAGE['last_route'] = None
+    _ENGAGE['last_audition'] = None
     _ENGAGE['routes'] = {}
 
 
@@ -99,15 +108,47 @@ def index_device_mode():
     return v if v in ('auto', '0', '1') else 'auto'
 
 
-def lane_decision(engine):
-    """('device'|'host', route) for this aggregation: the device
-    engine forces the device lane unless DN_INDEX_DEVICE=0; the host
-    engine ('vector') stays on the host."""
+def _audition_key(nrows, nuniq):
+    """Audition-cache key family for index queries: log2-bucketed
+    (rows, uniques) — the two sizes that decide dispatch count and
+    accumulator shape; the caller appends the device identity."""
+    lr = _pow2(max(nrows, 1)).bit_length() - 1
+    lu = _pow2(max(nuniq, 1)).bit_length() - 1
+    return 'iq:r%d:u%d' % (lr, lu)
+
+
+def _audition_warm(device):
+    """Whether an auto-mode audition may touch the device here: only
+    when the process has already initialized CUDA (a scan or build
+    before it).  The reference also counts an armed `dn serve`
+    residency manager; residency is not ported yet."""
+    import torch
+    return device is not None and torch.device(device).type == 'cuda' \
+        and torch.cuda.is_initialized()
+
+
+def lane_decision(engine, nrows=0, nuniq=0, device=None):
+    """('device'|'audition'|'host', route) for this aggregation: the
+    device engine forces the device lane unless DN_INDEX_DEVICE=0; the
+    host engine ('vector') stays on the host; auto follows a persisted
+    `iq:` verdict for this shape, auditions in a process whose CUDA is
+    warm, and otherwise stays on the host.  'audition' runs BOTH paths,
+    compares them exactly, times them and persists the verdict."""
     if index_device_mode() == '0':
         return 'host', 'host: DN_INDEX_DEVICE=0'
     if engine == 'device':
         return 'device', 'device'
-    return 'host', 'host: host engine'
+    if engine != 'auto':
+        return 'host', 'host: host engine'
+    from . import device_scan as mod_ds
+    hint = mod_ds.audition_cache_shape_hint(_audition_key(nrows, nuniq))
+    if hint is True:
+        return 'device', 'device: audition verdict'
+    if hint is False:
+        return 'host', 'host: audition verdict'
+    if _audition_warm(device):
+        return 'audition', 'audition'
+    return 'host', 'host: auto, device cold'
 
 
 # -- staging ----------------------------------------------------------------
@@ -173,7 +214,8 @@ def _note_engagement(ndispatch, nshards, nrows, h2d_bytes):
 
 def stats_doc():
     """The engagement snapshot: dispatches, shards, rows, upload bytes,
-    the last lane and route, and the count of each route taken."""
+    auditions (and the last one's verdict), the last lane and route,
+    and the count of each route taken."""
     doc = dict(_ENGAGE, routes=dict(_ENGAGE['routes']))
     d = doc['dispatches']
     doc['shards_per_dispatch'] = round(doc['shards'] / d, 2) if d \
@@ -240,24 +282,62 @@ def _device_fold(inv, w64, nuniq, shard_ctx, dev):
 
 
 def batched_sums(inv, weights, nuniq, shard_ctx=None, stage=None,
-                 device=None):
+                 device=None, audition=False):
     """Per-tuple weight sums through the batched device engine on
     `device`, as float64 (the host bincount's type), or None on the
     structural host routes: a segment count past the dense ceiling, or
-    no rows.  A device failure raises: there is no host fallback."""
+    no rows.  A device failure raises: there is no host fallback.  With
+    `audition=True` the host bincount runs too: both are timed, the
+    sums compared exactly (a difference raises), and the verdict — the
+    device won when its rate beat the host's — persists under the
+    `iq:` family for the next auto query."""
+    import time
     from .engine import MAX_DENSE_SEGMENTS
     from .ops import resolve_device
     if nuniq > MAX_DENSE_SEGMENTS or len(inv) == 0:
         return None
     dev = resolve_device(device)
+    t0 = time.monotonic()
     acc, ndispatch, h2d_bytes = _device_fold(
         inv, weights.astype(np.int64), nuniq, shard_ctx, dev)
+    device_s = time.monotonic() - t0
     nshards = len(shard_ctx[1]) if shard_ctx is not None else 1
     _note_engagement(ndispatch, nshards, len(inv), h2d_bytes)
     _ENGAGE['last_lane'] = 'device'
     if stage is not None:
         stage.bump_hidden('index device sums', 1)
-    return acc.astype(np.float64)
+    out = acc.astype(np.float64)
+    if audition:
+        _audition(inv, weights, nuniq, out, device_s, dev)
+    return out
+
+
+def _audition(inv, weights, nuniq, dense, device_s, dev):
+    """Time the host bincount against the device fold's `device_s`,
+    compare the sums exactly and persist the verdict."""
+    import time
+    from . import device_scan as mod_ds
+    from .obs import metrics as obs_metrics
+    t1 = time.monotonic()
+    ref = np.bincount(inv, weights=weights, minlength=nuniq)
+    host_s = max(time.monotonic() - t1, 1e-9)
+    rate_d = len(inv) / max(device_s, 1e-9)
+    rate_h = len(inv) / host_s
+    equal = np.array_equal(dense, ref)
+    key = '%s@%s' % (_audition_key(len(inv), nuniq),
+                     mod_ds._backend_id(dev))
+    _ENGAGE['auditions'] += 1
+    obs_metrics.inc('index_device_auditions', 1)
+    if not equal:
+        # a wrong device sum is a fault, never a quiet host answer
+        _ENGAGE['last_audition'] = {'key': key, 'equal': False}
+        raise RuntimeError('index query audition: device sums differ '
+                           'from the host bincount (%s)' % key)
+    won = bool(rate_d > rate_h)
+    mod_ds.audition_cache_put(key, won, device_rate=rate_d,
+                              host_rate=rate_h)
+    _ENGAGE['last_audition'] = {'key': key, 'equal': True, 'won': won,
+                                'device_rate': rate_d, 'host_rate': rate_h}
 
 
 def aggregate_weights(inv, weights, nuniq, stage=None, shard_ctx=None,
@@ -265,10 +345,11 @@ def aggregate_weights(inv, weights, nuniq, stage=None, shard_ctx=None,
     """The stacked path's aggregation seam: the batched device engine
     per lane_decision, host np.bincount otherwise — byte-identical
     either way."""
-    lane, route = lane_decision(engine)
-    if lane == 'device':
+    lane, route = lane_decision(engine, len(inv), nuniq, device)
+    if lane != 'host':
         dense = batched_sums(inv, weights, nuniq, shard_ctx=shard_ctx,
-                             stage=stage, device=device)
+                             stage=stage, device=device,
+                             audition=(lane == 'audition'))
         if dense is not None:
             note_route(route)
             return dense

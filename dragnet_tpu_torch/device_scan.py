@@ -39,11 +39,25 @@ grown by a host-side guard that flushes before a batch could overflow it.
 DeviceScanStack folds N metric scans (a `dn build`) per batch over one
 staged input dict, so a column several metrics read uploads once.
 
-Not in this port yet: the pipelined dispatch.  Batches upload with plain
-synchronous copies.
+Engagement (the reference's, with its constants): a DeviceScan may
+start on the host engine and escalate past ESCALATE_RECORDS once its
+backend probe passes, and de-escalate for good when a timed probation
+window shows the device slower than the host rate seen before it.
+Forced mode (DN_ENGINE=jax, the port's engine='device') escalates at
+once and has no probation; its probe raises on failure.  AutoDeviceScan
+(DN_ENGINE=auto on a CUDA device) starts on the host by design: its
+probe runs on a background thread, and on the multithreaded host path
+(scan_mt) the device takes the stream over only after it wins a shadow
+audition on copies of live batches.  Verdicts persist per (query shape,
+backend) in the port's own audition cache (`audition_cache_get/put`).
+
+Not in this port yet: the pipelined dispatch (and with it the async
+flush prefetch).  Batches upload with plain synchronous copies.
 """
 
 import os
+import threading
+import time
 
 import numpy as np
 import torch
@@ -78,6 +92,209 @@ LOG = mod_log.get('device-scan')
 # calls of the sparse fold (torch ops, no hand kernel): a run can show
 # that its batches went through the sparse program
 sparse_folds = {'fold_sparse': 0}
+
+
+def _rate_field(r):
+    """Rates for log records: None when unknown, the float itself when
+    non-finite (round(inf) raises)."""
+    if r is None:
+        return None
+    try:
+        import math
+        return round(r) if math.isfinite(r) else r
+    except (TypeError, ValueError):
+        return r
+
+
+# -- wedge armor: probe deadlines -------------------------------------------
+
+def probe_deadline_s():
+    """Deadline (seconds) for first-contact device operations —
+    DN_DEVICE_PROBE_TIMEOUT, the reference's knob and default."""
+    try:
+        return float(os.environ.get('DN_DEVICE_PROBE_TIMEOUT', '420'))
+    except ValueError:
+        return 420.0
+
+
+def run_with_deadline(fn, seconds, what):
+    """Run `fn` on a daemon thread and wait at most `seconds`.  Returns
+    ('ok', result), ('error', exception), or ('timeout', None).  A hung
+    device call hangs the daemon thread, not the caller; the abandoned
+    thread is leaked deliberately (a stuck device op cannot be
+    cancelled, and process exit does not join daemons)."""
+    box = []
+    done = threading.Event()
+
+    def _go():
+        try:
+            box.append(('ok', fn()))
+        except BaseException as e:
+            box.append(('error', e))
+        finally:
+            done.set()
+
+    t = threading.Thread(target=_go, daemon=True,
+                         name='dn-deadline-%s' % what)
+    t.start()
+    done.wait(seconds)
+    if not box:
+        return ('timeout', None)
+    return box[0]
+
+
+# -- audition verdict cache --------------------------------------------------
+
+AUDITION_FILE = 'dn_torch_auditions.json'
+
+
+def _audition_cache_file():
+    """Path of the port's persisted audition-verdict cache, or None
+    when disabled (DN_AUDITION_CACHE=0, the reference's switch).  Its
+    own directory (DN_TORCH_CACHE_DIR, default
+    ~/.cache/dragnet_tpu_torch) AND its own file name: the port never
+    reads or overwrites the JAX package's dn_auditions.json, even when
+    both directories are pointed at the same place."""
+    if os.environ.get('DN_AUDITION_CACHE', '1') == '0':
+        return None
+    base = os.environ.get('DN_TORCH_CACHE_DIR') or os.path.join(
+        os.path.expanduser('~'), '.cache', 'dragnet_tpu_torch')
+    return os.path.join(base, AUDITION_FILE)
+
+
+def _audition_ttl_s():
+    """How long a persisted verdict stays trusted (DN_AUDITION_TTL_S,
+    default one day): rigs change, so verdicts age out."""
+    try:
+        return float(os.environ.get('DN_AUDITION_TTL_S', '86400'))
+    except ValueError:
+        return 86400.0
+
+
+def _backend_id(device=None):
+    """Identity of the device for audition-cache keys: torch, the CUDA
+    device's name and compute capability ('torch/cpu' on the CPU).  A
+    verdict measured on one card must not route another.  Initializes
+    CUDA: call it only after the probe passed."""
+    try:
+        dev = torch.device('cuda' if device is None else device)
+        if dev.type != 'cuda':
+            return 'torch/%s' % dev.type
+        idx = dev.index if dev.index is not None \
+            else torch.cuda.current_device()
+        major, minor = torch.cuda.get_device_capability(idx)
+        return 'torch/%s sm_%d%d' % (torch.cuda.get_device_name(idx),
+                                     major, minor)
+    except Exception:
+        return 'unknown'
+
+
+def audition_cache_get(key):
+    """The cached verdict for `key`: True (device won), False (device
+    lost), or None (no fresh entry).  All failures read as None — the
+    cache only ever skips work, never adds requirements."""
+    ent = _audition_entries_raw()[1].get(key)
+    return None if ent is None else bool(ent['won'])
+
+
+def audition_cache_put(key, won, device_rate=None, host_rate=None):
+    """Persist an audition (or probation-crossover) verdict.  Expired
+    entries are pruned on write; the file is swapped atomically
+    (tmp+rename) so concurrent runs never read torn JSON, and the
+    read-modify-write runs under a `.lock` sidecar flock so concurrent
+    writers cannot drop each other's verdicts.  Best-effort: an
+    unwritable cache directory never blocks the decision already made."""
+    path = _audition_cache_file()
+    if path is None:
+        return
+    import json
+    try:
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        lockf = None
+        try:
+            lockf = open(path + '.lock', 'a')
+            import fcntl
+            fcntl.flock(lockf.fileno(), fcntl.LOCK_EX)
+        except Exception:
+            pass        # best-effort on filesystems without flock
+        try:
+            try:
+                with open(path) as f:
+                    data = json.load(f)
+                if not isinstance(data, dict):
+                    data = {}
+            except Exception:
+                data = {}
+            now = time.time()
+            ttl = _audition_ttl_s()
+            data = {k: v for k, v in data.items()
+                    if isinstance(v, dict)
+                    and now - float(v.get('ts', 0)) <= ttl}
+            data[key] = {'won': bool(won), 'ts': now,
+                         'device_rate': _rate_field(device_rate),
+                         'host_rate': _rate_field(host_rate)}
+            tmp = '%s.%d.%d' % (path, os.getpid(), threading.get_ident())
+            try:
+                with open(tmp, 'w') as f:
+                    json.dump(data, f)
+                os.rename(tmp, path)
+            except Exception:
+                try:
+                    os.unlink(tmp)
+                except OSError:
+                    pass
+        finally:
+            if lockf is not None:
+                lockf.close()       # releases the flock
+    except Exception:
+        pass
+
+
+def _audition_entries_raw():
+    """(path, fresh entries) of the persisted audition cache; failures
+    read as empty."""
+    path = _audition_cache_file()
+    if path is None:
+        return None, {}
+    import json
+    try:
+        with open(path) as f:
+            data = json.load(f)
+        if not isinstance(data, dict):
+            return path, {}
+    except Exception:
+        return path, {}
+    # wall clock on purpose: `ts` persists across processes
+    now = time.time()
+    ttl = _audition_ttl_s()
+    return path, {k: v for k, v in data.items()
+                  if isinstance(v, dict) and 'won' in v
+                  and now - float(v.get('ts', 0)) <= ttl}
+
+
+def audition_cache_entries():
+    """(path, fresh entries, fresh wins) of the persisted audition
+    cache; (None, 0, 0) when disabled."""
+    path, data = _audition_entries_raw()
+    if path is None:
+        return None, 0, 0
+    wins = sum(1 for v in data.values() if v.get('won'))
+    return path, len(data), wins
+
+
+def audition_cache_shape_hint(shape):
+    """Whether ANY backend ever auditioned this query shape: True when
+    some fresh entry for `shape` won, False when entries exist and all
+    lost, None when never auditioned.  A heuristic only (it tunes how
+    eagerly auto escalates); the full shape+backend key still gates the
+    takeover itself."""
+    _, data = _audition_entries_raw()
+    prefix = shape + '@'
+    verdicts = [bool(v.get('won')) for k, v in data.items()
+                if k.startswith(prefix)]
+    if not verdicts:
+        return None
+    return True if any(verdicts) else False
 
 
 def _pow2(x):
@@ -168,7 +385,29 @@ class _KeyPlan(object):
 class DeviceScan(VectorScan):
     """VectorScan whose eligible batches execute fully on the device
     (`device`: a torch device or its name; CUDA unless the caller asks
-    for the CPU)."""
+    for the CPU).
+
+    ESCALATE_RECORDS: batches are processed by the host engine until
+    this many records have been seen; 0 means device-first.
+
+    REQUIRE_ACCELERATOR: when True the probe additionally requires a
+    CUDA device (auto mode); forced mode runs on whatever device it was
+    given, the CPU included.
+
+    PROBATION_RECORDS: when nonzero, the first device batch is synced
+    out, then this many device-processed records (or PROBATION_SECONDS,
+    whichever trips first) are timed against the host rate observed
+    before escalation; a slower device de-escalates to the host engine
+    for the rest of the scan."""
+
+    ESCALATE_RECORDS = 0
+    REQUIRE_ACCELERATOR = False
+    PROBATION_RECORDS = 0
+    PROBATION_SECONDS = 0.25
+    # whether the datasource should run the MT host executor and let
+    # this scanner take the stream over mid-flight (auto mode only;
+    # forced mode owns the stream from the first batch)
+    AUTO_STREAM = False
 
     # accumulators at least this large are compacted ON DEVICE before
     # the fetch (argsort by first occurrence, gather occurred segments)
@@ -190,6 +429,25 @@ class DeviceScan(VectorScan):
         # parser-derived columns stay shared across metrics
         self._pfx = ''
         self._disabled = False
+        self._records_seen = 0
+        self._backend_ok = None
+        self._host_records = 0
+        self._host_rate = None
+        self._t0 = None
+        self._probation = None    # None=not started, tuple=timing, False=done
+        self._escalated = False
+        self._probe_thread = None
+        self._probe_result = None
+        self._probe_retries = 0   # re-probes after a clean refusal
+        self.probe_status = None  # 'ok'/'refused'/'error'/'timeout'
+        self._progress = None     # (bytes_done, bytes_total) from stream
+        self._shadow_ctx = None   # set by enable_shadow (MT path)
+        self._shadow = None
+        # the route this scan took, for whoever ran it to read
+        # (route_doc): escalation, audition, probation, device batches
+        self.route = {'escalated_at': None, 'device_batches': 0,
+                      'cached_verdict': None, 'audition': None,
+                      'probation': None}
         self._sticky = None       # upload-profile state (_stage_device)
         self._sparse_cap = SPARSE_CAP0
         self._sparse_ub = 0       # unique-count upper bound this epoch
@@ -287,13 +545,190 @@ class DeviceScan(VectorScan):
     # -- per-batch entry ---------------------------------------------------
 
     def _process(self, provider, weights, alive=None):
+        if self._t0 is None:
+            self._t0 = time.monotonic()
+        n = provider.n
+        self._records_seen += n
         if not self._disabled and \
-                self._try_device(provider, weights, alive):
-            return
+                self._records_seen > self._escalate_records() and \
+                self._engage_device():
+            if self._try_device(provider, weights, alive):
+                self._after_device_batch(n)
+                return
         self._flush()
+        self._host_records += n
         VectorScan._process(self, provider, weights, alive=alive)
 
+    def set_progress(self, bytes_done, bytes_total):
+        """Stream-progress hook (the file datasource reports bytes
+        consumed vs total): lets auto mode estimate remaining work
+        before committing to a device switch.  (The reference also
+        starts an async flush prefetch here; it comes with the
+        pipelined dispatch.)"""
+        self._progress = (bytes_done, bytes_total)
+
+    def note_external_batch(self, n):
+        """A batch of n records was processed outside this scanner (the
+        multithreaded host executor); counts toward escalation
+        thresholds and the observed host rate."""
+        if self._t0 is None:
+            self._t0 = time.monotonic()
+        self._records_seen += n
+        self._host_records += n
+
+    def take_over_now(self):
+        """Whether the device path should take over the batch stream
+        from the multithreaded host executor (auto mode; see
+        datasource_file._takeover_stream)."""
+        return (not self._disabled and
+                self._records_seen > self._escalate_records() and
+                self._engage_device())
+
+    def _escalate_records(self):
+        """The record threshold before the device path is considered;
+        AutoDeviceScan lowers it when a persisted verdict already
+        proved this query shape wins on a device."""
+        return self.ESCALATE_RECORDS
+
+    def _engage_device(self):
+        """Forced mode: probe the device synchronously on the first
+        candidate batch (the caller asked for the device)."""
+        if self._backend_ok is None:
+            self._probe_backend()
+        return self._backend_ok
+
+    def _note_escalated(self):
+        if self.route['escalated_at'] is None:
+            self.route['escalated_at'] = self._records_seen
+
+    def _probe_ok(self):
+        """Device eligibility check (no scan-state mutation), shared by
+        the synchronous (forced) and background (auto) probes: one small
+        op on the scan's device, its result fetched."""
+        from . import faults as mod_faults
+        mod_faults.fire('device.probe')
+        x = torch.arange(8, dtype=torch.int64, device=self.device)
+        ok = int(x.sum()) == 28
+        if ok and self.REQUIRE_ACCELERATOR:
+            ok = self.device.type == 'cuda'
+        return bool(ok)
+
+    def _probe_with_retry(self):
+        """_probe_ok with ONE re-probe after a clean refusal (the
+        reference resets its backend in between; torch has no such
+        reset).  Raised exceptions propagate to the caller."""
+        ok = self._probe_ok()
+        if not ok:
+            self._probe_retries = 1
+            ok = self._probe_ok()
+        return ok
+
+    def _probe_backend(self):
+        """The forced lane's one-time probe, under the probe deadline
+        (DN_DEVICE_PROBE_TIMEOUT).  The port keeps its no-silent-CPU
+        rule here: a device that fails, refuses or does not answer
+        raises a DNError (the reference warns and falls back to its host
+        engine).  Returns True."""
+        from .errors import DNError
+        from .obs import metrics as obs_metrics
+        with obs_metrics.timed_stage('device_scan.probe'):
+            status, ok = run_with_deadline(self._probe_with_retry,
+                                           probe_deadline_s(),
+                                           'backend-probe')
+        if status == 'ok' and ok:
+            self.probe_status = 'ok'
+            self._backend_ok = True
+            return True
+        self.probe_status = status if status != 'ok' else 'refused'
+        self._backend_ok = False
+        self._disabled = True
+        if status == 'timeout':
+            raise DNError('device %s unresponsive (no answer within '
+                          '%.0fs)' % (self.device, probe_deadline_s()))
+        if status == 'error':
+            raise DNError('device %s failed its probe' % self.device,
+                          cause=DNError(str(ok)))
+        raise DNError('device %s refused its probe' % self.device)
+
+    def _sync_device(self):
+        """Block until every batch folded so far has executed on the
+        scan's device, without fetching or emitting anything: the
+        timing barrier for probation and the audition.  A no-op on the
+        CPU, where torch runs eagerly."""
+        if self.device.type == 'cuda':
+            torch.cuda.synchronize(self.device)
+
+    def _after_device_batch(self, n):
+        """Count the device batch, then crossover probation: time a
+        window of device batches against the host rate observed
+        pre-escalation and de-escalate if the device loses.  The window
+        is bounded by PROBATION_RECORDS *or* PROBATION_SECONDS,
+        whichever trips first."""
+        self.route['device_batches'] += 1
+        self._note_escalated()
+        if not self.PROBATION_RECORDS or self._probation is False:
+            return
+        now = time.monotonic()
+        if self._probation is None:
+            # first device batch: pin the host rate, sync its work out,
+            # and start the probation clock after it
+            if self._host_records and now > self._t0:
+                self._host_rate = self._host_records / (now - self._t0)
+            self._sync_device()
+            self._probation = (time.monotonic(), 0)
+            return
+        start, seen = self._probation
+        seen += n
+        if seen < self.PROBATION_RECORDS and \
+                now - start < self.PROBATION_SECONDS:
+            self._probation = (start, seen)
+            return
+        self._sync_device()
+        elapsed = time.monotonic() - start
+        rate = seen / elapsed if elapsed > 0 else float('inf')
+        lost = self._host_rate is not None and rate < self._host_rate
+        self.route['probation'] = {
+            'won': not lost, 'device_rate': _rate_field(rate),
+            'host_rate': _rate_field(self._host_rate),
+            'window_records': seen, 'window_s': elapsed}
+        if lost:
+            self._disabled = True
+            LOG.info('device de-escalated (lost probation)',
+                     device_rate=_rate_field(rate),
+                     host_rate=_rate_field(self._host_rate),
+                     window_records=seen,
+                     window_seconds=round(elapsed, 3))
+            # a measured crossover loss is a verdict too: persist it so
+            # the next identically-shaped run skips the whole detour
+            self._record_crossover(False, rate)
+        else:
+            LOG.debug('device passed probation',
+                      device_rate=_rate_field(rate),
+                      host_rate=_rate_field(self._host_rate))
+        self._probation = False
+
+    def _record_crossover(self, won, rate):
+        """Hook: a probation-window crossover measurement concluded.
+        The base scan keeps no persistent state; AutoDeviceScan
+        persists the verdict in the audition cache."""
+
+    def route_doc(self):
+        """Which engine answered: the route record plus the probe's
+        status and whether the device path ended disabled."""
+        return dict(self.route, engine=type(self).__name__,
+                    probe_status=self.probe_status,
+                    escalated=self.route['escalated_at'] is not None,
+                    disabled=self._disabled,
+                    records_seen=self._records_seen)
+
     def finish(self):
+        sp = self._shadow
+        if sp is not None:
+            sp.close()          # end of stream: release audition state
+            # a replay in flight ends at its next batch; a hung device
+            # call is left to its daemon thread (wedge armor)
+            sp.join(probe_deadline_s())
+            _raise_audition_fault(sp)
         self._flush()
         self._defer_final()
         return self.aggr
@@ -331,6 +766,8 @@ class DeviceScan(VectorScan):
         Any exactness precondition failure returns False (host path)."""
         if not isinstance(provider, NativeColumns):
             return False
+        if self._backend_ok is None:
+            self._probe_backend()
         inputs = {}
         staged = self._stage_device(provider, weights, alive, inputs)
         if staged is None:
@@ -1319,16 +1756,35 @@ class DeviceScanStack(object):
         (each of which may still use its own device fold or the host
         engine).  Exactly one of these runs per batch, so insertion
         order and results match the unstacked path."""
-        if self._device_eligible(provider) and \
+        n = provider.n
+        for s in self.scans:
+            if s._t0 is None:
+                s._t0 = time.monotonic()
+        if self._device_eligible(provider, n) and \
                 self._process_device(provider, weights, alive):
+            for s in self.scans:
+                s._records_seen += n
+                s._after_device_batch(n)
             return
         for s in self.scans:
             s._process(provider, weights, alive=alive)
 
-    def _device_eligible(self, provider):
-        # the forced lane: no escalation or audition to wait for
-        return isinstance(provider, NativeColumns) and \
-            not any(s._disabled for s in self.scans)
+    def _device_eligible(self, provider, n):
+        if not isinstance(provider, NativeColumns):
+            return False
+        for s in self.scans:
+            # mirror DeviceScan._process's escalation compare, which
+            # tests records_seen AFTER counting this batch
+            s._records_seen += n
+            try:
+                ok = (not s._disabled and
+                      s._records_seen > s._escalate_records() and
+                      s._engage_device())
+            finally:
+                s._records_seen -= n
+            if not ok:
+                return False
+        return True
 
     def _process_device(self, provider, weights, alive):
         inputs = {}
@@ -1359,3 +1815,393 @@ def make_stack(scanners):
                for s in scanners):
         return None
     return DeviceScanStack(scanners)
+
+
+class _ShadowProbe(object):
+    """Background device audition: replays copies of recent batch
+    snapshots through scratch DeviceScans (results discarded) to measure
+    the device rate — staging, upload and fold, without the parse —
+    while the MT host executor keeps owning the stream.  The first batch
+    is warmup (the first CUDA calls of the process, and the first build
+    of the kernel, can land here); the rest run back-to-back between
+    two barriers on the device."""
+
+    COLLECT = 5      # 1 warmup + 4 measured batches
+
+    def __init__(self, make_scans, make_provider, make_weights,
+                 make_alive=None):
+        self.make_scans = make_scans
+        self.make_provider = make_provider
+        self.make_weights = make_weights
+        # production may pass a non-None alive mask (the build path's
+        # shared datasource-filter eval); the replay must match, or the
+        # staged upload profile differs from what the takeover runs
+        self.make_alive = make_alive or (lambda n: None)
+        self.items = []
+        self.rate = None
+        self.replay_s = None      # the audition's own wall time
+        self.failed = False
+        # an exception of the replay's device work: a fault, raised on
+        # the stream thread (_raise_audition_fault)
+        self.error = None
+        self.done = False
+        self.closed = False
+        self._event = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def feed(self, snap, n):
+        if self.done or self.closed or len(self.items) >= self.COLLECT:
+            return
+        self.items.append((snap, n))
+        if len(self.items) >= self.COLLECT:
+            self._event.set()
+
+    def close(self):
+        """End-of-stream / decision-made: wake the thread so it exits
+        (failing fast on an incomplete collection, or between replayed
+        batches) instead of holding batch snapshots for the wait
+        timeout."""
+        self.closed = True
+        self._event.set()
+
+    def collected(self):
+        """All COLLECT batches are in and the replay may be running."""
+        return self._event.is_set() and not self.closed
+
+    def join(self, timeout):
+        self._thread.join(timeout)
+
+    def _run(self):
+        try:
+            # batches arrive one per flush; collect-then-run so queue
+            # gaps never pollute the rate measurement
+            self._event.wait(timeout=600.0)
+            items = self.items
+            if self.closed or len(items) < 2:
+                self.items = []
+                self.failed = True
+                return
+            t_start = time.monotonic()
+            scans = self.make_scans()
+            for s in scans:
+                s._backend_ok = True
+            # multi-metric auditions replay through the stack, the
+            # thing production runs after a build takeover
+            stack = make_stack(scans)
+
+            def run_one(snap, n):
+                provider = self.make_provider(snap)
+                weights = self.make_weights(snap, n)
+                alive = self.make_alive(n)
+                if stack is not None:
+                    return stack._process_device(provider, weights,
+                                                 alive)
+                for s in scans:
+                    if not s._try_device(provider, weights, alive):
+                        return False
+                return True
+
+            if not run_one(*items[0]):       # warmup
+                self.failed = True
+                return
+            for s in scans:
+                s._sync_device()
+            t0 = time.monotonic()
+            seen = 0
+            for snap, n in items[1:]:
+                if self.closed or not run_one(snap, n):
+                    self.failed = True
+                    return
+                seen += n
+            for s in scans:
+                s._sync_device()
+            elapsed = time.monotonic() - t0
+            self.rate = seen / elapsed if elapsed > 0 else float('inf')
+            self.replay_s = time.monotonic() - t_start
+        except Exception as e:
+            self.error = e
+            self.failed = True
+        finally:
+            self.items = []     # release the pinned snapshots
+            self.done = True
+
+
+def _raise_audition_fault(sp):
+    """An audition whose device work raised is a fault of the device
+    path, never a reason to stay quietly on the host: raise it on the
+    stream thread.  (A stream that ended before the batches were in,
+    or a batch the device path cannot take, only fails the audition.)"""
+    if sp.error is not None:
+        from .errors import DNError
+        raise DNError('device audition failed', cause=sp.error)
+
+
+class AutoDeviceScan(DeviceScan):
+    """Auto-mode DeviceScan (DN_ENGINE=auto on a CUDA device): small
+    scans stay on the host (the device is not even probed below the
+    threshold), large ones escalate to the device mid-stream (host
+    batches were merged immediately, so insertion order is preserved),
+    and a probation window de-escalates if the device turns out slower
+    than the host.
+
+    Auto never blocks the stream on the device: the probe runs on a
+    background thread while the host engine keeps scanning, and the
+    switch happens only once (a) the probe has succeeded, (b) the
+    stream's byte progress suggests enough work remains, and (c) — on
+    the MT path — the device has WON a shadow audition (copies of live
+    batches replayed through scratch DeviceScans on a background
+    thread) by SHADOW_MARGIN over the observed host rate.  Host-engine
+    batches aggregate on numpy, as the reference's auto mode does.
+
+    The constants are the reference's, tuned on its TPU rig; the port
+    keeps them as defaults until they are measured on the card."""
+
+    ESCALATE_RECORDS = 1 << 19
+    REQUIRE_ACCELERATOR = True
+    PROBATION_RECORDS = 1 << 17
+    AUTO_STREAM = True
+    # minimum estimated remaining host-engine seconds to justify the
+    # switch
+    MIN_REMAINING_SECONDS = 3.0
+    # without a size hint (stdin pipes), switch only deep into a stream
+    UNKNOWN_SIZE_RECORDS = 4 << 20
+    # shadow audition: take over only when the measured device rate
+    # beats the observed host rate by this factor
+    SHADOW_MARGIN = 1.15
+    # warm start: a persisted win for this query shape escalates much
+    # earlier; the full shape+backend key still gates the takeover
+    WARM_ESCALATE_RECORDS = 1 << 16
+    WARM_MIN_REMAINING_SECONDS = 0.75
+    # the stream waits for a started probe and for an audition whose
+    # batches are all in, instead of racing them against its end: a
+    # deterministic takeover for checks (the stream stalls meanwhile)
+    AWAIT_DECISION = False
+
+    def __init__(self, query, time_field, pipeline, ds_filter=None,
+                 device=None):
+        DeviceScan.__init__(self, query, time_field, pipeline,
+                            ds_filter=ds_filter, device=device)
+        # host-engine batches stay on numpy
+        self.agg_device = None
+
+    def enable_shadow(self, make_scans, make_provider, make_weights,
+                      make_alive=None):
+        """MT-path integration: before the device may take the stream,
+        it must win an audition on copies of live batches (fed via
+        shadow_feed) against the observed host rate."""
+        self._shadow_ctx = (make_scans, make_provider, make_weights,
+                            make_alive)
+
+    def shadow_feed(self, snap, n):
+        sp = self._shadow
+        if sp is not None and not sp.done:
+            sp.feed(snap, n)
+
+    def _audition_shape(self):
+        """The device-program-shaping query structure (breakdown plans,
+        predicate ASTs, synthetic fields, time-boundedness): the
+        backend-independent half of the audition key."""
+        plans = [(p.kind, p.name, p.field, p.step)
+                 for p in (self._plans or [])]
+        return jsv.json_stringify([
+            plans,
+            jsv.json_stringify(self.ds_pred.ast)
+            if self.ds_pred is not None else None,
+            jsv.json_stringify(self.user_pred.ast)
+            if self.user_pred is not None else None,
+            [[s['name'], s['field']] for s in self.synthetic],
+            self.time_bounds is not None,
+        ])
+
+    def _audition_key(self):
+        """Cache key of this scan's audition: the query shape plus the
+        device identity.  Initializes CUDA (_backend_id), so only call
+        it after the probe succeeded."""
+        return self._audition_shape() + '@' + _backend_id(self.device)
+
+    def _warm_hint(self):
+        """Memoized shape-only audition-cache lookup, safe before the
+        probe: it only tunes how eagerly this scan escalates."""
+        hint = getattr(self, '_warm_hint_memo', ())
+        if hint == ():
+            hint = audition_cache_shape_hint(self._audition_shape())
+            self._warm_hint_memo = hint
+        return hint
+
+    def _escalate_records(self):
+        if self._warm_hint() is True:
+            return min(self.ESCALATE_RECORDS,
+                       self.WARM_ESCALATE_RECORDS)
+        return self.ESCALATE_RECORDS
+
+    def _record_crossover(self, won, rate):
+        audition_cache_put(self._audition_key(), won,
+                           device_rate=rate,
+                           host_rate=self._host_rate)
+
+    def _engage_device(self):
+        rv = self._decide()
+        if rv or not self.AWAIT_DECISION:
+            return rv
+        if self._probe_thread is not None:
+            self._probe_thread.join(probe_deadline_s())
+            rv = self._decide()
+        sp = self._shadow
+        if not rv and sp is not None and sp.collected():
+            sp.join(probe_deadline_s())
+            rv = self._decide()
+        return rv
+
+    def _decide(self):
+        if self._escalated:
+            return bool(self._backend_ok)
+        if not self._worth_switching():
+            # nothing to gain: don't even start the probe thread
+            return False
+        if self._backend_ok is None:
+            if self._probe_thread is None:
+                self._probe_thread = threading.Thread(
+                    target=self._async_probe, daemon=True)
+                self._probe_started = time.monotonic()
+                self._probe_thread.start()
+            result = self._probe_result
+            if result is None:
+                # wedge armor: stop waiting for a probe thread stuck
+                # past the deadline (the scan already runs on the host)
+                if time.monotonic() - self._probe_started > \
+                        probe_deadline_s():
+                    LOG.info('device probe exceeded deadline; '
+                             'staying on host',
+                             deadline_s=probe_deadline_s())
+                    self.probe_status = 'timeout'
+                    self._disabled = True
+                return False     # still probing; host path continues
+            self._probe_thread = None
+            if isinstance(result, Exception):
+                # a probe that raised is a fault of the device, not a
+                # verdict (a refusal, or a timeout, keeps the host)
+                from .errors import DNError
+                self.probe_status = 'error'
+                self._disabled = True
+                raise DNError('device %s failed its probe' % self.device,
+                              cause=result)
+            self._backend_ok = result
+            self.probe_status = 'ok' if result else 'refused'
+            if not result:
+                self._disabled = True
+                return False
+        if not self._backend_ok:
+            return False
+        ctx = self._shadow_ctx
+        if ctx is not None:
+            sp = self._shadow
+            if sp is None:
+                # persisted verdict from a previous identically-shaped
+                # run on this device: skip the shadow audition
+                cached = audition_cache_get(self._audition_key())
+                self.route['cached_verdict'] = cached
+                if cached is False:
+                    LOG.info('cached audition verdict: device loses; '
+                             'staying on host')
+                    self._disabled = True
+                    return False
+                if cached is True:
+                    hr = self._current_host_rate()
+                    if hr is not None:
+                        self._host_rate = hr   # probation baseline
+                    LOG.info('cached audition verdict: device wins; '
+                             'taking over stream')
+                else:
+                    LOG.debug('device audition started',
+                              records_seen=self._records_seen)
+                    self._shadow = _ShadowProbe(*ctx)
+                    return False
+            else:
+                if not sp.done:
+                    return False
+                _raise_audition_fault(sp)
+                if sp.failed or sp.rate is None:
+                    LOG.info('device audition failed; staying on host')
+                    self.route['audition'] = {'failed': True}
+                    self._disabled = True
+                    return False
+                hr = self._current_host_rate()
+                won = hr is None or sp.rate >= hr * self.SHADOW_MARGIN
+                self.route['audition'] = {
+                    'won': won, 'device_rate': _rate_field(sp.rate),
+                    'host_rate': _rate_field(hr),
+                    'margin': self.SHADOW_MARGIN,
+                    'replay_s': sp.replay_s}
+                audition_cache_put(self._audition_key(), won,
+                                   device_rate=sp.rate, host_rate=hr)
+                if not won:
+                    LOG.info('device lost audition; staying on host',
+                             device_rate=_rate_field(sp.rate),
+                             host_rate=_rate_field(hr),
+                             margin=self.SHADOW_MARGIN)
+                    self._disabled = True
+                    return False
+                if hr is not None:
+                    self._host_rate = hr   # probation baseline
+                LOG.info('device won audition; taking over stream',
+                         device_rate=_rate_field(sp.rate),
+                         host_rate=_rate_field(hr))
+        self._escalated = True
+        self._note_escalated()
+        LOG.info('escalated to device path',
+                 records_seen=self._records_seen)
+        return True
+
+    def _current_host_rate(self):
+        if self._t0 is None or not self._host_records:
+            return None
+        elapsed = time.monotonic() - self._t0
+        return self._host_records / elapsed if elapsed > 0 else None
+
+    def _async_probe(self):
+        """Background probe; publishes a bool, or the exception it
+        raised, to _probe_result (single assignment, read by the stream
+        thread)."""
+        try:
+            self._probe_result = self._probe_with_retry()
+        except Exception as e:
+            self._probe_result = e
+
+    def _worth_switching(self):
+        """Estimated remaining host-engine time exceeds the switch
+        overhead: from the stream's byte progress when available, else
+        a deep-stream record threshold.  A warm cached win lowers both
+        bars."""
+        if self._t0 is None or not self._records_seen:
+            return False
+        elapsed = time.monotonic() - self._t0
+        if elapsed <= 0:
+            return False
+        warm = self._warm_hint() is True
+        rate = self._records_seen / elapsed
+        prog = self._progress
+        if prog and prog[0] > 0 and prog[1] > 0:
+            est_total = self._records_seen * (prog[1] / prog[0])
+            remaining = max(0.0, est_total - self._records_seen)
+            return remaining / rate >= (
+                min(self.MIN_REMAINING_SECONDS,
+                    self.WARM_MIN_REMAINING_SECONDS)
+                if warm else self.MIN_REMAINING_SECONDS)
+        return self._records_seen >= (
+            min(self.UNKNOWN_SIZE_RECORDS, self.WARM_ESCALATE_RECORDS)
+            if warm else self.UNKNOWN_SIZE_RECORDS)
+
+
+def scan_class(engine, device=None):
+    """The scan implementation for an engine: 'device' (DN_ENGINE=jax)
+    forces DeviceScan; 'auto' runs AutoDeviceScan on a CUDA device and
+    the host VectorScan when the caller asked for the CPU (the
+    reference's no-accelerator branch); 'vector' pins VectorScan.
+    Initializes no device: auto probes lazily, past its threshold."""
+    if engine == 'device':
+        return DeviceScan
+    if engine == 'auto':
+        dev = torch.device('cuda' if device is None else device)
+        return AutoDeviceScan if dev.type == 'cuda' else VectorScan
+    return VectorScan

@@ -412,8 +412,11 @@ class VectorScan(object):
     def __init__(self, query, time_field, pipeline, ds_filter=None,
                  device=None):
         self.query = query
-        # torch device for step 5 (None: numpy on the host)
+        # torch device for step 5 (None: numpy on the host).  The
+        # reference runs it on the device only under its forced engine;
+        # auto mode's host batches stay on numpy (AutoDeviceScan)
         self.device = device
+        self.agg_device = device
         self.filter_fields = []
         self.string_columns = {}
 
@@ -582,7 +585,7 @@ class VectorScan(object):
             num_segments *= max(r, 1)
         if num_segments > MAX_DENSE_SEGMENTS or 0 in radices or \
                 (num_segments > max(65536, 4 * n)
-                 and self.device is None):
+                 and self.agg_device is None):
             # high-cardinality batch: the dense accumulator would touch
             # O(num_segments) memory several times per batch (bincount +
             # first-occurrence table) for a key space far larger than
@@ -649,7 +652,7 @@ class VectorScan(object):
         for r in radices:
             num_segments *= r
 
-        if self.device is not None:
+        if self.agg_device is not None:
             # The device sums are integer and exact only when the
             # batch's total integer weight fits i32; float or oversized
             # weights use the f64 host path (the reference contract is
@@ -660,7 +663,7 @@ class VectorScan(object):
                 import torch
                 from .ops import cuda_kernels
                 from .ops.kernels import make_aggregate
-                dev = self.device
+                dev = self.agg_device
                 codes = torch.from_numpy(
                     np.stack(key_codes).astype(np.int32)).to(dev)
                 w = torch.from_numpy(weights.astype(np.int32)).to(dev)
@@ -704,6 +707,16 @@ class VectorScan(object):
                 gcols.append(np.asarray(dec, dtype=np.int64)[cc])
             else:
                 gcols.append(cc)
+        sink = getattr(self.aggr, 'write_columnar', None)
+        if sink is not None and len(idx) >= DEFER_UNIQUE:
+            # MT worker feeding a radix merge: skip the per-batch
+            # unique entirely — in a high-cardinality batch it barely
+            # shrinks the rows (that is what made it spill), so hand
+            # the raw rows over and dedup ONCE in the merge, whose
+            # first-occurrence compaction yields the identical order
+            sink(gcols, np.asarray(weights, dtype=np.float64)[idx],
+                 self._breakdown_cols)
+            return
         first_idx, inv, order = _unique_rows(gcols)
         wsum = np.bincount(inv, weights=weights[idx],
                            minlength=len(first_idx))
@@ -720,6 +733,15 @@ class VectorScan(object):
         crosses DEFER_UNIQUE tuples — appended to the deferred columnar
         buffer collapsed at finish, so high-cardinality scans do
         per-tuple Python work once per OUTPUT tuple, not per batch."""
+        sink = getattr(self.aggr, 'write_columnar', None)
+        if sink is not None and gcols and len(wvals) >= DEFER_UNIQUE:
+            # MT worker with a radix-merge sink (scan_mt.BatchRecorder):
+            # hand the raw code columns across the thread boundary
+            # instead of decoding per tuple; the worker's column objects
+            # ride along so the merger can translate string codes into
+            # the main scanner's dictionaries (scan_mt.RadixMerge)
+            sink(gcols, wvals, self._breakdown_cols)
+            return
         if self._defer is None and self._defer_enabled and gcols and \
                 len(wvals) >= DEFER_UNIQUE:
             self._defer = ([[] for _ in gcols], [])

@@ -328,8 +328,10 @@ def test_port_build_argument_errors(tmp_path, monkeypatch):
     with pytest.raises(DNError, match='missing "indexpath"'):
         tdf.DatasourceFile(cfg).build(_port_metrics(), 'day',
                                       device='cpu')
+    # 'auto' is an engine of the port now; the per-record 'host'
+    # engine is not
     with pytest.raises(DNError, match='unknown scan engine'):
-        ds.build(_port_metrics(), 'day', device='cpu', engine='auto')
+        ds.build(_port_metrics(), 'day', device='cpu', engine='host')
     dry = ds.build(_port_metrics(), 'day', dry_run=True, device='cpu')
     assert dry.dry_run_files == [str(datafile)]
     assert not os.path.exists(tmp_path / 'i')
@@ -354,15 +356,19 @@ CLI_METRICS = [
 def _port_cli(monkeypatch, env, args, subproc=False):
     """The port's CLI on the CPU: in-process (its entry point), or as
     `python -m dragnet_tpu_torch` when `subproc`."""
+    # the port's forced device lane (DN_ENGINE=jax): its CLI defaults
+    # to auto, which on the CPU answers from the host engine
     if subproc:
         return subprocess.run(
             [sys.executable, '-m', 'dragnet_tpu_torch'] + args, cwd=ROOT,
-            env=dict(env, DN_TORCH_DEVICE='cpu'), stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True, timeout=300)
+            env=dict(env, DN_TORCH_DEVICE='cpu', DN_ENGINE='jax'),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            timeout=300)
     from dragnet_tpu_torch import cli
     for k in ('DRAGNET_CONFIG', 'DN_PARSE_THREADS', 'DN_READ_SIZE'):
         monkeypatch.setenv(k, env[k])
     monkeypatch.setenv('DN_TORCH_DEVICE', 'cpu')
+    monkeypatch.setenv('DN_ENGINE', 'jax')
     out, err = io.StringIO(), io.StringIO()
     with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
         rc = cli.main(args)

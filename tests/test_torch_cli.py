@@ -40,7 +40,9 @@ def dsenv(tmp_path_factory):
     env = dict(os.environ)
     env.update(DRAGNET_CONFIG=str(d / 'dragnetrc'), JAX_PLATFORMS='cpu',
                DN_PARSE_THREADS='1', DN_READ_SIZE='65536')
-    env.pop('DN_ENGINE', None)
+    # the port's forced device lane (its CLI defaults to auto, which
+    # on the CPU would answer from the host engine)
+    env['DN_ENGINE'] = 'jax'
     proc = _port(env, ['datasource-add', 'muskie', '--path=' + data,
                        '--time-field=time',
                        '--filter={"ne": ["host", "zzz"]}'])

@@ -180,3 +180,36 @@ def test_query_without_cuda_fails(monkeypatch, tmp_path, capsys):
     monkeypatch.setenv('DN_TORCH_DEVICE', 'cpu')
     assert cli.main(['query', '--interval=all', '-b', 'host', 'd']) == 0
     assert 'a' in capsys.readouterr().out
+
+
+@pytest.mark.parametrize('engine', [None, 'auto'])
+def test_cli_auto_scan_without_cuda_fails(monkeypatch, tmp_path, capsys,
+                                          engine):
+    """The default engine (auto) starts on the host by design, but it
+    asks for CUDA like the forced lane: without CUDA and without
+    DN_TORCH_DEVICE=cpu, scan, build and query fail cleanly before any
+    work, and with DN_TORCH_DEVICE=cpu auto is the host engine."""
+    from dragnet_tpu_torch import cli
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    monkeypatch.setenv('DRAGNET_CONFIG', str(tmp_path / 'rc'))
+    monkeypatch.delenv('DN_TORCH_DEVICE', raising=False)
+    if engine is None:
+        monkeypatch.delenv('DN_ENGINE', raising=False)
+    else:
+        monkeypatch.setenv('DN_ENGINE', engine)
+    data = tmp_path / 'd.log'
+    data.write_text('{"host":"a"}\n')
+    assert cli.main(['datasource-add', 'd', '--path=' + str(data),
+                     '--index-path=' + str(tmp_path / 'idx')]) == 0
+    assert cli.main(['metric-add', '-b', 'host', 'd', 'm']) == 0
+    capsys.readouterr()
+    for cmd in (['scan', '-b', 'host', 'd'],
+                ['build', '--interval=all', 'd'],
+                ['query', '--interval=all', '-b', 'host', 'd']):
+        assert cli.main(cmd) == 1
+        out, err = capsys.readouterr()
+        assert not out and 'CUDA' in err
+    assert not (tmp_path / 'idx').exists()
+    monkeypatch.setenv('DN_TORCH_DEVICE', 'cpu')
+    assert cli.main(['scan', '-b', 'host', 'd']) == 0
+    assert 'a' in capsys.readouterr().out

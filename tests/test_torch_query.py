@@ -567,8 +567,19 @@ def _bin_dn(args):
 
 
 def _port_cli(args):
+    """The port's CLI on its forced device lane (DN_ENGINE=jax; the
+    CLI's default, auto, answers from the host on the CPU), with
+    DN_ENGINE restored afterwards."""
     from dragnet_tpu_torch import cli
-    return _run_cli(cli.main, args)
+    prior = os.environ.get('DN_ENGINE')
+    os.environ['DN_ENGINE'] = 'jax'
+    try:
+        return _run_cli(cli.main, args)
+    finally:
+        if prior is None:
+            del os.environ['DN_ENGINE']
+        else:
+            os.environ['DN_ENGINE'] = prior
 
 
 @pytest.fixture
