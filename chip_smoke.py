@@ -59,6 +59,25 @@ it happened; any failed check exits non-zero:
            engines, identical.  Prints wall s and records/s of both
            builds, the index writer's share, shards and bytes, and
            whether libdnindex.so was loaded.
+6b. pipe   the pipelined dispatch: the K1 query (host x latency) and
+           the phase 6 build at DN_DEVICE_PIPELINE_DEPTH 1 and 2, and
+           the build at 2 without the flush prefetch (DN_PREFETCH=0):
+           outputs equal to phase 4's, trees and --counters to phase
+           6's, byte for byte; K1 once per device batch; every
+           per-record upload from page-locked memory (the ring counts
+           device_h2d_pinned_bytes from is_pinned() at each copy, and
+           it must equal device_h2d_bytes); never more than `depth`
+           batches running after a dispatch; no synchronizing CUDA call
+           inside the kernel query's device batches between flushes
+           (torch's sync debug mode, each one listed); then the K1
+           query at depths 1 and 2 with ~20 ms of device work added
+           after each fold, which must leave the output unchanged and
+           fill the window to exactly its depth (1 batch in flight at
+           depth 1, 2 at depth 2).  Prints wall, records/s, dispatches,
+           overlapped dispatches and bytes, the most batches in flight,
+           H2D bytes, the staging slots allocated, the host seconds of
+           staging + upload and of the fetch wait, and a `pipeline` JSON
+           line.
 7. query   `dn query` on the card: N records spread over 30 days, the
            three metrics of phase 6 built on the card with
            --interval=hour (720 shards) and --interval=day (30 shards),
@@ -83,12 +102,15 @@ it happened; any failed check exits non-zero:
            take over on the card, K1 launching on the two kernel
            queries and never on the scatter query; each output equal
            to the forced lane's.  Then an eager auto build, through the
-           stack, its tree equal to phase 6's, and a default one; then
-           auto queries (a) and (d) of phase 7: the first auditions
-           (CUDA is warm), both paths equal, the repeat follows the
-           persisted verdict.  Prints every route (escalation record,
-           audition and probation rates, device batches, cached
-           verdicts) and an `auto` JSON line.
+           stack, its tree equal to phase 6's, the same racing its
+           audition (whether and when the audition concluded is
+           printed, with the replay's wall and CPU seconds), again on
+           the verdict that run persisted (which it must follow), and a
+           default one; then auto queries (a) and (d) of phase 7: the
+           first auditions (CUDA is warm), both paths equal, the repeat
+           follows the persisted verdict.  Prints every route
+           (escalation record, audition and probation rates, device
+           batches, cached verdicts) and an `auto` JSON line.
 9. main    the kernel again, on the fused keys the main path gave it:
    keys    the largest batch of each kernel query at each segment count
            (the time window, and with it the accumulator, grows during
@@ -136,6 +158,10 @@ SWEEP_SEGMENTS = [256, 512, 1024, 2048, 4096]
 LARGE_RECORDS = 2000000
 LARGE_SEGMENTS = 4096
 L2_BYTES = 50 << 20
+# phase 6b: device work added after each fold of the K1 query to make
+# the device the slower side (torch.cuda._sleep, SM clock cycles: about
+# 20 ms at 1.98 GHz, beside ~20 ms of host work a batch)
+BUSY_CYCLES = 40 * 1000 * 1000
 
 # (name, scan arguments, expected route): the large-scan query of the
 # repository's benchmark, its small-accumulator query, and the synthetic
@@ -1051,6 +1077,7 @@ def build_phase(cli, mod_ds, ck, tmp, data, records):
     herr = io.StringIO()
     herr.write('indexes for "idx" built\n')
     hres.pipeline.dump_counters(herr)
+    dev_counters = berr
     berr, herr = without_spill('build', berr, herr.getvalue(), sparse_rows)
     check(berr == herr, 'build --counters differs from the host engine:'
           '\n%s\n%s' % (berr, herr))
@@ -1097,11 +1124,254 @@ def build_phase(cli, mod_ds, ck, tmp, data, records):
     return {'device_s': dt, 'host_s': ht, 'device_times': dev_times,
             'host_times': host_times, 'device_write_s': dev_write,
             'host_write_s': host_write, 'batches': nb, 'stacked': ns_,
-            'build_launches': build_launches, 'shards': len(shards),
+            'build_launches': build_launches, 'counters': dev_counters,
+            'shards': len(shards),
             'shard_bytes': nbytes, 'libdnindex': dnc,
             'index_scan_device_s': st, 'index_scan_host_s': hst,
             'routes': {m: sorted(set(routes.get('m%d_' % i, [])))
                        for i, (m, _, _) in enumerate(BUILD_METRICS)}}
+
+
+def pipeline_phase(cli, mod_ds, ck, tmp, records, forced, build):
+    """Phase 6b: the pipelined dispatch.  The K1 query (QUERIES[1]) and
+    the three-metric hour build at DN_DEVICE_PIPELINE_DEPTH 1 and 2, and
+    the build at 2 again without the flush prefetch (DN_PREFETCH=0):
+    each scan output held to phase 4's, each tree and --counters dump to
+    phase 6's, byte for byte; K1 launching once per device batch; every
+    per-record upload from page-locked memory; no synchronizing CUDA
+    call inside the kernel query's device batches between flushes
+    (torch's sync debug mode, in its warning form so that each one is
+    listed).  Then the K1 query at depths 1 and 2 with the device made
+    the slower side (BUSY_CYCLES of device work after each fold): the
+    output unchanged, and the window held: after each dispatch at most
+    `depth` batches are still running on the device, and with the
+    device the slower side exactly `depth` at some dispatch (1 at depth
+    1, 2 at depth 2).  Prints each run's wall, records/s, the pipeline
+    counters, the most batches in flight, the staging slots allocated,
+    the host seconds of staging + upload and of the fetch wait."""
+    import warnings
+    import torch
+    from dragnet_tpu_torch import config as mod_config
+    from dragnet_tpu_torch import datasource_file as mod_dsf
+    from dragnet_tpu_torch import engine as mod_engine
+    from dragnet_tpu_torch import metrics_for_index
+    from dragnet_tpu_torch.obs import metrics as obs_metrics
+    name, qargs, _ = QUERIES[1]
+    argv = ['scan', '--points', '--counters'] + qargs + ['muskie']
+    fout, ferr, _ = forced[name]
+    _, config = mod_config.ConfigBackendLocal().load()
+    metrics = metrics_for_index(config, 'idx')
+    ref_tree = tree_files(os.path.join(tmp, 'idx_device'))
+    spy = Spy()
+    timers = Timers()
+    for owner, attr, label in (
+            (mod_ds.DeviceScan, '_stage_device', 'stage'),
+            (mod_ds.DeviceScan, '_upload_inputs', 'upload'),
+            (mod_ds, '_wait_fetched', 'fetch wait')):
+        timers.wrap(spy, owner, attr, label)
+    batches = {'total': 0, 'device': 0}
+    # the window: most batches still running after a dispatch returned;
+    # the staging ring's slot allocations and their largest size
+    window = {'inflight': 0, 'allocs': 0, 'slot_bytes': 0}
+    sync = {'on': False, 'found': []}
+
+    def wrap_try(orig):
+        def try_device(self, provider, weights, alive):
+            if not sync['on']:
+                ok = orig(self, provider, weights, alive)
+            else:
+                with warnings.catch_warnings(record=True) as got:
+                    warnings.simplefilter('always')
+                    torch.cuda.set_sync_debug_mode('warn')
+                    try:
+                        ok = orig(self, provider, weights, alive)
+                    finally:
+                        torch.cuda.set_sync_debug_mode('default')
+                sync['found'] += ['%s:%d' % (w.filename, w.lineno)
+                                  for w in got if 'called a synchronizing'
+                                  in str(w.message)]
+            batches['total'] += 1
+            batches['device'] += int(ok)
+            return ok
+        return try_device
+
+    def wrap_flush(orig):
+        # a flush fetches by design: outside the checked window
+        def flush(self):
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode('default')
+            try:
+                return orig(self)
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+        return flush
+
+    def wrap_dispatch(orig):
+        def note_dispatch(self, token, nbytes):
+            rv = orig(self, token, nbytes)
+            running = sum(1 for t in self._pipe
+                          if t is not None and not t.query())
+            window['inflight'] = max(window['inflight'], running)
+            return rv
+        return note_dispatch
+
+    def wrap_alloc(orig):
+        def alloc(self, slot, nbytes, compute):
+            window['allocs'] += 1
+            window['slot_bytes'] = max(window['slot_bytes'], nbytes)
+            return orig(self, slot, nbytes, compute)
+        return alloc
+    busy = {'on': False}
+
+    def wrap_fold(orig):
+        # the device made the slower side: BUSY_CYCLES of device work on
+        # the scan's compute stream after each fold
+        def fold_staged(self, staged, args):
+            rv = orig(self, staged, args)
+            if busy['on']:
+                with torch.cuda.stream(self._compute):
+                    torch.cuda._sleep(BUSY_CYCLES)
+            return rv
+        return fold_staged
+    spy.wrap(mod_ds.DeviceScan, '_try_device', wrap_try)
+    spy.wrap(mod_ds.DeviceScan, '_flush', wrap_flush)
+    spy.wrap(mod_ds.DeviceScan, '_note_dispatch', wrap_dispatch)
+    spy.wrap(mod_ds._StagingRing, '_alloc', wrap_alloc)
+    spy.wrap(mod_ds.DeviceScan, '_fold_staged', wrap_fold)
+
+    def counters():
+        return dict(obs_metrics.pipeline_doc())
+
+    def measured(fn):
+        """(seconds, pipeline counter deltas, host times, K1 launches)"""
+        window.update(inflight=0, allocs=0, slot_bytes=0)
+        ck.reset_launches()
+        c0 = counters()
+        t0 = time.monotonic()
+        rv = fn()
+        torch.cuda.synchronize()
+        dt = time.monotonic() - t0
+        c1 = counters()
+        delta = {k: c1[k] - c0[k] for k in ('dispatches', 'overlapped',
+                                            'h2d_bytes', 'h2d_pinned_bytes',
+                                            'h2d_overlapped_bytes')}
+        delta['depth'] = c1['depth']
+        delta.update(window)
+        return rv, dt, delta, timers.take(dt), ck.launches['onehot_dense']
+
+    # the detector itself: a known synchronizing call must be listed
+    with warnings.catch_warnings(record=True) as got:
+        warnings.simplefilter('always')
+        torch.cuda.set_sync_debug_mode('warn')
+        try:
+            int(torch.ones(1, device=DEVICE).sum())
+        finally:
+            torch.cuda.set_sync_debug_mode('default')
+    check(any('called a synchronizing' in str(w.message) for w in got),
+          'pipeline: torch\'s sync debug mode did not report a known '
+          'synchronizing call: %r' % [str(w.message) for w in got])
+    runs = []
+    try:
+        for depth, prefetch in (('1', '1'), ('2', '1'), ('2', '0')):
+            with env_scope(DN_DEVICE_PIPELINE_DEPTH=depth,
+                           DN_PREFETCH=prefetch):
+                if prefetch == '1':
+                    batches.update(total=0, device=0)
+                    sync.update(on=True, found=[])
+                    (rc, out, err), dt, c, times, nl = measured(
+                        lambda: run_cli(cli, argv))
+                    sync['on'] = False
+                    check(rc == 0, 'pipeline %s depth %s: scan failed: %s'
+                          % (name, depth, err))
+                    check((out, err) == (fout, ferr), 'pipeline %s depth '
+                          '%s: output differs from phase 4' % (name, depth))
+                    nb = batches['total']
+                    check(nb > 0 and batches['device'] == nb and nl == nb,
+                          'pipeline %s depth %s: %d of %d batches on the '
+                          'device, K1 launched %d times'
+                          % (name, depth, batches['device'], nb, nl))
+                    check(not sync['found'], 'pipeline %s depth %s: '
+                          'synchronizing CUDA calls inside device batches: '
+                          '%s' % (name, depth, sync['found'][:8]))
+                    runs.append(('scan ' + name, depth, prefetch, dt, c,
+                                 times, nl, nb))
+                idx = os.path.join(tmp, 'idx_pipe_%s_%s' % (depth, prefetch))
+                dsconfig = dict(config.datasource_get('idx'))
+                dsconfig['ds_backend_config'] = dict(
+                    dsconfig['ds_backend_config'], indexPath=idx)
+                bds = mod_dsf.DatasourceFile(dsconfig)
+                res, dt, c, times, nl = measured(
+                    lambda: bds.build(metrics, 'hour', engine='device',
+                                      device=DEVICE))
+                tree = tree_files(idx)
+                check(tree.keys() == ref_tree.keys() and
+                      all(tree[k] == ref_tree[k] for k in tree),
+                      'pipeline build depth %s prefetch %s: the tree '
+                      'differs from phase 6\'s' % (depth, prefetch))
+                berr = io.StringIO()
+                berr.write('indexes for "idx" built\n')
+                res.pipeline.dump_counters(berr)
+                check(berr.getvalue() == build['counters'],
+                      'pipeline build depth %s prefetch %s: --counters '
+                      'differ from phase 6\'s' % (depth, prefetch))
+                nb = sum(st.counters.get('nstackedbatches', 0)
+                         for st in res.pipeline.stages) // len(metrics)
+                check(nl == nb and c['dispatches'] == nb,
+                      'pipeline build depth %s: K1 launched %d times, %d '
+                      'dispatches, for %d stacked batches'
+                      % (depth, nl, c['dispatches'], nb))
+                runs.append(('build hour x3', depth, prefetch, dt, c,
+                             times, nl, nb))
+        busy['on'] = True
+        for depth in ('1', '2'):
+            with env_scope(DN_DEVICE_PIPELINE_DEPTH=depth):
+                batches.update(total=0, device=0)
+                (rc, out, err), dt, c, times, nl = measured(
+                    lambda: run_cli(cli, argv))
+            check(rc == 0 and (out, err) == (fout, ferr),
+                  'pipeline %s, device busy, depth %s: output differs '
+                  'from phase 4 (%s)' % (name, depth, err[-200:]))
+            runs.append(('scan %s, device busy' % name, depth, '1', dt, c,
+                         times, nl, batches['total']))
+            # the device is the slower side: the window fills to its
+            # depth and no further
+            check(c['inflight'] == int(depth) and c['overlapped'] > 0,
+                  'pipeline %s, device busy, depth %s: at most %d batches '
+                  'in flight after a dispatch (%r)'
+                  % (name, depth, c['inflight'], c))
+    finally:
+        busy['on'] = False
+        torch.cuda.set_sync_debug_mode('default')
+        spy.restore()
+    out = []
+    for what, depth, prefetch, dt, c, times, nl, nb in runs:
+        check(c['h2d_bytes'] > 0 and c['h2d_pinned_bytes'] == c['h2d_bytes'],
+              'pipeline %s depth %s: %d of %d per-record upload bytes from '
+              'page-locked memory' % (what, depth, c['h2d_pinned_bytes'],
+                                      c['h2d_bytes']))
+        check(c['inflight'] <= int(depth), 'pipeline %s depth %s: %d '
+              'batches in flight after a dispatch' % (what, depth,
+                                                       c['inflight']))
+        staging = times.get('stage', 0.0) + times.get('upload', 0.0)
+        log('pipeline %-32s depth %s prefetch %s: %.2f s %11.0f records/s '
+            '| dispatches %d, overlapped %d (%d bytes), most in flight %d '
+            '| H2D %d bytes, all page-locked | %d slot allocations, the '
+            'largest %d bytes | staging + upload %.3f s | fetch wait '
+            '%.4f s | K1 launches %d for %d batches | identical output'
+            % (what, depth, prefetch, dt, records / dt, c['dispatches'],
+               c['overlapped'], c['h2d_overlapped_bytes'], c['inflight'],
+               c['h2d_bytes'], c['allocs'], c['slot_bytes'], staging,
+               times.get('fetch wait', 0.0), nl, nb))
+        out.append({'run': what, 'depth': int(depth),
+                    'prefetch': prefetch == '1', 's': dt,
+                    'records_per_s': records / dt, 'counters': c,
+                    'staging_upload_s': staging,
+                    'fetch_wait_s': times.get('fetch wait', 0.0),
+                    'launches': nl, 'batches': nb})
+    log('pipeline: staging slots start at BATCH_SIZE = %d rows (no '
+        'padding is copied); no synchronizing CUDA call inside the kernel '
+        'query\'s device batches' % mod_engine.BATCH_SIZE)
+    return out
 
 
 class FoldTimer(object):
@@ -1379,11 +1649,14 @@ def fmt_route(doc):
         parts.append('cached verdict %s' % doc['cached_verdict'])
     if doc.get('audition'):
         a = doc['audition']
-        parts.append('audition %s' % (
-            'failed' if a.get('failed') else
-            '%s (device %s records/s, host %s; replay %.3f s)'
-            % ('won' if a['won'] else 'lost', a['device_rate'],
-               a['host_rate'], a['replay_s'])))
+        parts.append('audition failed' if a.get('failed') else
+                     'audition %s (device %s records/s, host %s; replay '
+                     '%.3f s, its thread\'s CPU %.3f s; created, batches '
+                     'in, replay start, done, verdict at %s s)%s'
+                     % ('won' if a['won'] else 'lost', a['device_rate'],
+                        a['host_rate'], a['replay_s'], a['replay_cpu_s'],
+                        a['timeline_s'],
+                        ' at the stream\'s end' if a['at_finish'] else ''))
     if doc.get('probation'):
         p = doc['probation']
         parts.append('probation %s (device %s records/s, host %s)'
@@ -1409,6 +1682,7 @@ def auto_phase(cli, mod_ds, ck, tmp, records, forced, query_outputs):
     from dragnet_tpu_torch import device_index as mod_di
     from dragnet_tpu_torch import index_query_mt as mod_iqmt
     from dragnet_tpu_torch import metrics_for_index
+    from dragnet_tpu_torch.obs import metrics as obs_metrics
     cache = os.path.join(tmp, 'auditions')
     scans = []
     routes = []
@@ -1549,7 +1823,11 @@ def auto_phase(cli, mod_ds, ck, tmp, records, forced, query_outputs):
     metrics = metrics_for_index(config, 'idx')
     ref_tree = tree_files(os.path.join(tmp, 'idx_device'))
     builds = {}
-    for label in ('eager', 'racing', 'default'):
+    # the racing build persists its verdict (reached mid-stream, or at
+    # the stream's end when the replay finished after the last decision
+    # point); 'racing, warm' runs on that verdict
+    build_cache = os.path.join(tmp, 'auditions_build')
+    for label in ('eager', 'racing', 'racing, warm', 'default'):
         idx = os.path.join(tmp, 'idx_auto_' + label)
         dsconfig = dict(config.datasource_get('idx'))
         dsconfig['ds_backend_config'] = dict(
@@ -1558,14 +1836,20 @@ def auto_phase(cli, mod_ds, ck, tmp, records, forced, query_outputs):
         bspy = Spy()
         if label != 'default':
             eager(bspy, label == 'eager')
+        cache_env = {'DN_AUDITION_CACHE': '0'}
+        if label.startswith('racing'):
+            cache_env = {'DN_AUDITION_CACHE': '1',
+                         'DN_TORCH_CACHE_DIR': build_cache}
         try:
-            with env_scope(DN_SCAN_THREADS=None, DN_AUDITION_CACHE='0'):
+            with env_scope(DN_SCAN_THREADS=None, **cache_env):
                 reset()
+                c0 = obs_metrics.pipeline_doc()
                 t0 = time.monotonic()
                 res = bds.build(metrics, 'hour', engine='auto',
                                 device=DEVICE)
                 torch.cuda.synchronize()
                 dt = time.monotonic() - t0
+                c1 = obs_metrics.pipeline_doc()
                 nl = ck.launches['onehot_dense']
                 na = after_takeover()
         finally:
@@ -1584,13 +1868,31 @@ def auto_phase(cli, mod_ds, ck, tmp, records, forced, query_outputs):
             check(na > 0, 'eager auto build: K1 did not launch after the '
                   'takeover')
             auto_launches += na
+        aud = bds.last_route[0].get('audition')
+        concluded = 'no audition'
+        if aud:
+            concluded = 'did not conclude' if aud.get('failed') else \
+                'concluded at the stream\'s end' if aud.get('at_finish') \
+                else 'concluded mid-stream'
+        elif bds.last_route[0].get('probe_status') == 'ok' and \
+                bds.last_route[0].get('cached_verdict') is None:
+            concluded = 'did not conclude'
+        if label == 'racing, warm' and builds['racing']['audition'] in (
+                'concluded mid-stream', 'concluded at the stream\'s end'):
+            check(bds.last_route[0]['cached_verdict'] is True and
+                  stacked > 0,
+                  'auto build (racing, warm) did not follow the verdict '
+                  'the racing build persisted: %r' % bds.last_route[0])
+        pipe = {k: c1[k] - c0[k] for k in ('dispatches', 'overlapped')}
         builds[label] = {'s': dt, 'stacked_batches': stacked,
                          'launches': nl, 'takeover_launches': na,
-                         'routes': bds.last_route}
-        log('auto build %-7s %.2f s (%.0f records/s) | stacked batches %d '
-            '| K1 launches %d (%d after the takeover) | tree identical to '
-            'phase 6 | %s'
-            % (label, dt, records / dt, stacked, nl, na,
+                         'audition': concluded,
+                         'pipeline': pipe, 'routes': bds.last_route}
+        log('auto build %-12s %.2f s (%.0f records/s) | stacked batches '
+            '%d | K1 launches %d (%d after the takeover) | tree identical '
+            'to phase 6 | audition: %s | dispatches %d, overlapped %d | %s'
+            % (label, dt, records / dt, stacked, nl, na, concluded,
+               pipe['dispatches'], pipe['overlapped'],
                '; '.join(fmt_route(d) for d in bds.last_route)))
 
     tspy.restore()
@@ -1669,6 +1971,7 @@ def main():
                     'result to this file')
     args = ap.parse_args()
 
+    t_smoke = time.monotonic()
     import torch
     if not torch.cuda.is_available():
         sys.stderr.write('chip_smoke: CUDA is not available\n')
@@ -1750,6 +2053,8 @@ def main():
             cli, mod_ds, ck, ds, args.records)
         sparse = sparse_phase(cli, mod_ds, ds, args.records)
         build = build_phase(cli, mod_ds, ck, tmp, data, args.records)
+        pipeline = pipeline_phase(cli, mod_ds, ck, tmp, args.records,
+                                  forced, build)
         queries, query_outputs = query_phase(cli, ck, tmp, args.records,
                                              args.seed)
         auto = auto_phase(cli, mod_ds, ck, tmp, args.records, forced,
@@ -1792,6 +2097,7 @@ def main():
             json.dump({'card': card, 'stream_lookup_ms': stream_costs,
                        'shapes': results, 'sparse_fold_bench': fold_bench,
                        'sparse_scans': sparse, 'build': build,
+                       'pipeline': pipeline,
                        'query': queries, 'auto': auto}, f,
                       indent=1)
     print(json.dumps({'query': [
@@ -1800,10 +2106,12 @@ def main():
                            'bound_ms', 'stages')} for q in
         queries['queries']], 'builds_s': queries['builds_s']}),
         flush=True)
+    print(json.dumps({'pipeline': pipeline}), flush=True)
     print(json.dumps({'auto': {
         'scans': [{k: v for k, v in r.items()} for r in auto['scans']],
         'builds': auto['builds'], 'queries': auto['queries']}}),
         flush=True)
+    log('smoke: %.1f s' % (time.monotonic() - t_smoke))
     log('gpu: %s' % card)
     print(json.dumps({'kernels': [{
         'name': 'onehot_dense', 'route': 'cuda', 'source': KERNEL_SOURCE,

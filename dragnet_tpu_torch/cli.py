@@ -472,6 +472,13 @@ def dn_output(query, opts, result, dsname):
 
 
 def _device():
+    """The device a command runs on (CUDA unless DN_TORCH_DEVICE says
+    otherwise), after the device-lane knobs passed their validation
+    (config.device_config): a malformed value is an error here, never
+    read as its default."""
+    conf = mod_config.device_config()
+    if isinstance(conf, DNError):
+        fatal(conf)
     return os.environ.get('DN_TORCH_DEVICE') or 'cuda'
 
 

@@ -2,10 +2,11 @@
 
 Counterpart of dragnet_tpu/config.py: the configuration model, its
 schema-validated load, the local file backend, and the knobs the index
-build reads: DN_DISK_* (resources_config) and DN_FAULTS (faults_config).
-The serve, cluster and device knobs are not ported.  Re-implements lib/config-common.js
-(clone-on-write DragnetConfig, versioned vmaj/vmin 0.0, schema-validated
-load) and lib/config-local.js (JSON file at $DRAGNET_CONFIG or
+build reads: DN_DISK_* (resources_config) and DN_FAULTS (faults_config),
+and the device-lane knobs (device_config).  The serve and cluster knobs
+are not ported.  Re-implements lib/config-common.js (clone-on-write
+DragnetConfig, versioned vmaj/vmin 0.0, schema-validated load) and
+lib/config-local.js (JSON file at $DRAGNET_CONFIG or
 ~/.dragnetrc, atomic tmp+rename save), so the port and bin/dn read and
 write the same file.
 """
@@ -373,6 +374,62 @@ def resources_config(env=None):
                        'DN_DISK_LOW_PCT (%g)'
                        % (rv['disk_critical_pct'],
                           rv['disk_low_pct']))
+    return rv
+
+
+# --- device-lane knobs (pipeline, probe/audition tuning) ---
+#
+# The reference's contract for the device knobs the port reads: parsed
+# and validated in one place.  device_scan and scan_mt read the env
+# forgivingly at run time (a malformed value reads as the default
+# there); the CLI calls device_config before a command reaches the
+# device, so a malformed value is rejected with the shared DNError
+# contract instead.  The reference's serve-only knobs
+# (DN_DEVICE_RESIDENCY_MB, DN_DEVICE_PREWARM) and its padding floor
+# (DN_DEVICE_BATCH_FLOOR) have no reader in the port.
+
+_DEVICE_KNOBS = [
+    # (env name, key, kind, default, minimum)
+    # hard deadline for backend probes (device_scan.probe_deadline_s)
+    ('DN_DEVICE_PROBE_TIMEOUT', 'probe_timeout_s', 'int', 420, 1),
+    # wall-clock freshness of persisted audition verdicts
+    ('DN_AUDITION_TTL_S', 'audition_ttl_s', 'int', 86400, 0),
+    # in-flight dispatch window of the pipelined device scan (2 =
+    # double buffering: upload batch N+1 while batch N folds)
+    ('DN_DEVICE_PIPELINE_DEPTH', 'pipeline_depth', 'int', 2, 1),
+    # radix partition count for the MT merge (scan_mt); 'auto' = up
+    # to 8, bounded by CPU count
+    ('DN_SCAN_PARTITIONS', 'scan_partitions', 'intauto', 'auto', 1),
+]
+
+
+def device_config(env=None):
+    """The resolved device-lane knobs (keys: probe_timeout_s,
+    audition_ttl_s, pipeline_depth, scan_partitions), or DNError on the
+    first malformed value."""
+    if env is None:
+        env = os.environ
+    rv = {}
+    for name, key, kind, default, minimum in _DEVICE_KNOBS:
+        raw = env.get(name)
+        if raw is None or raw == '':
+            rv[key] = default
+            continue
+        if kind == 'intauto' and raw.strip().lower() == 'auto':
+            rv[key] = 'auto'
+            continue
+        try:
+            value = int(raw)
+        except ValueError:
+            value = minimum - 1
+        if value < minimum:
+            if kind == 'intauto':
+                return DNError("%s: expected 'auto' or an integer "
+                               '>= %d, got "%s"' % (name, minimum,
+                                                    raw))
+            return DNError('%s: expected an integer >= %d, got "%s"'
+                           % (name, minimum, raw))
+        rv[key] = value
     return rv
 
 

@@ -51,10 +51,21 @@ probe runs on a background thread, and on the multithreaded host path
 audition on copies of live batches.  Verdicts persist per (query shape,
 backend) in the port's own audition cache (`audition_cache_get/put`).
 
-Not in this port yet: the pipelined dispatch (and with it the async
-flush prefetch).  Batches upload with plain synchronous copies.
+Pipelined dispatch (the reference's, redesigned for CUDA): a batch's
+per-record inputs are packed into a reused page-locked slot of the
+scan's staging ring (_StagingRing) and cross in one non_blocking copy
+on the ring's copy stream, which the compute stream waits on by event;
+each dispatched batch leaves a CUDA event as its completion token, and
+the host blocks only on the token from pipeline_depth() dispatches back
+(_note_dispatch).  Late in the stream (PREFETCH_PROGRESS) the epoch's
+fetch is issued early into page-locked host memory (_prefetch_flush);
+it drains, in order, at the next flush (_drain_pending), through the
+flush's own fetch and emit (_take_epoch, _emit_epoch).  Every barrier
+is the scan's own: an event on its compute stream, never the whole
+device.
 """
 
+import collections
 import os
 import threading
 import time
@@ -66,8 +77,10 @@ from . import jsvalues as jsv
 from . import log as mod_log
 from . import native as mn
 from . import query as mod_query
+from . import engine as mod_engine
 from .engine import (VectorScan, NativeColumns, MAX_DENSE_SEGMENTS,
                      _native_str_trans)
+from .errors import DNError
 from .ops import resolve_device
 from .ops import cuda_kernels
 from .ops.kernels import FALSE, TRUE, ERROR, fold_and, fold_or
@@ -92,6 +105,213 @@ LOG = mod_log.get('device-scan')
 # calls of the sparse fold (torch ops, no hand kernel): a run can show
 # that its batches went through the sparse program
 sparse_folds = {'fold_sparse': 0}
+
+# dispatch barrier interval: a hard backstop on how far the host can run
+# ahead of the device beyond the pipeline window (the window below is
+# the working bound)
+SYNC_EVERY_BATCHES = 32
+
+
+def pipeline_depth():
+    """How many dispatched device batches may be in flight before the
+    host blocks on the oldest (DN_DEVICE_PIPELINE_DEPTH, default 2:
+    double buffering, the host stages and uploads batch N+1 while the
+    device folds batch N).  Malformed values read as the default here;
+    config.device_config is where they are rejected."""
+    v = os.environ.get('DN_DEVICE_PIPELINE_DEPTH', '')
+    if v:
+        try:
+            return max(1, int(v))
+        except ValueError:
+            pass
+    return 2
+
+
+def _note_h2d(nbytes):
+    """Host->device bytes of per-record inputs (the always-on
+    device_h2d_bytes counter)."""
+    if nbytes:
+        from .obs import metrics as obs_metrics
+        obs_metrics.inc('device_h2d_bytes', int(nbytes))
+
+
+def _align(nbytes, quantum=256):
+    return (nbytes + quantum - 1) // quantum * quantum
+
+
+class _Slot(object):
+    __slots__ = ('host', 'host_np', 'dev', 'nbytes', 'copied', 'consumed')
+
+    def __init__(self):
+        self.host = self.host_np = self.dev = None
+        self.nbytes = 0
+        self.copied = None      # event: the slot's last copy is done
+        self.consumed = None    # event: the fold that read it is done
+
+
+class _StagingRing(object):
+    """Reused staging for the per-record inputs of one scan (or of one
+    DeviceScanStack): a ring of slots, each a host buffer and a device
+    buffer of one capacity.  A batch's per-record arrays are packed into
+    one slot, each at a 256-byte-aligned offset, and cross in ONE copy;
+    the fold reads typed views of the slot's device buffer.
+
+    On CUDA the host buffer is page-locked and the copy is non_blocking
+    on the ring's own copy stream, so it neither holds the host thread
+    nor queues behind the previous batch's fold on the compute stream;
+    the compute stream waits on the copy's event.  A slot is rewritten
+    only after its previous copy completed (the host waits on that
+    event: the DMA reads the page-locked buffer until then) and after
+    the fold that read its device buffer completed (the copy stream
+    waits on that fold's event), so nothing in flight is overwritten at
+    any pipeline depth.  A device buffer is allocated on the compute
+    stream (its owner in the caching allocator) and marked as used on
+    the copy stream (record_stream), and the copy stream waits once on
+    the compute stream after each allocation, since the block may have
+    served earlier compute work.
+
+    On the CPU the same packing and copy run synchronously, with no
+    streams and no events, so the CPU tests exercise the layout."""
+
+    def __init__(self, device, nslots):
+        self.device = device
+        self.cuda = device.type == 'cuda'
+        self.copy_stream = torch.cuda.Stream(device) if self.cuda \
+            else None
+        self.slots = [_Slot() for _ in range(max(2, nslots))]
+        self.next = 0
+
+    def _alloc(self, slot, nbytes, compute):
+        """(Re)allocate a slot at `nbytes`.  The caller has waited for
+        its last copy; its device buffer's readers are on the compute
+        stream, which orders the block's reuse."""
+        slot.host = slot.host_np = slot.dev = None
+        try:
+            host = torch.empty(nbytes, dtype=torch.uint8,
+                               pin_memory=self.cuda)
+            if self.cuda and not host.is_pinned():
+                raise RuntimeError('host staging buffer is not page-locked')
+            dev = torch.empty(nbytes, dtype=torch.uint8, device=self.device)
+            if self.cuda:
+                dev.record_stream(self.copy_stream)
+                self.copy_stream.wait_stream(compute)
+        except RuntimeError as e:
+            raise DNError('device staging: allocating %d bytes failed'
+                          % nbytes, cause=e)
+        slot.host, slot.host_np, slot.dev = host, host.numpy(), dev
+        slot.nbytes = nbytes
+        slot.consumed = None
+
+    def stage(self, inputs, cap0, compute):
+        """Pack the per-record numpy arrays of `inputs` into the next
+        slot and start their copy.  Returns (args, nbytes, slot): args
+        maps every key to a device tensor (device-resident tables pass
+        through), nbytes is the per-record bytes copied, slot is what
+        release() takes after the fold (None when nothing was copied).
+        A slot's capacity is `cap0` rows, doubled until the batch fits:
+        only the batch's own rows are copied.  (The reference pads a
+        batch up to a floor, _pad_floor, so its compiled programs see
+        few shapes; eager torch compiles nothing, so the port pads
+        nothing and has no floor.)"""
+        args = {}
+        layout = []
+        end = 0
+        rows = 0
+        for k, v in inputs.items():
+            if isinstance(v, np.ndarray):
+                v = np.ascontiguousarray(v).reshape(-1)
+                layout.append((k, v, end))
+                end += _align(v.nbytes)
+                rows = max(rows, len(v))
+            else:
+                args[k] = v
+        if not layout:
+            return args, 0, None
+        cap = max(1, int(cap0))
+        while cap < rows:
+            cap <<= 1
+        need = sum(_align(v.itemsize * cap) for _, v, _ in layout)
+        slot = self.slots[self.next]
+        self.next = (self.next + 1) % len(self.slots)
+        if slot.copied is not None:
+            slot.copied.synchronize()
+            slot.copied = None
+        if slot.nbytes < need:
+            self._alloc(slot, need, compute)
+        hb = slot.host_np
+        nbytes = 0
+        for _, v, off in layout:
+            hb[off:off + v.nbytes] = v.view(np.uint8)
+            nbytes += v.nbytes
+        try:
+            if self.cuda:
+                cs = self.copy_stream
+                with torch.cuda.stream(cs):
+                    if slot.consumed is not None:
+                        cs.wait_event(slot.consumed)
+                    slot.dev[:end].copy_(slot.host[:end], non_blocking=True)
+                    ev = torch.cuda.Event()
+                    ev.record(cs)
+                compute.wait_event(ev)
+                slot.copied = ev
+            else:
+                slot.dev[:end].copy_(slot.host[:end])
+        except RuntimeError as e:
+            raise DNError('device staging: the input copy failed', cause=e)
+        if self.cuda and slot.host.is_pinned():
+            from .obs import metrics as obs_metrics
+            obs_metrics.inc('device_h2d_pinned_bytes', nbytes)
+        for k, v, off in layout:
+            args[k] = slot.dev[off:off + v.nbytes].view(
+                torch.from_numpy(v[:0]).dtype)
+        return args, nbytes, slot
+
+    def release(self, slot, compute):
+        """After the fold that read `slot` was queued: its completion
+        token, an event on the compute stream (None on the CPU), which
+        also frees the slot's device buffer for the copy stream."""
+        if not self.cuda:
+            return None
+        ev = torch.cuda.Event()
+        ev.record(compute)
+        if slot is not None:
+            slot.consumed = ev
+        return ev
+
+
+def _issue_async(tensors):
+    """Start the device->host copies of `tensors`: each into a
+    page-locked host tensor with non_blocking=True on the current
+    stream, then one event after them.  Returns (host tensors, event);
+    on the CPU the tensors are their own host copies and the event is
+    None.  A copy that fails on the card raises DNError: there is no
+    fallback to a synchronous or pageable fetch."""
+    if not tensors or tensors[0].device.type != 'cuda':
+        return list(tensors), None
+    try:
+        hosts = []
+        for t in tensors:
+            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            h.copy_(t, non_blocking=True)
+            hosts.append(h)
+        ev = torch.cuda.Event()
+        ev.record()
+    except RuntimeError as e:
+        raise DNError('device fetch: the async copy failed', cause=e)
+    return hosts, ev
+
+
+def _wait_fetched(hosts, token):
+    """Numpy arrays of an _issue_async fetch, once its event is done."""
+    if token is not None:
+        token.synchronize()
+    return [h.numpy() for h in hosts]
+
+
+def _fetch(tensors):
+    """One synchronous fetch of several device tensors: the copies are
+    issued together and awaited on one event."""
+    return _wait_fetched(*_issue_async(list(tensors)))
 
 
 def _rate_field(r):
@@ -458,6 +678,15 @@ class DeviceScan(VectorScan):
         self._acc = None
         self._acc_meta = None     # epoch ('caps', 'cols', 'ns', ...)
         self._acc_batch = 0       # batches folded into the acc
+        # the pipelined dispatch: the staging ring (made at the first
+        # device batch), the stream the scan's device work runs on (the
+        # driving thread's current stream), the in-flight completion
+        # tokens, and prefetched epochs awaiting their ordered drain
+        self._ring = None
+        self._compute = None
+        self._pipe = collections.deque()
+        self._prefetched = False
+        self._pending_flush = []
         self._leaf_list = []      # [(key, Leaf)] in stable order
         self._leaf_tables = {}    # leaf idx -> (host_len, device tensor)
         self._ctabs = {}          # leaf idx -> device i8[16]
@@ -559,13 +788,45 @@ class DeviceScan(VectorScan):
         self._host_records += n
         VectorScan._process(self, provider, weights, alive=alive)
 
+    # once the stream is this far along, the epoch so far is detached
+    # and its fetch issued asynchronously, overlapping the fetch with
+    # the rest of the stream
+    PREFETCH_PROGRESS = 0.7
+
     def set_progress(self, bytes_done, bytes_total):
         """Stream-progress hook (the file datasource reports bytes
         consumed vs total): lets auto mode estimate remaining work
-        before committing to a device switch.  (The reference also
-        starts an async flush prefetch here; it comes with the
-        pipelined dispatch.)"""
+        before committing to a device switch, and triggers the one-time
+        async flush prefetch late in the stream (DN_PREFETCH=0
+        disables it)."""
         self._progress = (bytes_done, bytes_total)
+        if not self._prefetched and self._acc is not None and \
+                bytes_total > 0 and \
+                bytes_done >= self.PREFETCH_PROGRESS * bytes_total:
+            self._prefetched = True
+            if os.environ.get('DN_PREFETCH', '1') != '0':
+                self._prefetch_flush()
+
+    def _prefetch_flush(self):
+        """Detach the current epoch and issue its fetch now
+        (_take_epoch: compacted on the device where large, copied into
+        page-locked host memory); accumulation continues in a fresh
+        accumulator and the epoch drains, in order, at the next _flush.
+        On the card a failure raises DNError (the reference logs it and
+        stays synchronous)."""
+        try:
+            epoch = self._take_epoch()
+        except RuntimeError as e:
+            raise DNError('device flush prefetch failed', cause=e)
+        if epoch is not None:
+            self._pending_flush.append(epoch)
+
+    def _drain_pending(self):
+        """Emit the prefetched epochs, oldest first."""
+        pending = self._pending_flush
+        self._pending_flush = []
+        for epoch in pending:
+            self._emit_epoch(epoch)
 
     def note_external_batch(self, n):
         """A batch of n records was processed outside this scanner (the
@@ -651,12 +912,46 @@ class DeviceScan(VectorScan):
         raise DNError('device %s refused its probe' % self.device)
 
     def _sync_device(self):
-        """Block until every batch folded so far has executed on the
-        scan's device, without fetching or emitting anything: the
-        timing barrier for probation and the audition.  A no-op on the
+        """Block until every batch this scan queued has executed,
+        without fetching or emitting anything: the timing barrier for
+        probation and the audition, and the dispatch backstop.  It waits
+        on an event on the scan's own compute stream, never on the whole
+        device, so probation, an audition's replay and a live stream on
+        other streams never wait on each other's work.  A no-op on the
         CPU, where torch runs eagerly."""
-        if self.device.type == 'cuda':
-            torch.cuda.synchronize(self.device)
+        if self._compute is not None:
+            ev = torch.cuda.Event()
+            ev.record(self._compute)
+            ev.synchronize()
+
+    def _compute_stream(self):
+        """The stream this scan's device work runs on: the driving
+        thread's current stream when its first batch reaches the device
+        (None on the CPU).  K1 launches on the current stream too."""
+        if self._compute is None and self.device.type == 'cuda':
+            self._compute = torch.cuda.current_stream(self.device)
+        return self._compute
+
+    def _note_dispatch(self, token, nbytes):
+        """Pipeline bookkeeping for one dispatched batch: count it; when
+        the previous batch's token had not completed at dispatch, the
+        device was busy while this batch staged and uploaded (an
+        overlapped dispatch); then bound the in-flight window by
+        blocking on the token from `depth` dispatches back."""
+        from .obs import metrics as obs_metrics
+        depth = pipeline_depth()
+        q = self._pipe
+        obs_metrics.inc('device_pipe_dispatches')
+        obs_metrics.set_gauge('device_pipeline_depth', depth)
+        # on the CPU the tokens are None: overlap cannot be observed
+        if q and q[-1] is not None and not q[-1].query():
+            obs_metrics.inc('device_pipe_overlapped')
+            obs_metrics.inc('device_h2d_overlapped_bytes', int(nbytes))
+        q.append(token)
+        while len(q) > depth:
+            old = q.popleft()
+            if old is not None:
+                old.synchronize()
 
     def _after_device_batch(self, n):
         """Count the device batch, then crossover probation: time a
@@ -776,7 +1071,18 @@ class DeviceScan(VectorScan):
         return True
 
     def _upload(self, arr):
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+        """A device-resident table (uploaded once, cached by the
+        caller).  On CUDA it crosses from page-locked memory with
+        non_blocking=True on the compute stream, so it waits for
+        neither the host nor earlier work."""
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        if self.device.type != 'cuda':
+            return t.to(self.device)
+        self._compute_stream()
+        try:
+            return t.pin_memory().to(self.device, non_blocking=True)
+        except RuntimeError as e:
+            raise DNError('device table upload failed', cause=e)
 
     def _stage_device(self, provider, weights, alive, inputs):
         """Eligibility checks + device-input assembly for one batch,
@@ -1230,11 +1536,24 @@ class DeviceScan(VectorScan):
             self._acc_batch = 0
 
     def _upload_inputs(self, inputs):
-        return {k: (self._upload(v) if isinstance(v, np.ndarray) else v)
-                for k, v in inputs.items()}
+        """This batch's per-record inputs through the scan's staging
+        ring (device-resident tables pass through): (args, nbytes,
+        slot)."""
+        ring = self._ring
+        if ring is None:
+            ring = self._ring = _StagingRing(self.device,
+                                             pipeline_depth() + 1)
+        return ring.stage(inputs, mod_engine.BATCH_SIZE,
+                          self._compute_stream())
 
     def _run_staged(self, staged, inputs):
-        self._fold_staged(staged, self._upload_inputs(inputs))
+        args, nbytes, slot = self._upload_inputs(inputs)
+        self._fold_staged(staged, args)
+        _note_h2d(nbytes)
+        self._note_dispatch(self._ring.release(slot, self._compute),
+                            nbytes)
+        if self._acc_batch % SYNC_EVERY_BATCHES == 0:
+            self._sync_device()
 
     def _fold_staged(self, staged, args):
         """Fold one staged batch (inputs already on the device) into
@@ -1242,6 +1561,7 @@ class DeviceScan(VectorScan):
         body through the one-hot kernel or index_add_."""
         n, profile, caps, ns, total_w = staged
         sparse_cap = profile[-1]
+        self._compute_stream()
         self._ensure_acc(caps, ns, sparse_cap=sparse_cap)
         base = self._acc_batch << 32
         if sparse_cap:
@@ -1498,68 +1818,111 @@ class DeviceScan(VectorScan):
     # -- flush: fetch + ordered merge ---------------------------------------
 
     def _flush(self):
-        """Fetch the device accumulator (one fetch for the whole epoch)
-        and merge it into the insertion-ordered Aggregator."""
-        if self._acc is None:
-            return
+        """Fetch the device accumulator and merge it into the
+        insertion-ordered Aggregator.  Prefetched epochs drain first, so
+        emission order is the host engine's."""
+        self._drain_pending()
+        epoch = self._take_epoch()
+        if epoch is not None:
+            self._emit_epoch(epoch)
+
+    def _take_epoch(self):
+        """Detach the epoch's accumulator and issue its one fetch (the
+        copies start together, into page-locked memory on the card):
+        a sparse set or a dense accumulator of COMPACT_MIN_SEGMENTS or
+        more is compacted on the device first, at a speculative width.
+        Returns what _emit_epoch takes, or None when nothing
+        accumulated.  The accumulator stays referenced: a width that
+        turns out too small refetches from it."""
         acc = self._acc
+        if acc is None:
+            return None
         meta = self._acc_meta
         nbatches = self._acc_batch
+        sparse_ub = self._sparse_ub
         self._acc = None
         self._acc_meta = None
         self._acc_batch = 0
+        self._sparse_ub = 0
+        self._pipe.clear()      # the fetch waits for the epoch's folds
+        acc_len = int(acc[0].shape[0])
+        if meta['sparse_cap']:
+            kind = 'sparse'
+            k = _pow2(max(min(sparse_ub, meta['sparse_cap']), 1)) \
+                if sparse_ub else self.COMPACT_K
+            cols, w32, wof, cvec, stats = _sparse_program(
+                acc, min(acc_len, k), meta['caps'])
+            out = list(cols) + [w32, wof, cvec, stats]
+        elif not meta['cols']:
+            kind, out = 'total', [acc[0], acc[2]]
+        elif meta['ns'] >= self.COMPACT_MIN_SEGMENTS:
+            kind = 'compact'
+            out = list(_compact_program(acc, min(acc_len,
+                                                 self.COMPACT_K)))
+        else:
+            kind, out = 'dense', list(acc)
+        return kind, meta, nbatches, acc, _issue_async(out)
+
+    def _emit_epoch(self, epoch):
+        """Wait on an epoch's fetch and emit it: refetch wider from the
+        kept accumulator where more segments occurred than the
+        speculative width (or a sparse weight sum passed i32), then
+        decode and emit counters and keys."""
+        kind, meta, nbatches, acc, fetched = epoch
         # engine telemetry: batches folded on the device this epoch
         # (kept out of the --counters dump for golden byte parity)
         if nbatches:
             self.aggr.stage.bump_hidden('ndevicebatches', nbatches)
-        sparse_ub = self._sparse_ub
-        self._sparse_ub = 0
-
-        if meta['sparse_cap']:
-            self._flush_sparse(acc, meta, sparse_ub)
+        got = _wait_fetched(*fetched)
+        if kind == 'total':
+            dense, cvec = got
+            self._emit_counters(cvec)
+            self.aggr.write_key((), self._weight(int(dense[0])))
             return
-
-        if not meta['cols']:
-            self._emit_counters(acc[2].cpu().numpy())
-            self.aggr.write_key((), self._weight(int(acc[0][0])))
-            return
-
-        if meta['ns'] >= self.COMPACT_MIN_SEGMENTS:
-            segs, wsum, cvec = _compact_fetch(acc, self.COMPACT_K)
+        if kind == 'dense':
+            segs, wsum, cvec = _dense_order(*got)
+        elif kind == 'compact':
             self.aggr.stage.bump_hidden('ncompactflush', 1)
+            cnt, segs, dense, cvec = got
+            n = int(cnt)
+            if n > len(segs):
+                segs, wsum, cvec = _compact_fetch(acc, n)
+            else:
+                segs = segs[:n].astype(np.int64)
+                wsum = dense[:n].astype(np.float64)
         else:
-            segs, wsum, cvec = _dense_full_result(acc)
+            self.aggr.stage.bump_hidden('ncompactflush', 1)
+            cols = got[:-4]
+            w32, wof, cvec, st = got[-4:]
+            n = int(st[0])
+            if n > len(cols[0]) or bool(wof):
+                cols, wsum, cvec, st = _sparse_fetch(acc, n, meta['caps'])
+            else:
+                cols = [c[:n].astype(np.int64) for c in cols]
+                wsum = w32[:n].astype(np.float64)
+            if int(st[1]):
+                # the host pressure guard exists to make this
+                # unreachable; if it ever trips, results are
+                # incomplete: fail loudly
+                raise RuntimeError(
+                    'device sparse aggregation overflowed its resident '
+                    'set (cap=%d); results would be incomplete'
+                    % meta['sparse_cap'])
+            self._emit_counters(cvec)
+            self._emit_cols(meta, cols, wsum)
+            return
         self._emit_counters(cvec)
         # global codes for the shared emit path: device string codes
         # are already engine-dictionary codes; bucket codes offset
         # by the window origin give raw ordinals
         self._decode_emit(meta, segs, wsum)
 
-    def _flush_sparse(self, acc, meta, sparse_ub):
-        """Flush the sparse (high-cardinality) accumulator: the set is
-        already compact, so fetch its occupied slots ordered by first
-        occurrence (decoded + narrowed on device), sized by the
-        epoch's unique-count upper bound."""
-        k0 = _pow2(max(min(sparse_ub, meta['sparse_cap']), 1)) \
-            if sparse_ub else self.COMPACT_K
-        cols, wsum, cvec, stats = _sparse_fetch(acc, k0, meta['caps'])
-        self.aggr.stage.bump_hidden('ncompactflush', 1)
-        if int(stats[1]):
-            # the host pressure guard exists to make this unreachable;
-            # if it ever trips, results are incomplete — fail loudly
-            raise RuntimeError(
-                'device sparse aggregation overflowed its resident set'
-                ' (cap=%d); results would be incomplete'
-                % meta['sparse_cap'])
-        self._emit_counters(cvec)
-        self._emit_cols(meta, cols, wsum)
-
 
 def fold_sparse(acc, cvec, fused, wb, first_b, occupied=None):
     """Sparse fold: sort-merge one batch's fused i64 keys (dead rows at
     I64MAX), i64 weights and first-occurrence keys into the resident
-    compacted set `acc` = (keys, wsum, first, cvec, stats), returning
-    the new accumulator.  keys/first take the per-key min
+    compacted set `acc` = (keys, wsum, first, cvec, stats), in place,
+    and returns it.  keys/first take the per-key min
     (first-occurrence order preserved exactly), weights sum, and the
     unique count rides along in stats[0] so the host pressure guard
     can read it without a full fetch; stats[1] is the sticky overflow
@@ -1596,12 +1959,16 @@ def fold_sparse(acc, cvec, fused, wb, first_b, occupied=None):
     wsum1.index_add_(0, seg, ws)
     first1 = torch.full((m + 1,), I64MAX, dtype=i64, device=dev)
     first1.scatter_reduce_(0, seg, fs, 'amin', include_self=True)
+    # the accumulator is updated in place (the reference donates it to
+    # its jitted fold); the merge's temporaries come from the caching
+    # allocator, since their sizes change with every batch
     keys0[:m] = keys1[:m]
     wsum0[:m] = wsum1[:m]
     first0[:m] = first1[:m]
-    over = torch.maximum(stats0[1], (nuniq > cap).to(i64))
-    return (keys0, wsum0, first0, cvec0 + cvec.to(i64),
-            torch.stack([nuniq, over]))
+    cvec0 += cvec.to(i64)
+    stats0[1] = torch.maximum(stats0[1], (nuniq > cap).to(i64))
+    stats0[0] = nuniq
+    return acc
 
 
 def _compact_program(acc, k):
@@ -1619,27 +1986,17 @@ def _compact_program(acc, k):
     return cnt, segs, dense[order], cvec
 
 
-def _compact_fetch(acc, k0):
-    """Compacted flush fetch: (segs i64[cnt] in first-occurrence order,
-    weights f64[cnt], cvec), moving O(occurred) bytes instead of O(ns).
-    One extra round trip only when more than k0 segments occurred."""
-    acc_len = int(acc[0].shape[0])
-    k = min(acc_len, k0)
-    while True:
-        cnt, segs, dense, cvec = _compact_program(acc, k)
-        n = int(cnt)
-        if n <= k:
-            return (segs[:n].cpu().numpy(),
-                    dense[:n].cpu().numpy().astype(np.float64),
-                    cvec.cpu().numpy())
-        k = min(acc_len, _pow2(n))
+def _compact_fetch(acc, n):
+    """Refetch of a compacted dense epoch whose `n` occurred segments
+    passed the speculative width: (segs i64[n] in first-occurrence
+    order, weights f64[n], cvec)."""
+    _, segs, dense, cvec = _fetch(_compact_program(acc, n))
+    return segs.copy(), dense.astype(np.float64), cvec
 
 
-def _dense_full_result(acc):
-    """Full fetch of a dense accumulator in first-occurrence order."""
-    dense = acc[0].cpu().numpy()
-    first = acc[1].cpu().numpy()
-    cvec = acc[2].cpu().numpy()
+def _dense_order(dense, first, cvec):
+    """A fetched dense accumulator's occurred segments in
+    first-occurrence order: (segs, weights f64, cvec)."""
     occurred = np.nonzero(first < I64MAX)[0]
     order = np.argsort(first[occurred], kind='stable')
     segs = occurred[order]
@@ -1684,33 +2041,23 @@ def _sparse_program_full(acc, k):
     return keys[order], wsum[order], cvec, stats
 
 
-def _sparse_fetch(acc, k0, caps):
-    """Fetch the sparse accumulator's occupied slots in exact
-    first-occurrence order: (per-column code arrays i64, weights f64,
-    cvec, stats).  One round trip when the unique count fits the
-    speculative width."""
-    cap = int(acc[0].shape[0])
-    k = min(cap, k0)
-    while True:
-        cols, w32, wof, cvec, stats = _sparse_program(acc, k, tuple(caps))
-        st = stats.cpu().numpy()
-        n = int(st[0])
-        if n > k:
-            if k < cap:
-                k = min(cap, _pow2(n))
-                continue
-            # n > capacity: genuine overflow — fetch what exists and
-            # let the caller's stats[1] check raise loudly
-            n = k
-        if bool(wof):
-            keys, wsum, cvec, stats = _sparse_program_full(acc, k)
-            kn = keys[:n].cpu().numpy()
-            return (_decode_fused(kn, caps),
-                    wsum[:n].cpu().numpy().astype(np.float64),
-                    cvec.cpu().numpy(), st)
-        return ([c[:n].cpu().numpy().astype(np.int64) for c in cols],
-                w32[:n].cpu().numpy().astype(np.float64),
-                cvec.cpu().numpy(), st)
+def _sparse_fetch(acc, n, caps):
+    """Refetch of a sparse epoch whose `n` uniques passed the speculative
+    width, or whose weight sums passed i32: its occupied slots in exact
+    first-occurrence order, (per-column code arrays i64, weights f64,
+    cvec, stats).  More uniques than the set holds is an overflow: what
+    exists is fetched, and the caller's stats[1] check raises."""
+    n = max(1, min(n, int(acc[0].shape[0])))
+    cols, w32, wof, cvec, stats = _sparse_program(acc, n, tuple(caps))
+    got = _fetch(list(cols) + [w32, wof, cvec, stats])
+    cols, (w32, wof, cvec, st) = got[:-4], got[-4:]
+    n = min(n, int(st[0]))
+    if bool(wof):
+        keys, wsum, cvec, _ = _fetch(_sparse_program_full(acc, n))
+        return (_decode_fused(keys, caps), wsum.astype(np.float64),
+                cvec, st)
+    return ([c[:n].astype(np.int64) for c in cols],
+            w32[:n].astype(np.float64), cvec, st)
 
 
 def _decode_fused(keys, caps):
@@ -1741,6 +2088,7 @@ class DeviceScanStack(object):
 
     def __init__(self, scans):
         self.scans = list(scans)
+        self._nbatch = 0
         # shared sticky upload-profile state: widening decisions apply
         # to the shared physical inputs, so all scans must agree
         shared = {'w1': True, 'gen_alive': True, 'filter': {},
@@ -1787,6 +2135,9 @@ class DeviceScanStack(object):
         return True
 
     def _process_device(self, provider, weights, alive):
+        """One staged upload for the N metrics (through the first
+        scan's staging ring), N folds, one completion token for the
+        whole stacked batch."""
         inputs = {}
         staged = []
         for s in self.scans:
@@ -1794,12 +2145,19 @@ class DeviceScanStack(object):
             if st is None:
                 return False
             staged.append(st)
-        args = self.scans[0]._upload_inputs(inputs)
+        lead = self.scans[0]
+        args, nbytes, slot = lead._upload_inputs(inputs)
         for s, st in zip(self.scans, staged):
             s._fold_staged(st, args)
             # telemetry: this batch went through the stacked fold
             # (kept out of --counters for golden byte parity)
             s.aggr.stage.bump_hidden('nstackedbatches', 1)
+        _note_h2d(nbytes)
+        lead._note_dispatch(lead._ring.release(slot, lead._compute),
+                            nbytes)
+        self._nbatch += 1
+        if self._nbatch % SYNC_EVERY_BATCHES == 0:
+            lead._sync_device()
         return True
 
 
@@ -1840,12 +2198,19 @@ class _ShadowProbe(object):
         self.items = []
         self.rate = None
         self.replay_s = None      # the audition's own wall time
+        # the replay thread's CPU seconds over the same span: far below
+        # replay_s when the thread waited (for the interpreter lock or
+        # a core) behind the stream's host workers
+        self.replay_cpu_s = None
         self.failed = False
         # an exception of the replay's device work: a fault, raised on
         # the stream thread (_raise_audition_fault)
         self.error = None
         self.done = False
         self.closed = False
+        # monotonic times: created, batches all in, replay started,
+        # replay done (the route reports them against the scan's start)
+        self.times = [time.monotonic(), None, None, None]
         self._event = threading.Event()
         self._thread = threading.Thread(target=self._run, daemon=True)
         self._thread.start()
@@ -1855,6 +2220,7 @@ class _ShadowProbe(object):
             return
         self.items.append((snap, n))
         if len(self.items) >= self.COLLECT:
+            self.times[1] = time.monotonic()
             self._event.set()
 
     def close(self):
@@ -1877,54 +2243,71 @@ class _ShadowProbe(object):
             # batches arrive one per flush; collect-then-run so queue
             # gaps never pollute the rate measurement
             self._event.wait(timeout=600.0)
-            items = self.items
-            if self.closed or len(items) < 2:
+            if self.closed or len(self.items) < 2:
                 self.items = []
                 self.failed = True
                 return
-            t_start = time.monotonic()
+            t_start = (time.monotonic(), time.thread_time())
+            self.times[2] = t_start[0]
             scans = self.make_scans()
             for s in scans:
                 s._backend_ok = True
             # multi-metric auditions replay through the stack, the
             # thing production runs after a build takeover
             stack = make_stack(scans)
-
-            def run_one(snap, n):
-                provider = self.make_provider(snap)
-                weights = self.make_weights(snap, n)
-                alive = self.make_alive(n)
-                if stack is not None:
-                    return stack._process_device(provider, weights,
-                                                 alive)
-                for s in scans:
-                    if not s._try_device(provider, weights, alive):
-                        return False
-                return True
-
-            if not run_one(*items[0]):       # warmup
-                self.failed = True
-                return
-            for s in scans:
-                s._sync_device()
-            t0 = time.monotonic()
-            seen = 0
-            for snap, n in items[1:]:
-                if self.closed or not run_one(snap, n):
-                    self.failed = True
-                    return
-                seen += n
-            for s in scans:
-                s._sync_device()
-            elapsed = time.monotonic() - t0
-            self.rate = seen / elapsed if elapsed > 0 else float('inf')
-            self.replay_s = time.monotonic() - t_start
+            dev = scans[0].device if scans else None
+            if dev is not None and dev.type == 'cuda':
+                # the replay's own compute stream, current on this thread
+                # (the scratch scans and K1 launch on it); its barriers
+                # are its own events, so it never waits on the live
+                # stream's work nor the live stream on it
+                with torch.cuda.stream(torch.cuda.Stream(dev)):
+                    self._replay(scans, stack, t_start)
+            else:
+                self._replay(scans, stack, t_start)
         except Exception as e:
             self.error = e
             self.failed = True
         finally:
             self.items = []     # release the pinned snapshots
+            self.times[3] = time.monotonic()
             self.done = True
+
+    def _replay(self, scans, stack, t_start):
+        """The warmup batch, then the rest back-to-back between two of
+        the scratch scans' own barriers: sets rate and replay_s, or
+        failed."""
+        items = self.items
+
+        def run_one(snap, n):
+            provider = self.make_provider(snap)
+            weights = self.make_weights(snap, n)
+            alive = self.make_alive(n)
+            if stack is not None:
+                return stack._process_device(provider, weights, alive)
+            for s in scans:
+                if not s._try_device(provider, weights, alive):
+                    return False
+            return True
+
+        if not run_one(*items[0]):       # warmup
+            self.failed = True
+            return
+        for s in scans:
+            s._sync_device()
+        t0 = time.monotonic()
+        seen = 0
+        for snap, n in items[1:]:
+            if self.closed or not run_one(snap, n):
+                self.failed = True
+                return
+            seen += n
+        for s in scans:
+            s._sync_device()
+        elapsed = time.monotonic() - t0
+        self.rate = seen / elapsed if elapsed > 0 else float('inf')
+        self.replay_s = time.monotonic() - t_start[0]
+        self.replay_cpu_s = time.thread_time() - t_start[1]
 
 
 def _raise_audition_fault(sp):
@@ -2120,38 +2503,59 @@ class AutoDeviceScan(DeviceScan):
             else:
                 if not sp.done:
                     return False
-                _raise_audition_fault(sp)
-                if sp.failed or sp.rate is None:
-                    LOG.info('device audition failed; staying on host')
-                    self.route['audition'] = {'failed': True}
-                    self._disabled = True
-                    return False
-                hr = self._current_host_rate()
-                won = hr is None or sp.rate >= hr * self.SHADOW_MARGIN
-                self.route['audition'] = {
-                    'won': won, 'device_rate': _rate_field(sp.rate),
-                    'host_rate': _rate_field(hr),
-                    'margin': self.SHADOW_MARGIN,
-                    'replay_s': sp.replay_s}
-                audition_cache_put(self._audition_key(), won,
-                                   device_rate=sp.rate, host_rate=hr)
+                won, hr = self._conclude_audition(sp)
                 if not won:
-                    LOG.info('device lost audition; staying on host',
-                             device_rate=_rate_field(sp.rate),
-                             host_rate=_rate_field(hr),
-                             margin=self.SHADOW_MARGIN)
                     self._disabled = True
                     return False
                 if hr is not None:
                     self._host_rate = hr   # probation baseline
-                LOG.info('device won audition; taking over stream',
-                         device_rate=_rate_field(sp.rate),
-                         host_rate=_rate_field(hr))
         self._escalated = True
         self._note_escalated()
         LOG.info('escalated to device path',
                  records_seen=self._records_seen)
         return True
+
+    def _conclude_audition(self, sp, at_finish=False):
+        """The verdict of a finished audition, recorded in the route and
+        persisted in the audition cache: (won, the host rate it was held
+        to, None when unknown).  A replay that faulted raises
+        (_raise_audition_fault)."""
+        _raise_audition_fault(sp)
+        if sp.failed or sp.rate is None:
+            LOG.info('device audition failed; staying on host')
+            self.route['audition'] = {'failed': True}
+            return False, None
+        hr = self._current_host_rate()
+        won = hr is None or sp.rate >= hr * self.SHADOW_MARGIN
+        self.route['audition'] = {
+            'won': won, 'device_rate': _rate_field(sp.rate),
+            'host_rate': _rate_field(hr), 'margin': self.SHADOW_MARGIN,
+            'replay_s': sp.replay_s, 'replay_cpu_s': sp.replay_cpu_s,
+            'at_finish': at_finish,
+            # seconds from the scan's start: the audition created, its
+            # batches all in, its replay started and done, the verdict
+            'timeline_s': [None if t is None else round(t - self._t0, 4)
+                           for t in sp.times + [time.monotonic()]]}
+        audition_cache_put(self._audition_key(), won, device_rate=sp.rate,
+                           host_rate=hr)
+        LOG.info('device %s audition' % ('won' if won else 'lost'),
+                 device_rate=_rate_field(sp.rate),
+                 host_rate=_rate_field(hr), margin=self.SHADOW_MARGIN,
+                 at_finish=at_finish)
+        return won, hr
+
+    def finish(self):
+        """As DeviceScan.finish; an audition whose replay completed after
+        the stream's last decision point still concludes here: its
+        verdict is recorded and persisted, so the next run of this shape
+        starts from it instead of racing the same replay again."""
+        sp = self._shadow
+        if sp is not None and self.route['audition'] is None:
+            sp.close()
+            sp.join(probe_deadline_s())
+            if sp.done and (sp.rate is not None or sp.error is not None):
+                self._conclude_audition(sp, at_finish=True)
+        return DeviceScan.finish(self)
 
     def _current_host_rate(self):
         if self._t0 is None or not self._host_records:

@@ -12,6 +12,18 @@ its stage timings here (``timed_stage``):
 
 Metric identity is ``name`` + optional label pairs
 (``observe('stage_ms', 12.5, stage='index_build.commit')``).
+
+The device scan's pipelined dispatch (device_scan._note_dispatch, the
+staging ring) writes, and ``pipeline_doc`` reads back:
+
+* ``device_h2d_bytes``            — per-record input bytes uploaded.
+* ``device_h2d_pinned_bytes``     — of them, copied from a host buffer
+  that was page-locked at the copy (the staging ring's slots).
+* ``device_pipe_dispatches``      — device batches dispatched.
+* ``device_pipe_overlapped``      — dispatches issued while the previous
+  batch still ran on the device, and ``device_h2d_overlapped_bytes``,
+  their upload bytes.
+* ``device_pipeline_depth`` — gauge: the in-flight window.
 """
 
 import contextlib
@@ -289,3 +301,20 @@ def timed_stage(name, metric='stage_ms', labels=None, **span_attrs):
             yield sp
     finally:
         observe(metric, (time.perf_counter() - t0) * 1000.0, **labels)
+
+
+def pipeline_doc(registry=None):
+    """The pipelined-dispatch counters and gauges (the reference serves
+    the same numbers in `/stats`)."""
+    reg = registry if registry is not None else _GLOBAL
+    h2d = reg.counter('device_h2d_bytes').value
+    ov = reg.counter('device_h2d_overlapped_bytes').value
+    return {
+        'depth': int(reg.gauge('device_pipeline_depth').value),
+        'dispatches': reg.counter('device_pipe_dispatches').value,
+        'overlapped': reg.counter('device_pipe_overlapped').value,
+        'h2d_bytes': h2d,
+        'h2d_pinned_bytes': reg.counter('device_h2d_pinned_bytes').value,
+        'h2d_overlapped_bytes': ov,
+        'overlap_ratio': round(ov / h2d, 4) if h2d else 0.0,
+    }

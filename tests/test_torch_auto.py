@@ -681,11 +681,46 @@ def test_shape_hint_reads_persisted_wins(cachedir):
     assert tds.audition_cache_shape_hint('never') is None
 
 
+class _Seeder(_Eager):
+    # no probation window: the audition's win is the only verdict it
+    # persists.  With one, a probation lost under load persists the
+    # crossover's loss under the same key (the next test), and every
+    # later attempt then reads that loss and stays on the host.
+    PROBATION_RECORDS = 0
+
+
+def test_probation_loss_replaces_the_audition_win(datafile, expected, small,
+                                                  monkeypatch, cachedir):
+    """A won audition persists True; a probation lost after the takeover
+    persists its crossover verdict, False, under the same key."""
+
+    class Losing(_Eager):
+        PROBATION_RECORDS = 1
+        PROBATION_SECONDS = 0.0
+
+        def take_over_now(self):
+            rv = _Eager.take_over_now(self)
+            if rv:
+                self._host_records = 10 ** 12
+            return rv
+
+    for attempt in range(4):
+        result, instances = _scan(datafile, Losing, monkeypatch)
+        assert result.points == expected[0]
+        s = instances[0]
+        if s._escalated:
+            break
+    assert s._escalated and s.route['audition']['won']
+    assert s.route['probation']['won'] is False
+    with open(_cache_path(cachedir)) as f:
+        assert json.load(f)[s._audition_key()]['won'] is False
+
+
 def _seed_verdict_from_win(datafile, expected, monkeypatch, cachedir):
     """Scan with a winnable audition until its verdict lands on disk:
     the 'previous process' half of the persistence contract."""
     for attempt in range(4):
-        result, instances = _scan(datafile, _Eager, monkeypatch)
+        result, instances = _scan(datafile, _Seeder, monkeypatch)
         assert result.points == expected[0]
         if os.path.exists(_cache_path(cachedir)):
             with open(_cache_path(cachedir)) as f:
@@ -795,6 +830,29 @@ def test_cached_win_skips_audition(cachedir):
                            host_rate=1e6)
     assert s._engage_device() is True
     assert s._shadow is None and s._escalated
+
+
+@pytest.mark.parametrize('margin', [0.0, 1e9])
+def test_audition_done_after_the_last_decision_concludes_at_finish(
+        cachedir, margin):
+    """A replay that completes after the stream's last decision point
+    still concludes at finish: the verdict (won at margin 0, lost at an
+    unbeatable margin) is in the route, marked at_finish, with the
+    replay's wall and CPU seconds, and persisted for the next run."""
+    s = _auto_scan()
+    s.SHADOW_MARGIN = margin
+    assert s._engage_device() is False      # the audition starts
+    sp = s._shadow
+    for _ in range(sp.COLLECT):
+        sp.feed(object(), 1000)
+    sp.join(10.0)
+    assert sp.done and sp.rate is not None
+    s.finish()                              # no decision point came
+    aud = s.route['audition']
+    assert aud['at_finish'] is True and aud['won'] is (margin == 0.0)
+    assert aud['replay_s'] > 0 and aud['replay_cpu_s'] >= 0
+    assert not s._escalated
+    assert tds.audition_cache_get(s._audition_key()) is (margin == 0.0)
 
 
 def test_cached_loss_decision(cachedir):
