@@ -6,9 +6,11 @@
 Phases, each ending in torch.cuda.synchronize() so a fault shows where
 it happened; any failed check exits non-zero:
 
-1. build   the one-hot aggregation kernel (ops/csrc/onehot_agg.cu) from
-           the sources in this checkout, with nvcc; prints ptxas's
-           registers, shared memory and spills (-Xptxas -v).
+1. build   the kernels (ops/csrc/onehot_agg.cu, the one-hot aggregation;
+           ops/csrc/quote_parity.cu, the byte lane's quote parity) from
+           the sources in this checkout, one nvcc per source started
+           together; prints ptxas's registers, shared memory and spills
+           (-Xptxas -v).
 2. kernel  the kernel against its plain torch version, exactly, at the
            four shapes of tests/test_pallas.py (through onehot_dense),
            at one batch (65,536 records) with each kernel query's caps,
@@ -111,14 +113,36 @@ it happened; any failed check exits non-zero:
            follows the persisted verdict.  Prints every route
            (escalation record, audition and probation rates, device
            batches, cached verdicts) and an `auto` JSON line.
-9. main    the kernel again, on the fused keys the main path gave it:
+9. parse   the byte lane (DN_PARSE) and its quote-parity kernel (K8):
+           the kernel against its plain torch version and parity_numpy,
+           exactly, at 13 lengths (0 to 2^20 + 1 bytes) x 5 quote
+           densities on bytes that are not JSON, and on the whole data
+           file in one call; its device ms, the plain version's, the
+           per-block round trip (page-locked copy, H2D, kernel, D2H,
+           event wait) against parity_numpy's host ms, and its bound,
+           (n + n/8) bytes at 3.35 TB/s.  Then the K1 query on the
+           forced lane at DN_PARSE=device over the N records: output and
+           --counters equal to phase 4's, the parity kernel launching
+           once per parse block, K1 once per device batch; the
+           three-metric hour build at DN_PARSE=device, tree and
+           --counters equal to phase 6's (its dotted paths keep the
+           native lane, counted as ineligible); an hour build of two
+           flat metrics at DN_PARSE=device, tree and --counters equal
+           to the native lane's, one parity launch per parse block.
+           Then 200,000 records through every lane (native, vector,
+           device) on the host engine, the device lane on the forced
+           lane, and the per-record engine (DN_ENGINE=host, and
+           --warnings), each output equal to the native lane's;
+           records/s, MB/s and the parity's share of the parser's
+           parse_seconds; a `parse` JSON line.
+10. main   the kernel again, on the fused keys the main path gave it:
    keys    the largest batch of each kernel query at each segment count
            (the time window, and with it the accumulator, grows during
            the timestamp query), captured in phase 4.
-10. result the card's name and power limit (nvidia-smi), a `kernels`
-           JSON line (launches on the main path, the build, the query
-           phase and the eager auto runs, times, bound), and as the
-           last line {"ok": true, "device": {...}}.
+11. result the card's name and power limit (nvidia-smi), a `kernels`
+           JSON line (per kernel: launches on the main path, the build,
+           the query phase and the eager auto runs, times, bound), and
+           as the last line {"ok": true, "device": {...}}.
 
 Without CUDA, or without the rest of the repository beside it, the
 script exits non-zero and prints no result.
@@ -241,6 +265,24 @@ AUTO_EAGER = {'ESCALATE_RECORDS': 1024, 'REQUIRE_ACCELERATOR': False,
               'MIN_REMAINING_SECONDS': 0.0, 'UNKNOWN_SIZE_RECORDS': 0,
               'SHADOW_MARGIN': 0.0}
 AUTO_QUERY_CASES = ('a', 'd')
+# phase 9: the byte lane.  Buffer lengths of the kernel check (and of
+# tests/test_torch_byteparse.py), the quote densities at each, the
+# per-record runs' size, and the parse block the round trip is timed at
+# (the largest block byteparse.ByteParser.parse passes whole)
+PARITY_LENGTHS = [0, 1, 7, 8, 9, 31, 32, 33, 1 << 19, (1 << 19) + (1 << 17),
+                  (1 << 20) - 1, 1 << 20, (1 << 20) + 1]
+PARITY_DENSITIES = [0.0, 0.001, 0.05, 0.5, 1.0]
+PARSE_SMALL_RECORDS = 200000
+PARSE_BLOCK = (1 << 19) + (1 << 17)
+PARITY_SOURCE = 'dragnet_tpu_torch/ops/csrc/quote_parity.cu'
+# a build the byte lane can project (flat paths only; BUILD_METRICS read
+# req.method, res.statusCode and req.url)
+FLAT_METRICS = [
+    ('byhour', 'timestamp[field=time,date,aggr=lquantize,step=3600],host'),
+    ('bylatency', 'timestamp[field=time,date,aggr=lquantize,step=60],host,'
+     'operation,latency[aggr=quantize]'),
+]
+PARITY_REPLACES = 'dragnet_tpu/ops/byteparse_kernels.py:94'
 # K7's least traffic: each row's local code and weight (16 B), each
 # translation entry (8 B), each accumulator segment read and written
 # (16 B)
@@ -1949,6 +1991,369 @@ def auto_phase(cli, mod_ds, ck, tmp, records, forced, query_outputs):
             'auto_launches': auto_launches}
 
 
+def parity_bytes(n, density, seed):
+    """n random bytes over all 256 values (not JSON), quotes at the given
+    density and nowhere else."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    arr = rng.integers(0, 256, n, dtype=np.uint8)
+    quote = rng.random(n) < density
+    arr[(arr == 34) & ~quote] = ord('#')
+    arr[quote] = 34
+    return arr
+
+
+def parity_bound_ms(n):
+    """Least time for the packed parity: n bytes read once and
+    ceil(n / 8) written once, over the memory rate (its operations, a
+    compare and an XOR step a byte, are far below the int32 rate)."""
+    return (n + (n + 7) // 8) / HBM_BYTES_PER_S * 1e3
+
+
+def check_parity(bk, arr, label):
+    """The kernel against its plain version on the card and against
+    parity_numpy, on [:n], exactly."""
+    import numpy as np
+    import torch
+    n = arr.size
+    dev = torch.from_numpy(arr.copy()).to(DEVICE)
+    got = bk.quote_parity(dev)
+    want = bk.quote_parity_ref(dev)
+    torch.cuda.synchronize()
+    gbits = np.unpackbits(got.cpu().numpy())[:n]
+    pbits = np.unpackbits(want.cpu().numpy())[:n]
+    nbits = np.asarray(bk.parity_numpy(arr))
+    err = int(np.abs(gbits.astype(np.int16) - pbits).max()) if n else 0
+    check(np.array_equal(gbits, pbits) and np.array_equal(gbits, nbits),
+          'quote-parity kernel differs at %s (n %d): %d bits from the '
+          'plain version, %d from parity_numpy'
+          % (label, n, int((gbits != pbits).sum()),
+             int((gbits != nbits).sum())))
+    return err
+
+
+def time_parity(bk, arr, reps):
+    """Device ms per call (CUDA graph of `reps` calls) and eager ms of
+    the kernel and of the plain version, on one buffer already on the
+    card, the outputs and scratch preallocated."""
+    import torch
+    dev = torch.from_numpy(arr.copy()).to(DEVICE)
+    n = arr.size
+    out = torch.empty((n + 7) // 8, dtype=torch.uint8, device=DEVICE)
+    scratch = torch.empty(bk.scratch_len(n), dtype=torch.uint8,
+                          device=DEVICE)
+    t_kernel, e_kernel = cuda_time_ms(
+        lambda: bk.quote_parity_into(out, dev, scratch), reps)
+    t_plain, e_plain = cuda_time_ms(lambda: bk.quote_parity_ref(dev),
+                                    max(3, reps // 10))
+    return t_kernel, e_kernel, t_plain, e_plain
+
+
+def parse_spy(spy, bp):
+    """Every ByteParser built while the spy is on, with its parity
+    calls counted and timed (host clock): the parse blocks, and the
+    parity's share of the parser's parse_seconds."""
+    parsers = []
+
+    def wrap_init(orig):
+        def init(self, *a, **k):
+            orig(self, *a, **k)
+            inner = self._parity
+            rec = {'calls': 0, 's': 0.0, 'bytes': 0, 'parser': self}
+
+            def parity(arr):
+                t0 = time.perf_counter()
+                try:
+                    return inner(arr)
+                finally:
+                    rec['s'] += time.perf_counter() - t0
+                    rec['calls'] += 1
+                    rec['bytes'] += int(arr.size)
+            self._parity = parity
+            parsers.append(rec)
+        return init
+    spy.wrap(bp.ByteParser, '__init__', wrap_init)
+    return parsers
+
+
+def parse_phase(cli, mod_ds, ck, tmp, data, records, seed, forced, build,
+                reps):
+    """Phase 9: the byte lane and K8 on the card.  The kernel against
+    its plain version and parity_numpy at PARITY_LENGTHS x
+    PARITY_DENSITIES and on the whole data file in one call; its device
+    ms, the plain version's, the per-block round trip against
+    parity_numpy's host ms, and the bound.  Then the K1 query on the
+    forced lane at DN_PARSE=device over the N records (output and
+    --counters equal to phase 4's; parity launches equal to the parse
+    blocks; K1 once per device batch); the three-metric hour build at
+    DN_PARSE=device (tree and --counters equal to phase 6's: its dotted
+    paths keep the native lane, with the hidden ineligibility counter);
+    and an hour build of FLAT_METRICS at DN_PARSE=device against the
+    same on the native lane (tree and --counters identical, one parity
+    launch per parse block).  Then,
+    at PARSE_SMALL_RECORDS, every lane on the host engine (native,
+    vector, device) and the per-record engine (DN_ENGINE=host, and
+    --warnings): each output equal to the native lane's, with
+    records/s, MB/s and the parity's share of parse_seconds."""
+    import numpy as np
+    import torch
+    from dragnet_tpu_torch import byteparse as bp
+    from dragnet_tpu_torch import config as mod_config
+    from dragnet_tpu_torch import datasource_file as mod_dsf
+    from dragnet_tpu_torch import metrics_for_index
+    from dragnet_tpu_torch import native as mod_native
+    from dragnet_tpu_torch.ops import byteparse_kernels as bk
+    out = {'shapes': []}
+    # the kernel at every length and density, then the whole file
+    err = 0
+    for n in PARITY_LENGTHS:
+        for i, density in enumerate(PARITY_DENSITIES):
+            err = max(err, check_parity(
+                bk, parity_bytes(n, density, n * 10 + i),
+                'density %g' % density))
+    log('parse kernel: exact against its plain version and parity_numpy '
+        'at %d lengths (0 to %d bytes) x %d quote densities'
+        % (len(PARITY_LENGTHS), PARITY_LENGTHS[-1], len(PARITY_DENSITIES)))
+    whole = np.fromfile(data, dtype=np.uint8)
+    t0 = time.perf_counter()
+    check_parity(bk, whole, 'the whole file')
+    log('parse kernel: exact on the whole file, %d bytes in one call '
+        '(%.2f s with the checks)' % (whole.size, time.perf_counter() - t0))
+    for label, arr in (('parse block', parity_bytes(PARSE_BLOCK, 0.05, 3)),
+                       ('whole file', whole)):
+        n = arr.size
+        t_k, e_k, t_p, e_p = time_parity(
+            bk, arr, reps if n <= PARSE_BLOCK else 5)
+        bound = parity_bound_ms(n)
+        row = {'label': label, 'n': n, 'ms': t_k, 'eager_ms': e_k,
+               'plain_ms': t_p, 'eager_plain_ms': e_p, 'bound_ms': bound,
+               'bound_by': 'bytes', 'library_ms': None,
+               'max_abs_err': err}
+        if n == PARSE_BLOCK:
+            # the device lane's whole call (page-locked copy in, H2D,
+            # kernel, D2H, event wait) against parity_numpy on the host
+            call = bk.DeviceParity(DEVICE)
+            for _ in range(3):
+                call(arr)
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                call(arr)
+            row['round_trip_ms'] = (time.perf_counter() - t0) / reps * 1e3
+            t0 = time.perf_counter()
+            for _ in range(max(3, reps // 5)):
+                bk.parity_numpy(arr)
+            row['numpy_ms'] = (time.perf_counter() - t0) / \
+                max(3, reps // 5) * 1e3
+        out['shapes'].append(row)
+        log('parse kernel quote_parity %-11s %10d B  device ms: kernel '
+            '%.4f plain %.4f (eager per call %.4f %.4f)  bound %.6f ms '
+            '(bytes), %.1f %% of it%s'
+            % (label, n, t_k, t_p, e_k, e_p, bound, 100 * bound / t_k,
+               '' if 'round_trip_ms' not in row else
+               ' | round trip (pinned copy, H2D, kernel, D2H, wait) %.4f '
+               'ms vs parity_numpy %.4f ms on the host'
+               % (row['round_trip_ms'], row['numpy_ms'])))
+    del whole
+    torch.cuda.synchronize()
+
+    spy = Spy()
+    parsers = parse_spy(spy, bp)
+    batches = {'total': 0, 'device': 0}
+
+    def wrap_try(orig):
+        def try_device(self, provider, weights, alive):
+            ok = orig(self, provider, weights, alive)
+            batches['total'] += 1
+            batches['device'] += int(ok)
+            return ok
+        return try_device
+    spy.wrap(mod_ds.DeviceScan, '_try_device', wrap_try)
+
+    def lane_line(rec, what, dt, nbytes, nrec):
+        p = rec['parser']
+        share = rec['s'] / p.parse_seconds if p.parse_seconds else 0.0
+        log('parse %-40s %7.2f s %11.0f records/s %8.1f MB/s | parse %.2f '
+            's, parity %.3f s (%.1f %% of it), %d blocks, %d lines '
+            'fast, %d fallback'
+            % (what, dt, nrec / dt, nbytes / dt / 1e6, p.parse_seconds,
+               rec['s'], 100 * share, rec['calls'], p.lines_fast,
+               p.lines_fb))
+        return {'run': what, 's': dt, 'records_per_s': nrec / dt,
+                'mb_per_s': nbytes / dt / 1e6,
+                'parse_s': p.parse_seconds, 'parity_s': rec['s'],
+                'parity_share': share, 'blocks': rec['calls'],
+                'lines_fast': p.lines_fast, 'lines_fallback': p.lines_fb}
+    nbytes = os.path.getsize(data)
+    runs = []
+    try:
+        # the K1 query on the forced lane at DN_PARSE=device: launches
+        # zeroed just before, read just after
+        name, qargs, _ = QUERIES[1]
+        argv = ['scan', '--points', '--counters'] + qargs + ['muskie']
+        fout, ferr, _ = forced[name]
+        del parsers[:]
+        with env_scope(DN_PARSE='device'):
+            ck.reset_launches()
+            t0 = time.monotonic()
+            rc, sout, serr = run_cli(cli, argv)
+            torch.cuda.synchronize()
+            dt = time.monotonic() - t0
+        nl, npar = ck.launches['onehot_dense'], ck.launches['quote_parity']
+        check(rc == 0, 'parse: %s at DN_PARSE=device failed: %s'
+              % (name, serr))
+        check((sout, serr) == (fout, ferr), 'parse: %s at DN_PARSE=device '
+              'differs from phase 4' % name)
+        check(len(parsers) == 1, 'parse: %d byte-lane parsers' % len(parsers))
+        rec = parsers[0]
+        nb = batches['total']
+        check(npar == rec['calls'] > 0, 'parse: the parity kernel launched '
+              '%d times for %d parse blocks' % (npar, rec['calls']))
+        check(nb > 0 and batches['device'] == nb and nl == nb,
+              'parse: %d of %d batches on the device, K1 launched %d times'
+              % (batches['device'], nb, nl))
+        runs.append(lane_line(rec, 'K1 query, forced lane, device lane',
+                              dt, nbytes, records))
+        runs[-1].update(parity_launches=npar, k1_launches=nl, batches=nb)
+        out['launches'] = npar
+
+        # the three-metric hour build at DN_PARSE=device
+        _, config = mod_config.ConfigBackendLocal().load()
+        metrics = metrics_for_index(config, 'idx')
+        ref_tree = tree_files(os.path.join(tmp, 'idx_device'))
+        idx = os.path.join(tmp, 'idx_parse_device')
+        dsconfig = dict(config.datasource_get('idx'))
+        dsconfig['ds_backend_config'] = dict(
+            dsconfig['ds_backend_config'], indexPath=idx)
+        del parsers[:]
+        with env_scope(DN_PARSE='device'):
+            ck.reset_launches()
+            t0 = time.monotonic()
+            res = mod_dsf.DatasourceFile(dsconfig).build(
+                metrics, 'hour', engine='device', device=DEVICE)
+            torch.cuda.synchronize()
+            dt = time.monotonic() - t0
+        npar = ck.launches['quote_parity']
+        tree = tree_files(idx)
+        check(tree.keys() == ref_tree.keys() and
+              all(tree[k] == ref_tree[k] for k in tree),
+              'parse: the DN_PARSE=device build\'s tree differs from phase '
+              '6\'s')
+        berr = io.StringIO()
+        berr.write('indexes for "idx" built\n')
+        res.pipeline.dump_counters(berr)
+        check(berr.getvalue() == build['counters'], 'parse: the '
+              'DN_PARSE=device build\'s --counters differ from phase 6\'s')
+        # its metrics read dotted paths (req.method, res.statusCode,
+        # req.url), which the byte lane cannot project: the native lane
+        # answers, with the hidden ineligibility counter, as in bin/dn
+        inel = sum(st.counters.get('parse lane ineligible', 0)
+                   for st in res.pipeline.stages)
+        check(not parsers and npar == 0 and inel == 1,
+              'parse: the dotted three-metric build at DN_PARSE=device: %d '
+              'byte-lane parsers, %d parity launches, ineligible counter %d'
+              % (len(parsers), npar, inel))
+        log('parse build hour x3 at DN_PARSE=device %7.2f s: dotted '
+            'projection, the native lane answered (parse lane ineligible '
+            '1) | tree and --counters identical to phase 6' % dt)
+        runs.append({'run': 'build hour x3 (dotted), DN_PARSE=device',
+                     's': dt, 'records_per_s': records / dt,
+                     'lane': 'native (ineligible)'})
+
+        # a build the byte lane can take: FLAT_METRICS, at
+        # DN_PARSE=device and on the native lane, both on the card
+        flat_idx = os.path.join(tmp, 'idx_flat')
+        rc, _, err = run_cli(cli, [
+            'datasource-add', 'flat', '--path=' + data, '--time-field=time',
+            '--index-path=' + flat_idx])
+        check(rc == 0, 'datasource-add failed: %s' % err)
+        for metric, breakdowns in FLAT_METRICS:
+            rc, _, err = run_cli(cli, ['metric-add', '-b', breakdowns,
+                                       'flat', metric])
+            check(rc == 0, 'metric-add %s failed: %s' % (metric, err))
+        argv = ['build', '--interval=hour', '--counters', 'flat']
+        flat = {}
+        for lane in ('host', 'device'):
+            del parsers[:]
+            with env_scope(DN_PARSE=lane):
+                ck.reset_launches()
+                t0 = time.monotonic()
+                rc, bout, berr = run_cli(cli, argv)
+                torch.cuda.synchronize()
+                dt = time.monotonic() - t0
+            check(rc == 0, 'parse: flat build at DN_PARSE=%s failed: %s'
+                  % (lane, berr))
+            flat[lane] = (berr, tree_files(flat_idx),
+                          ck.launches['quote_parity'], dt)
+            os.rename(flat_idx, flat_idx + '.' + lane)
+        check(flat['host'][0] == flat['device'][0] and
+              flat['host'][1] == flat['device'][1] and
+              len(flat['host'][1]) > 2, 'parse: the flat build\'s tree or '
+              '--counters at DN_PARSE=device differ from the native lane\'s')
+        npar = flat['device'][2]
+        rec = parsers[0]
+        check(npar == rec['calls'] > 0 and flat['host'][2] == 0,
+              'parse flat build: the parity kernel launched %d times for %d '
+              'parse blocks' % (npar, rec['calls']))
+        log('parse build hour, flat metrics, native lane %7.2f s | tree '
+            'identical to the device lane\'s' % flat['host'][3])
+        runs.append(lane_line(rec, 'build hour x2 (flat), device lane',
+                              flat['device'][3], nbytes, records))
+        runs[-1].update(parity_launches=npar,
+                        native_s=flat['host'][3],
+                        k1_launches=ck.launches['onehot_dense'])
+        out['build_launches'] = npar
+
+        # every lane at PARSE_SMALL_RECORDS, on the host engine and the
+        # per-record engine, each output equal to the native lane's
+        small = os.path.join(tmp, 'small.log')
+        mod_native.gen_to_file(PARSE_SMALL_RECORDS, small, seed=seed + 2)
+        sbytes = os.path.getsize(small)
+        rc, _, err = run_cli(cli, [
+            'datasource-add', 'small', '--path=' + small,
+            '--time-field=time', '--filter={"ne":["host","zzz"]}'])
+        check(rc == 0, 'datasource-add failed: %s' % err)
+        ref = None
+        for what, env, extra in (
+                ('native lane, host engine', {'DN_PARSE': 'host'}, []),
+                ('vector lane, host engine', {'DN_PARSE': 'vector'}, []),
+                ('device lane, host engine', {'DN_PARSE': 'device'}, []),
+                ('device lane, forced lane', {'DN_PARSE': 'device',
+                                              'DN_ENGINE': 'jax'}, []),
+                ('per-record engine (DN_ENGINE=host)',
+                 {'DN_ENGINE': 'host'}, []),
+                ('per-record engine, --warnings', {}, ['--warnings'])):
+            env = dict({'DN_ENGINE': 'vector'}, **env)
+            argv = ['scan', '--points', '--counters'] + extra + qargs + \
+                ['small']
+            del parsers[:]
+            with env_scope(**env):
+                t0 = time.monotonic()
+                rc, sout, serr = run_cli(cli, argv)
+                torch.cuda.synchronize()
+                dt = time.monotonic() - t0
+            check(rc == 0, 'parse %s failed: %s' % (what, serr))
+            if ref is None:
+                ref = (sout, serr)
+            check((sout, serr) == ref, 'parse %s: output differs from the '
+                  'native lane\'s' % what)
+            if parsers:
+                runs.append(lane_line(parsers[0], what + ', 200k', dt,
+                                      sbytes, PARSE_SMALL_RECORDS))
+            else:
+                log('parse %-40s %7.2f s %11.0f records/s %8.1f MB/s'
+                    % (what + ', 200k', dt, PARSE_SMALL_RECORDS / dt,
+                       sbytes / dt / 1e6))
+                runs.append({'run': what + ', 200k', 's': dt,
+                             'records_per_s': PARSE_SMALL_RECORDS / dt,
+                             'mb_per_s': sbytes / dt / 1e6})
+        log('parse: every lane and engine identical to the native lane '
+            '(%d points)' % ref[0].count('\n'))
+    finally:
+        spy.restore()
+    out['runs'] = runs
+    return out
+
+
 def main_path_keys(ck, captured, reps):
     """Phase 5: the kernel on the fused keys the main path gave it, the
     largest batch of each query at each segment count."""
@@ -1993,11 +2398,14 @@ def main():
     log('card: %s (torch %s, CUDA %s)' % (card, torch.__version__,
                                           torch.version.cuda))
 
-    # 1. build
+    # 1. build: one nvcc per kernel source, started together
     t0 = time.monotonic()
     nvcc_log = ck.build()
     ck._load()
-    log('build: onehot_agg.cu in %.2f s' % (time.monotonic() - t0))
+    from dragnet_tpu_torch.ops import byteparse_kernels as bk
+    bk.scratch_len(1)
+    log('build: %s in %.2f s' % (', '.join(k + '.cu' for k in ck.KERNELS),
+                                 time.monotonic() - t0))
     log(nvcc_log.rstrip() if nvcc_log else
         '(library up to date, not rebuilt)')
 
@@ -2059,9 +2467,11 @@ def main():
                                              args.seed)
         auto = auto_phase(cli, mod_ds, ck, tmp, args.records, forced,
                           query_outputs)
+        parse = parse_phase(cli, mod_ds, ck, tmp, data, args.records,
+                            args.seed, forced, build, args.reps)
     torch.cuda.synchronize()
 
-    # 5. the kernel on the main path's own keys, and on uniform keys at
+    # 10. the kernel on the main path's own keys, and on uniform keys at
     # the largest batch of each accumulator shape it gave the kernel
     largest = {}
     for ns, n, weighted in shapes:
@@ -2098,7 +2508,7 @@ def main():
                        'shapes': results, 'sparse_fold_bench': fold_bench,
                        'sparse_scans': sparse, 'build': build,
                        'pipeline': pipeline,
-                       'query': queries, 'auto': auto}, f,
+                       'query': queries, 'auto': auto, 'parse': parse}, f,
                       indent=1)
     print(json.dumps({'query': [
         {k: q[k] for k in ('name', 'route', 'points', 'device_s',
@@ -2111,6 +2521,8 @@ def main():
         'scans': [{k: v for k, v in r.items()} for r in auto['scans']],
         'builds': auto['builds'], 'queries': auto['queries']}}),
         flush=True)
+    print(json.dumps({'parse': parse}), flush=True)
+    block = parse['shapes'][0]
     log('smoke: %.1f s' % (time.monotonic() - t_smoke))
     log('gpu: %s' % card)
     print(json.dumps({'kernels': [{
@@ -2125,7 +2537,21 @@ def main():
         'library_ms': main['library_ms'], 'eager_ms': main['eager_ms'],
         'shape': {'keys': main['keys'], 'ns': main['ns'],
                   'n': main['n']},
-        'shapes': results}]}), flush=True)
+        'shapes': results}, dict(
+        {'name': 'quote_parity', 'route': 'cuda', 'source': PARITY_SOURCE,
+         'replaces': PARITY_REPLACES, 'launches': parse['launches'],
+         'build_launches': parse['build_launches'],
+         'max_abs_err': block['max_abs_err'], 'ms': block['ms'],
+         'plain_ms': block['plain_ms'], 'bound_ms': block['bound_ms'],
+         'bound_by': block['bound_by'], 'library_ms': None,
+         'library_note': 'no single torch call computes the packed '
+                         'exclusive parity (cumsum is the plain '
+                         'version\'s first step)',
+         'eager_ms': block['eager_ms'],
+         'round_trip_ms': block['round_trip_ms'],
+         'numpy_ms': block['numpy_ms'],
+         'shape': {'n': block['n']}, 'shapes': parse['shapes']})]}),
+        flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,
         'count': torch.cuda.device_count()}}), flush=True)

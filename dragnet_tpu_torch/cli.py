@@ -3,14 +3,16 @@
 Counterpart of dragnet_tpu/cli.py for the commands this port covers:
 `scan`, `build`, `index-scan` and `query` (on DN_TORCH_DEVICE, default
 cuda, with the engine DN_ENGINE names, as bin/dn reads it: auto by
-default, jax for the device lane, vector for the host engine),
+default, jax for the device lane, vector for the host engine, host for
+the per-record engine; `scan` and `build` parse through the lane
+DN_PARSE or `--parse` names: auto, host, vector or device),
 `datasource-add`, `datasource-list`,
 `metric-add`, `metric-list`, `metric-remove` and `index-config`.
-Option parsing, breakdown expansion and output are the reference CLI's,
-so the port prints byte-identical results and writes byte-identical
-index trees.  Options the port cannot honour yet (`--warnings`,
-`--remote`, `--parse`, `--trace`, and `--assetroot` on `query`) are
-unknown options: a usage error.  The configuration is the same file as bin/dn's
+Option parsing, breakdown expansion, warnings (`--warnings`) and output
+are the reference CLI's, so the port prints byte-identical results and
+writes byte-identical index trees.  Options the port cannot honour yet
+(`--remote`, `--trace`, and `--assetroot` on `query`) are unknown
+options: a usage error.  The configuration is the same file as bin/dn's
 ($DRAGNET_CONFIG or ~/.dragnetrc).
 
 Exit codes: 2 for usage errors (with the usage text on stderr), 1 for
@@ -44,7 +46,8 @@ dn metric-list       [-v] DATASOURCE
 dn metric-remove     DATASOURCE METRIC
 dn build             [--before=START_TIME] [--after=END_TIME]
                      [--interval=hour|day|all] [--index-config=CONFIG_FILE]
-                     [--dry-run] [--assetroot=ASSET_ROOT]
+                     [--dry-run] [--assetroot=ASSET_ROOT] [--warnings]
+                     [--parse=auto|host|vector|device]
                      [--build-threads=auto|N] DATASOURCE
 dn query             [--before=START_TIME] [--after=END_TIME] [--filter=FILTER]
                      [--breakdowns=BREAKDOWN[,...]] [--interval=hour|day|all]
@@ -53,7 +56,8 @@ dn query             [--before=START_TIME] [--after=END_TIME] [--filter=FILTER]
                      DATASOURCE
 dn scan              [--before=START_TIME] [--after=END_TIME] [--filter=FILTER]
                      [--breakdowns=BREAKDOWN[,...]]
-                     [--raw] [--points] [--counters] [--gnuplot]
+                     [--raw] [--points] [--counters] [--warnings] [--dry-run]
+                     [--gnuplot] [--parse=auto|host|vector|device]
                      DATASOURCE
 dn index-config      DATASOURCE
 dn index-scan        [--index-config=INDEX_CONFIG_FILE]
@@ -64,8 +68,11 @@ dn index-scan        [--index-config=INDEX_CONFIG_FILE]
 scan, build, index-scan and query run on DN_TORCH_DEVICE (default: cuda)
 with the engine DN_ENGINE names: auto (the default: the multithreaded
 host engine, the device taking the stream over once it wins an
-audition), jax (the device from the first batch) or vector (the host
-engine).  DN_ENGINE=host is not yet ported.
+audition), jax (the device from the first batch), vector (the host
+engine) or host (the per-record engine).  DN_PARSE or --parse picks the
+parse lane of scan and build: auto (the C++ parser, or the byte lane
+without it), host, vector (the byte lane) or device (the byte lane with
+its quote-parity scan on DN_TORCH_DEVICE).
 """
 
 # Option table (reference: bin/dn:146-215), the subset these commands
@@ -90,12 +97,14 @@ DN_OPTIONS = [
     # stacked index-query override; DN_IQ_STACK for one run: auto|0|1
     (['iq-stack'], 'string', None),
     (['index-path'], 'string', None),
+    (['parse'], 'string', None),
     (['path'], 'string', None),
     (['points'], 'bool', None),
     (['raw'], 'bool', None),
     (['time-field'], 'string', None),
     (['time-format'], 'string', None),
     (['verbose', 'v'], 'bool', False),
+    (['warnings'], 'bool', None),
 ]
 
 
@@ -301,7 +310,8 @@ def _pool_flag_env(optname, value, envname):
 
 
 def _mode_flag_env(optname, value, envname, allowed):
-    """_pool_flag_env for enumerated-mode flags (--iq-stack)."""
+    """_pool_flag_env for enumerated-mode flags (--iq-stack,
+    --parse)."""
     if value is not None and value not in allowed:
         raise UsageError('bad value for "%s": "%s"' % (optname, value))
     return _env_scope(envname, value)
@@ -446,6 +456,15 @@ def dn_output(query, opts, result, dsname):
         sys.stderr.write('would scan files:\n')
         for path in result.dry_run_files:
             sys.stderr.write('    %s\n' % path)
+        # parse-lane plan line: shown when the operator asked about it
+        # (an explicit DN_PARSE / --parse, or the full-counters view) —
+        # the default dry-run output stays byte-pinned to the
+        # reference goldens
+        pp = getattr(result, 'parse_plan', None)
+        if pp is not None and (os.environ.get('DN_COUNTERS_ALL') == '1'
+                               or pp.get('parse_mode') != 'auto'):
+            sys.stderr.write('parse lane: %s (%s)\n'
+                             % (pp['parse_lane'], pp['reason']))
         return
 
     points = result.points or []
@@ -482,33 +501,42 @@ def _device():
     return os.environ.get('DN_TORCH_DEVICE') or 'cuda'
 
 
-# DN_ENGINE as bin/dn reads it (dragnet_tpu/engine.py engine_mode),
-# mapped onto the port's engine names; any other value is the host
-# engine there, and here
-ENGINE_MODES = {'auto': 'auto', 'jax': 'device', 'vector': 'vector'}
+# DN_ENGINE as bin/dn reads it (engine.engine_mode), mapped onto the
+# port's engine names; any other value is the vectorized host engine
+# there, and here
+ENGINE_MODES = {'auto': 'auto', 'jax': 'device', 'vector': 'vector',
+                'host': 'host'}
+PARSE_MODES = ('auto', 'host', 'vector', 'device')
 
 
 def _engine():
-    mode = os.environ.get('DN_ENGINE', 'auto')
-    if mode == 'host':
-        fatal(DNError('DN_ENGINE=host (the per-record engine) is not yet '
-                      'ported; use auto, jax or vector'))
-    return ENGINE_MODES.get(mode, 'vector')
+    from .engine import engine_mode
+    return ENGINE_MODES.get(engine_mode(), 'vector')
+
+
+def _warn_printer(stage, kind, error):
+    sys.stderr.write('warn: %s\n' % (getattr(error, 'message', None) or
+                                     str(error)))
+    sys.stderr.write('    at %s\n' % stage.name)
 
 
 def cmd_scan(ctx, argv):
     opts = dn_parse_args(argv, ['before', 'after', 'filter', 'breakdowns',
-                                'raw', 'points', 'counters', 'gnuplot'])
+                                'raw', 'points', 'counters', 'warnings',
+                                'gnuplot', 'dry-run', 'parse'])
     check_arg_count(opts, 1)
     dsname = opts._args[0]
     ds = datasource_for_name(ctx['config'], dsname)
     if isinstance(ds, DNError):
         fatal(ds)
     query = dn_query_config(opts)
-    try:
-        result = ds.scan(query, device=_device(), engine=_engine())
-    except DNError as e:
-        fatal(e)
+    warn_func = _warn_printer if getattr(opts, 'warnings', None) else None
+    with _mode_flag_env('parse', opts.parse, 'DN_PARSE', PARSE_MODES):
+        try:
+            result = ds.scan(query, device=_device(), engine=_engine(),
+                             dry_run=opts.dry_run, warn_func=warn_func)
+        except DNError as e:
+            fatal(e)
     dn_output(query, opts, result, dsname)
 
 
@@ -552,8 +580,8 @@ def _read_index_config(filename):
 
 def cmd_build(ctx, argv):
     opts = dn_parse_args(argv, ['after', 'before', 'counters', 'dry-run',
-                                'index-config', 'interval', 'assetroot',
-                                'build-threads'])
+                                'index-config', 'interval', 'warnings',
+                                'assetroot', 'build-threads', 'parse'])
     check_arg_count(opts, 1)
     dsname = opts._args[0]
     indexcfg = _read_index_config(opts.index_config) \
@@ -586,14 +614,16 @@ def cmd_build(ctx, argv):
                                               what='build')
         except DNError as e:
             fatal(e)
+    warn_func = _warn_printer if getattr(opts, 'warnings', None) else None
     with _pool_flag_env('build-threads', opts.build_threads,
-                        'DN_BUILD_THREADS'):
+                        'DN_BUILD_THREADS'), \
+            _mode_flag_env('parse', opts.parse, 'DN_PARSE', PARSE_MODES):
         try:
             result = ds.build(metrics, opts.interval,
                               time_after=opts.after,
                               time_before=opts.before,
                               dry_run=opts.dry_run, device=_device(),
-                              engine=_engine())
+                              engine=_engine(), warn_func=warn_func)
         except DNError as e:
             fatal(e)
 

@@ -1,18 +1,22 @@
 """File-backend scan, build, index-scan and query: input enumeration,
-the native parse stream, the scan engines and the index walk.
+the parse lanes, the scan engines and the index walk.
 
 Counterpart of dragnet_tpu/datasource_file.py (`scan`, `build`,
-`index_scan`, `query`), restricted to the native-parser lane
-(native/dnparse.cc): input enumeration (strftime-pruned when the
+`index_scan`, `query`): input enumeration (strftime-pruned when the
 datasource has a time format), one pass over the concatenated file
-bytes (a partial trailing line joins across file boundaries), batches
-fed to the forced device scan (engine='device'), to the host engine
-(engine.VectorScan) on DN_SCAN_THREADS workers (scan_mt.py), or under
-engine='auto' to those workers until the device takes the stream over
-(_takeover_stream, device_scan.AutoDeviceScan).  A build feeds ONE
-parse stream to every metric's scan (stacked on the device:
-DeviceScanStack) and hands each metric's aggregate to the index writer
-(index_build_mt.py).  A query walks the
+bytes (a partial trailing line joins across file boundaries) through
+the parse lane DN_PARSE picks (byteparse.choose_lane: the C++ parser,
+native/dnparse.cc; the byte lane, byteparse.ByteParser, with its
+quote-parity scan in numpy or on the device; or the Python record
+path), batches fed to the forced device scan (engine='device'), to the
+host engine (engine.VectorScan) on DN_SCAN_THREADS workers (scan_mt.py),
+or under engine='auto' to those workers until the device takes the
+stream over (_takeover_stream, device_scan.AutoDeviceScan).
+engine='host' (DN_ENGINE=host), DN_BUILD_ENGINE=host and a warning
+callback (`--warnings`) run the per-record engine (scan.StreamScan).  A
+build feeds ONE parse stream to every metric's scan (stacked on the
+device: DeviceScanStack) and hands each metric's aggregate to the index
+writer (index_build_mt.py).  A query walks the
 index tree and answers through the rollup planner, the stacked path
 (index_query_stack.py, its weight sums on the device: device_index.py)
 or the per-shard loop (index_query_mt.py), in the reference's order.
@@ -29,11 +33,14 @@ from . import find as mod_find
 from . import native as mod_native
 from . import query as mod_query
 from .aggr import Aggregator
-from .engine import BATCH_SIZE, NativeColumns, VectorPredicate, VectorScan
+from . import byteparse as mod_byteparse
+from .engine import (BATCH_SIZE, NativeColumns, VectorPredicate, VectorScan,
+                     weights_array)
 from .ops.kernels import TRUE
+from .scan import FilterStage, StreamScan
 from .vpipe import Pipeline
 
-ENGINES = ('device', 'auto', 'vector')
+ENGINES = ('device', 'auto', 'vector', 'host')
 
 LOG = mod_log.get('datasource-file')
 
@@ -50,6 +57,7 @@ class ScanResult(object):
         self.pipeline = pipeline
         self.points = points
         self.dry_run_files = dry_run_files
+        self.parse_plan = None      # scan dry run: DN_PARSE lane info
 
 
 class DatasourceFile(object):
@@ -106,7 +114,8 @@ class DatasourceFile(object):
 
     # -- scan -------------------------------------------------------------
 
-    def scan(self, query, device=None, engine='device'):
+    def scan(self, query, device=None, engine='device', dry_run=False,
+             warn_func=None):
         """Scan raw data to execute a query.  Returns a ScanResult whose
         points are the aggregated output.  engine='device' (the CLI's
         DN_ENGINE=jax) runs the device scan on `device` (CUDA unless the
@@ -114,19 +123,88 @@ class DatasourceFile(object):
         host engine with the device's mid-stream takeover
         (device_scan.AutoDeviceScan; the host engine alone when the
         caller asked for the CPU); engine='vector' runs the host engine,
-        which the device scan is held against."""
+        which the device scan is held against; engine='host' runs the
+        per-record engine (scan.StreamScan), as does a `warn_func`
+        (ordered per-record warnings).  The other engines parse through
+        the lane DN_PARSE picks; its device lane runs on `device`.  A
+        dry run lists the files and the lane (`parse_plan`)."""
         _check_engine(engine)
         pipeline = Pipeline()
+        pipeline.warn_func = warn_func
         ctx = self._scan_init(query.qc_after, query.qc_before, pipeline)
         if isinstance(ctx, DNError):
             raise ctx
         files, fmt = ctx
-        _require_native()
-        scanner = self._scan_native(query, files, fmt, pipeline, device,
-                                    engine)
-        scanner.finish()
+
+        if dry_run:
+            result = ScanResult(pipeline,
+                                dry_run_files=[p for p, st in files])
+            lane = self._choose_lane([query], self.ds_filter, fmt, True)
+            result.parse_plan = {'parse_lane': lane.lane,
+                                 'parse_mode': mod_byteparse.parse_mode(),
+                                 'reason': lane.reason}
+            return result
+
+        lane = self._choose_lane([query], self.ds_filter, fmt,
+                                 warn_func is None and engine != 'host')
+        if lane is None:
+            scanner = self._scan_records(query, files, fmt, pipeline)
+        elif lane.engaged or mod_native.get_lib() is not None:
+            scanner = self._scan_native(query, files, fmt, pipeline,
+                                        device, engine, lane)
+        else:
+            scanner = self._scan_batches(query, files, fmt, pipeline,
+                                         device, engine, lane)
+        if hasattr(scanner, 'finish'):
+            scanner.finish()
         self.last_route = _route_doc([scanner])
         return ScanResult(pipeline, scanner.aggr.points())
+
+    def _choose_lane(self, queries, ds_filter, fmt, vector):
+        """The parse lane of a scan or build (byteparse.choose_lane), or
+        None for the per-record engine (`vector` False)."""
+        if not vector:
+            return None
+        return mod_byteparse.choose_lane(
+            queries, self.ds_timefield, ds_filter, fmt,
+            mod_native.get_lib() is not None)
+
+    def _scan_records(self, query, files, fmt, pipeline):
+        """The per-record engine: every record through scan.StreamScan,
+        in order (warnings print as they happen)."""
+        stages = mod_ingest.make_parser_stages(pipeline, fmt)
+        scanner = StreamScan(query, self.ds_timefield, pipeline,
+                             ds_filter=self.ds_filter)
+        records = mod_ingest.iter_records(
+            mod_ingest.iter_lines([p for p, st in files]), fmt,
+            stages=stages)
+        for fields, value in records:
+            scanner.write(fields, _record_weight(value))
+        return scanner
+
+    def _scan_batches(self, query, files, fmt, pipeline, device, engine,
+                      lane):
+        """The vectorized engine over the Python record path (no
+        columnar parser: the native library is absent and the byte lane
+        could not engage): batches of parsed records through
+        VectorScan.write_batch (engine.DictColumns)."""
+        stages = mod_ingest.make_parser_stages(pipeline, fmt)
+        # the ineligibility counter must still appear
+        mod_byteparse.note_ineligible(stages[0], lane)
+        scanner = self._make_scan(self._scan_cls(engine, device), query,
+                                  pipeline, self.ds_filter, device)
+        records = mod_ingest.iter_records(
+            mod_ingest.iter_lines([p for p, st in files]), fmt,
+            stages=stages)
+        buf_r, buf_w = [], []
+        for fields, value in records:
+            buf_r.append(fields)
+            buf_w.append(value)
+            if len(buf_r) >= BATCH_SIZE:
+                scanner.write_batch(buf_r, buf_w)
+                buf_r, buf_w = [], []
+        scanner.write_batch(buf_r, buf_w)
+        return scanner
 
     def _scan_cls(self, engine, device):
         """The scan class for `engine` on `device`
@@ -141,13 +219,15 @@ class DatasourceFile(object):
         return cls(query, self.ds_timefield, pipeline,
                    ds_filter=ds_filter, device=device)
 
-    def _scan_native(self, query, files, fmt, pipeline, device, engine):
-        """Scan via the C++ columnar parser: one pass over the
-        concatenated bytes, projected fields only, batched into the
-        engine.  With DN_SCAN_THREADS > 0 the host engine step runs on
-        worker threads pipelined behind the parse (scan_mt), with
-        byte-identical results; under auto the device may take the
-        stream over from them (_takeover_stream)."""
+    def _scan_native(self, query, files, fmt, pipeline, device, engine,
+                     lane):
+        """Scan via a columnar parser — the C++ one, or the byte lane
+        (DN_PARSE=vector|device): one pass over the concatenated bytes,
+        projected fields only, batched into the engine.  With
+        DN_SCAN_THREADS > 0 the host engine step runs on worker threads
+        pipelined behind the parse (scan_mt), with byte-identical
+        results; under auto the device may take the stream over from
+        them (_takeover_stream)."""
         from . import scan_mt
         # parse stages first: --counters lists stages in creation order
         stages = mod_ingest.make_parser_stages(pipeline, fmt)
@@ -159,7 +239,8 @@ class DatasourceFile(object):
 
         skinner = fmt == 'json-skinner'
         proj = scanner.projection()
-        parser, src = _native_parser(proj, skinner)
+        parser, src = _make_parser(lane, proj, skinner, parser_stage,
+                                   device)
         paths, hints, dicts = parser.projection
         remap = src.remap if skinner else None
 
@@ -262,6 +343,7 @@ class DatasourceFile(object):
             parser_stage.counters['noutputs'] = nlines - nbad
             if nbad:
                 parser_stage.counters['invalid json'] = nbad
+        mod_byteparse.publish_counters(parser_stage, parser)
         return scanner
 
     # -- build / index-scan -----------------------------------------------
@@ -281,11 +363,12 @@ class DatasourceFile(object):
         return None
 
     def build(self, metrics, interval, time_after=None, time_before=None,
-              dry_run=False, device=None, engine='device'):
+              dry_run=False, device=None, engine='device', warn_func=None):
         """Build the datasource's index tree for `metrics`: one pass
         over raw data, each metric's aggregate written to
         interval-chunked shards through the crash-safe journal.
-        `device`/`engine` as for scan()."""
+        `device`/`engine`/`warn_func` as for scan(); DN_BUILD_ENGINE=host
+        also runs the per-record engine."""
         from . import resources as mod_resources
         # a full disk / exhausted fd table mid-build surfaces as the
         # clean retryable disk_full DNError, never a traceback — the
@@ -294,23 +377,26 @@ class DatasourceFile(object):
         with mod_resources.translate_pressure_errors('index build'):
             return self._index_scan_impl(
                 metrics, interval, self.ds_filter, time_after,
-                time_before, dry_run, 'index', device, engine)
+                time_before, dry_run, 'index', device, engine, warn_func)
 
     def index_scan(self, metrics, interval, filter=None, time_after=None,
-                   time_before=None, device=None, engine='device'):
+                   time_before=None, device=None, engine='device',
+                   warn_func=None):
         """The build's scan with tagged points (each carrying
         __dn_metric) as the result instead of index files."""
         return self._index_scan_impl(
             metrics, interval, filter, time_after, time_before, False,
-            'points', device, engine)
+            'points', device, engine, warn_func)
 
     def _index_scan_impl(self, metrics, interval, filter, time_after,
-                         time_before, dry_run, sink, device, engine):
+                         time_before, dry_run, sink, device, engine,
+                         warn_func=None):
         """One pass over raw data feeding every metric's scan; output goes
         to index files (build) or tagged points (index-scan).
         (reference: lib/datasource-file.js:322-433)"""
         _check_engine(engine)
         pipeline = Pipeline()
+        pipeline.warn_func = warn_func
         error = self.check_time_args(time_after, time_before)
         if error is None:
             error = self.check_index_args(interval, sink == 'index', True)
@@ -329,9 +415,20 @@ class DatasourceFile(object):
         queries = [mod_query.metric_query(m, time_after, time_before,
                                           interval, self.ds_timefield)
                    for m in metrics]
-        _require_native()
-        scanners = self._index_scan_native(queries, files, fmt, filter,
-                                           pipeline, device, engine)
+        # --warnings needs the per-record engine for ordered warning
+        # output (same rule as scan())
+        lane = self._choose_lane(
+            queries, filter, fmt,
+            warn_func is None and engine != 'host' and
+            os.environ.get('DN_BUILD_ENGINE', 'auto') != 'host')
+        if lane is not None and (lane.engaged or
+                                 mod_native.get_lib() is not None):
+            scanners = self._index_scan_native(queries, files, fmt,
+                                               filter, pipeline, device,
+                                               engine, lane)
+        else:
+            scanners = self._index_scan_records(queries, files, fmt,
+                                                filter, pipeline, lane)
 
         if sink == 'index':
             # columnar hand-off: each metric's aggregate goes to the
@@ -339,7 +436,8 @@ class DatasourceFile(object):
             from . import index_build_mt as mod_ibmt
             blocks = []
             for s in scanners:
-                s.finish()
+                if hasattr(s, 'finish'):
+                    s.finish()
                 cols, weights = s.aggr.point_rows()
                 blocks.append((list(s.aggr.decomps), cols, weights))
             self.last_route = _route_doc(scanners)
@@ -349,22 +447,57 @@ class DatasourceFile(object):
 
         tagged = []
         for qi, s in enumerate(scanners):
-            s.finish()
+            if hasattr(s, 'finish'):
+                s.finish()
             for fields, value in s.aggr.points():
                 fields['__dn_metric'] = qi
                 tagged.append((fields, value))
         self.last_route = _route_doc(scanners)
         return ScanResult(pipeline, points=tagged)
 
+    def _index_scan_records(self, queries, files, fmt, filter, pipeline,
+                            lane):
+        """Build fan-out over the per-record engine: one StreamScan per
+        metric, fed every record the datasource filter keeps.  The
+        filter runs once on the shared parse stream; each metric's own
+        filter lives in its StreamScan (reference:
+        lib/datasource-file.js:124-192 vs :403-427)."""
+        stages = mod_ingest.make_parser_stages(pipeline, fmt)
+        if lane is not None:
+            # no native library AND the byte lane could not engage:
+            # the ineligibility counter must still appear
+            mod_byteparse.note_ineligible(stages[0], lane)
+        ds_filter_stage = None
+        if filter is not None:
+            from . import krill as mod_krill
+            ds_filter_stage = FilterStage(
+                mod_krill.create(filter),
+                pipeline.stage('Datasource filter'))
+        scanners = []
+        for q in queries:
+            scanners.append(StreamScan(q, self.ds_timefield, pipeline,
+                                       ds_filter=None))
+            pipeline.stage('Add __dn_metric')
+        lines = mod_ingest.iter_lines([p for p, st in files])
+        for fields, value in mod_ingest.iter_records(lines, fmt,
+                                                     stages=stages):
+            if ds_filter_stage is not None and \
+                    not ds_filter_stage.accept(fields):
+                continue
+            for s in scanners:
+                s.write(fields, value)
+        return scanners
+
     def _index_scan_native(self, queries, files, fmt, filter, pipeline,
-                           device, engine):
-        """Build fan-out over the native parser: ONE pass over raw bytes
-        feeds every metric's scan (the reference pipes one parse stream
-        into N StreamScans, lib/datasource-file.js:403-427).  On the
-        device the metrics fold through one DeviceScanStack per batch
-        (DN_STACK=0 keeps the per-scan device folds); the host engine
-        runs on DN_SCAN_THREADS workers, and under auto the device takes
-        the stream over for all metrics together."""
+                           device, engine, lane):
+        """Build fan-out over a columnar parser (the C++ one or the
+        byte lane): ONE pass over raw bytes feeds every metric's scan
+        (the reference pipes one parse stream into N StreamScans,
+        lib/datasource-file.js:403-427).  On the device the metrics fold
+        through one DeviceScanStack per batch (DN_STACK=0 keeps the
+        per-scan device folds); the host engine runs on DN_SCAN_THREADS
+        workers, and under auto the device takes the stream over for all
+        metrics together."""
         from . import scan_mt
         stages = mod_ingest.make_parser_stages(pipeline, fmt)
         parser_stage, adapter_stage = stages
@@ -401,8 +534,9 @@ class DatasourceFile(object):
                 ent = proj.setdefault(p, [False, False])
                 ent[0] = ent[0] or h
                 ent[1] = ent[1] or d
-        parser, src = _native_parser(
-            [(p, h, d) for p, (h, d) in proj.items()], skinner)
+        parser, src = _make_parser(
+            lane, [(p, h, d) for p, (h, d) in proj.items()], skinner,
+            parser_stage, device)
         paths, hints, dicts = parser.projection
         remap = src.remap if skinner else None
 
@@ -557,6 +691,7 @@ class DatasourceFile(object):
             parser_stage.counters['noutputs'] = nlines - nbad
             if nbad:
                 parser_stage.counters['invalid json'] = nbad
+        mod_byteparse.publish_counters(parser_stage, parser)
         return scanners
 
     def _takeover_stream(self, files, parser, batch_size, progress,
@@ -811,11 +946,14 @@ class DatasourceFile(object):
 
     def _stream_native(self, files, parser, flush, batch_size,
                        progress=None):
-        """Feed the concatenated file bytes to the native parser,
+        """Feed the concatenated file bytes to the columnar parser,
         flushing a batch whenever enough records accumulate (partial
         trailing lines join across file boundaries — catstreams
-        semantics).  The bulk of each read chunk is parsed in place
-        (zero-copy span); only the carry-spanning line is stitched.
+        semantics).  The native parser parses the bulk of each read
+        chunk in place (zero-copy span, parse_at) and only the
+        carry-spanning line is stitched; the byte lane takes
+        complete-line buffers from the shared joiner
+        (ingest.iter_line_buffers).
 
         progress(bytes_done, bytes_total), when given, is called before
         each flush — auto mode's device-switch heuristic estimates
@@ -830,14 +968,32 @@ class DatasourceFile(object):
             readsz = int(os.environ.get('DN_READ_SIZE', 0)) or readsz
         except ValueError:
             pass
+        parse_at = getattr(parser, 'parse_at', None)
         total = 0
         for path, st in files:
             sz = getattr(st, 'st_size', 0) if st is not None else 0
             total += sz if sz and sz > 0 else 0
-        done = 0
+        state = {'done': 0}
+
+        def counted_chunks():
+            for chunk in _read_ahead(files, readsz):
+                state['done'] += len(chunk)
+                yield chunk
+
+        if parse_at is None:
+            for lbuf in mod_ingest.iter_line_buffers(counted_chunks()):
+                parser.parse(lbuf)
+                if parser.batch_size() >= batch_size:
+                    if progress is not None:
+                        progress(state['done'], total)
+                    flush()
+            if progress is not None:
+                progress(state['done'], total)
+            flush()
+            return
+
         carry = b''
-        for chunk in _read_ahead(files, readsz):
-            done += len(chunk)
+        for chunk in counted_chunks():
             nl = chunk.rfind(b'\n')
             if nl == -1:
                 carry += chunk
@@ -849,26 +1005,30 @@ class DatasourceFile(object):
                 start = first + 1
             arr = np.frombuffer(chunk, dtype=np.uint8)
             if nl + 1 > start:
-                parser.parse_at(arr[start:].ctypes.data, nl + 1 - start)
+                parse_at(arr[start:].ctypes.data, nl + 1 - start)
             carry = chunk[nl + 1:]
             if parser.batch_size() >= batch_size:
                 if progress is not None:
-                    progress(done, total)
+                    progress(state['done'], total)
                 flush()
         if carry:
             parser.parse(carry)
         if progress is not None:
-            progress(done, total)
+            progress(state['done'], total)
         flush()
 
 
-def _native_parser(proj, skinner):
+def _make_parser(lane, proj, skinner, parser_stage, device):
     """(parser, provider source) for a projection [(path, date_hint,
-    need_dict)]: json-skinner reads `fields.<path>` plus `value`, and
-    the source presents those under the unprefixed names.  One source
-    per pass, so per-column caches persist across batches.  The
-    parser's (paths, hints, dicts) ride on it as `projection` (the MT
-    path snapshots batches by them)."""
+    need_dict)] on the parse lane `lane`: the byte lane
+    (byteparse.ByteParser; its parity kernel on `device` for the device
+    lane) when it engaged, the C++ parser otherwise.  A requested but
+    ineligible byte lane bumps a hidden counter on the parse stage.
+    json-skinner reads `fields.<path>` plus `value`, and the source
+    presents those under the unprefixed names.  One source per pass, so
+    per-column caches persist across batches.  The parser's (paths,
+    hints, dicts) ride on it as `projection` (the MT path snapshots
+    batches by them)."""
     if skinner:
         paths = ['fields.' + p for p, h, d in proj] + ['value']
         hints = [h for p, h, d in proj] + [False]
@@ -877,12 +1037,29 @@ def _native_parser(proj, skinner):
         paths = [p for p, h, d in proj]
         hints = [h for p, h, d in proj]
         dicts = [d for p, h, d in proj]
-    parser = mod_native.NativeParser(paths, hints, dicts)
+    mod_byteparse.note_ineligible(parser_stage, lane)
+    if lane.engaged:
+        pdev = None
+        if lane.lane == 'device':
+            from .ops import resolve_device
+            pdev = resolve_device(device)
+        parser = mod_byteparse.ByteParser(paths, hints, dicts, device=pdev)
+    else:
+        parser = mod_native.NativeParser(paths, hints, dicts)
     parser.projection = (paths, hints, dicts)
     if not skinner:
         return parser, parser
     remap = {p: np_ for (p, h, d), np_ in zip(proj, paths)}
     return parser, _RemappedParser(parser, remap)
+
+
+def _record_weight(value):
+    """A record's point value with the vectorized paths' coercion
+    (json-skinner values may be strings or garbage)."""
+    if isinstance(value, int):
+        return value
+    value = float(weights_array([value])[0])
+    return int(value) if value.is_integer() else value
 
 
 def _check_engine(engine):
@@ -900,17 +1077,12 @@ def _route_doc(scanners):
             for s in scanners]
 
 
-def _require_native():
-    if mod_native.get_lib() is None:
-        raise DNError('native parser (native/dnparse.cc) unavailable: '
-                      'build it with "make -C native"')
-
-
 class _Holder(object):
     """The datasource predicate's field registry (VectorPredicate
     records the fields its leaves read here)."""
 
     def __init__(self):
+        self.raw_columns = {}
         self.filter_fields = []
 
 

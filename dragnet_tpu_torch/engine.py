@@ -1,8 +1,9 @@
 """Vectorized scan engine: columnar batches -> masks -> bucketize ->
 fused-key aggregation.
 
-Counterpart of dragnet_tpu/engine.py, restricted to the native-parser
-lane.  Per batch:
+Counterpart of dragnet_tpu/engine.py (the per-record path in scan.py is
+the semantic reference; tests hold both against the JAX package).  Per
+batch:
 
 1. evaluate datasource/user filters as ternary outcome vectors
    (TRUE/FALSE/ERROR),
@@ -15,8 +16,10 @@ lane.  Per batch:
    first-occurrence order (reproducing the host path's JS
    nested-insertion emission order exactly).
 
-Columns come from NativeColumns, which adapts the C++ parser's tagged
-arrays (native.py).
+Columns come from a *provider*: NativeColumns adapts the tagged arrays
+of a columnar parser (the C++ one, native.py, or the byte lane,
+byteparse.py), DictColumns plucks parsed Python records (the record
+path when neither parser runs) — same downstream pipeline either way.
 
 Step 5 runs on numpy (bincount) for the host engine, or on a torch
 device when the scan was given one (`device=`): the one-hot kernel
@@ -24,6 +27,8 @@ device when the scan was given one (`device=`): the one-hot kernel
 segment-sum (ops/kernels.py) otherwise.  DeviceScan's host-path
 batches (those that fail its exactness checks) aggregate this way.
 """
+
+import os
 
 import numpy as np
 
@@ -44,6 +49,12 @@ MAX_DENSE_SEGMENTS = 1 << 24
 # memory stays bounded by unique tuples.
 DEFER_UNIQUE = 4096
 DEFER_COMPACT_ROWS = 1 << 21
+
+
+def engine_mode():
+    """DN_ENGINE as bin/dn reads it: auto (default), jax, vector, host;
+    any other value is the vectorized host engine."""
+    return os.environ.get('DN_ENGINE', 'auto')
 
 
 def _native_str_trans(column, parser_dict):
@@ -127,9 +138,54 @@ def _compact_codes(ords):
     return np.nonzero(present)[0] + mn, lut[shifted]
 
 
+def weights_array(values):
+    """Point weights -> f64 with JS Number coercion (json-skinner values
+    may be strings or garbage; NaN becomes 0 rather than poisoning
+    sums).  Applied identically to the dict and native ingest paths."""
+    out = np.empty(len(values), dtype=np.float64)
+    for i, v in enumerate(values):
+        if isinstance(v, (int, float)) and not isinstance(v, bool):
+            out[i] = jsv.as_float(v)
+        else:
+            f = jsv.to_number(v)
+            out[i] = 0.0 if f != f else f
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Column providers
 # ---------------------------------------------------------------------------
+
+class DictColumns(object):
+    """Columns plucked from a list of parsed record dicts."""
+
+    def __init__(self, records, scan):
+        self.records = records
+        self.scan = scan
+        self.n = len(records)
+        self._raw = {}
+
+    def raw(self, path):
+        col = self._raw.get(path)
+        if col is None:
+            col = mod_batch.pluck_column(self.records, path)
+            self._raw[path] = col
+        return col
+
+    def leaf_outcomes(self, leaf):
+        rawcol = self.scan.raw_columns[leaf.field]
+        codes = self.scan._dict_codes(self, leaf.field, rawcol)
+        return leaf.table_for(rawcol.dict.values)[codes]
+
+    def date_column(self, path):
+        return mod_batch.date_column(self.raw(path))
+
+    def string_codes(self, path, column):
+        return column.encode(self.raw(path))
+
+    def numeric_column(self, path):
+        return mod_batch.numeric_column(self.raw(path))
+
 
 class NativeColumns(object):
     """Columns adapted from the C++ parser's tagged arrays.  Scan-
@@ -379,6 +435,8 @@ class VectorPredicate(object):
         key = (field, op, jsv.json_stringify(const))
         if key not in self.leaves:
             self.leaves[key] = Leaf(field, op, const)
+            if field not in self.scan.raw_columns:
+                self.scan.raw_columns[field] = mod_batch.RawColumn()
             if field not in self.scan.filter_fields:
                 self.scan.filter_fields.append(field)
 
@@ -418,7 +476,9 @@ class VectorScan(object):
         self.device = device
         self.agg_device = device
         self.filter_fields = []
+        self.raw_columns = {}
         self.string_columns = {}
+        self._dict_code_cache = {}
 
         self.ds_pred = self.user_pred = None
         if ds_filter is not None:
@@ -486,6 +546,23 @@ class VectorScan(object):
         return [(p, date[p], need_dict[p]) for p in date]
 
     # -- per-batch execution ----------------------------------------------
+
+    def _dict_codes(self, provider, field, rawcol):
+        cache_key = (id(provider), field)
+        codes = self._dict_code_cache.get(cache_key)
+        if codes is None:
+            codes = rawcol.encode(provider.raw(field))
+            self._dict_code_cache[cache_key] = codes
+        return codes
+
+    def write_batch(self, records, weights):
+        """One batch of parsed records (the record path: no columnar
+        parser) with their point values."""
+        if len(records) == 0:
+            return
+        self._dict_code_cache.clear()
+        provider = DictColumns(records, self)
+        self._process(provider, weights_array(weights))
 
     def write_native_batch(self, parser, weights):
         if parser.batch_size() == 0:

@@ -3,9 +3,9 @@ the muskie record generator (native/dngen.cc).
 
 Loads (building on demand via `make -C native` if a toolchain is
 present) the C++ newline-JSON -> columnar parser and adapts its
-tagged-value output to the engine's column interfaces.  The port scans
-only through this parser: without it the scan raises instead of taking
-a slower lane.
+tagged-value output to the engine's column interfaces.  Without it
+(no toolchain, or DN_NATIVE=0) scans take the byte lane (byteparse.py)
+or the Python record path, with identical results.
 """
 
 import ctypes
@@ -63,7 +63,8 @@ def _build_target(so_path, src):
         if os.path.exists(so_path):
             import sys
             sys.stderr.write(
-                'dn: warning: native rebuild failed; using stale %s\n'
+                'dn: warning: native rebuild failed; using stale %s '
+                '(set DN_NATIVE=0 to force the Python path)\n'
                 % so_path)
             return True
         return False
@@ -76,9 +77,11 @@ def _build():
 
 
 def get_lib():
-    """Load (building if needed) the native parser; None if
-    unavailable."""
+    """Load (building if needed) the native parser; None if unavailable
+    or disabled via DN_NATIVE=0."""
     global _lib
+    if os.environ.get('DN_NATIVE', '1') == '0':
+        return None
     with _lib_lock:
         if _lib is not None:
             return _lib if _lib is not False else None

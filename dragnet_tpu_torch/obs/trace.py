@@ -1,4 +1,4 @@
-"""Span seams of the index build and publish path.
+"""Span seams of the index build and publish path and the byte lane.
 
 Counterpart of dragnet_tpu/obs/trace.py.  The reference collects a
 per-request span tree when its CLI's request wrapper or `dn serve`
@@ -39,3 +39,8 @@ def span(name, **attrs):
 def event(name, **attrs):
     """An instant event on the current span; no-op when tracing is
     off."""
+
+
+def add_span(name, dur_ms, **attrs):
+    """Record an already-measured span (the byte lane's accumulated
+    parse time is one such); no-op when tracing is off."""

@@ -1,20 +1,23 @@
 """The one-hot aggregation kernel for Hopper, its plain torch version
-and its routing gate.
+and its routing gate; and the build and load of every kernel library of
+the port.
 
 Counterpart of dragnet_tpu/ops/pallas_kernels.py (`onehot_dense`,
 `should_use`).  The kernel (csrc/onehot_agg.cu, CUDA C++ for sm_90a) is
 a cluster-merged shared-memory histogram with integer atomics, not a
-one-hot GEMM: see the source for why.  It is built at first use with
-nvcc into `_build/libonehot_agg.so` (a plain C entry point, loaded with
-ctypes), so nothing but the CUDA toolkit is needed.
+one-hot GEMM: see the source for why.  Each source in csrc/ (KERNELS:
+this one and the quote-parity scan of ops/byteparse_kernels.py) is
+built at first use with nvcc into `_build/lib<name>.so` (a plain C entry
+point, loaded with ctypes), so nothing but the CUDA toolkit is needed;
+`build()` starts one nvcc per stale source, all together.
 
 Two entries: `onehot_dense_into(out, fused, weights)` adds into a
 caller-given i64 accumulator from a precomputed fused key (the device
 scan's route), and `onehot_dense(radices, codes, weights, alive)`
 fuses, zero-fills and calls it (the engine's route).  The wrappers take
 the plain version only for tensors on the CPU; for a CUDA tensor they
-launch the kernel or raise.  `launches` counts kernel launches, so a
-run can show the main path went through the kernel.
+launch the kernel or raise.  `launches` counts kernel launches, one key
+per kernel, so a run can show the main path went through each.
 """
 
 import ctypes
@@ -34,15 +37,16 @@ MAX_TOTAL_WEIGHT = 2 ** 24
 MAX_COLS = 32
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-_SRC = os.path.join(_HERE, 'csrc', 'onehot_agg.cu')
 BUILD_DIR = os.path.join(_HERE, '_build')
-_SO_PATH = os.path.join(BUILD_DIR, 'libonehot_agg.so')
+# the kernel sources of csrc/, by library name
+KERNELS = ('onehot_agg', 'quote_parity')
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
 
-launches = {'onehot_dense': 0}
+launches = {'onehot_dense': 0, 'quote_parity': 0}
 
 _lib = None
+_libs = {}
 _lib_lock = threading.Lock()
 _KEY_BYTES = {torch.int32: 4, torch.int64: 8}
 
@@ -68,53 +72,88 @@ def _nvcc():
     cuda_home = os.environ.get('CUDA_HOME') or '/usr/local/cuda'
     path = shutil.which('nvcc') or os.path.join(cuda_home, 'bin', 'nvcc')
     if not os.path.exists(path):
-        raise RuntimeError('nvcc not found (set CUDA_HOME); the one-hot '
-                           'kernel cannot be built')
+        raise RuntimeError('nvcc not found (set CUDA_HOME); the CUDA '
+                           'kernels cannot be built')
     return path
 
 
-def _fresh():
-    return os.path.exists(_SO_PATH) and \
-        os.path.getmtime(_SO_PATH) >= os.path.getmtime(_SRC)
+def source_path(name):
+    return os.path.join(_HERE, 'csrc', name + '.cu')
 
 
-def build():
-    """Compile the kernel into _build/ if the library is missing or
-    older than its source.  Returns nvcc's output (ptxas's registers,
-    shared memory and spills), or None when the library was up to date.
-    Raises on a failed build."""
-    if _fresh():
+def library_path(name):
+    return os.path.join(BUILD_DIR, 'lib%s.so' % name)
+
+
+def _fresh(name):
+    so = library_path(name)
+    return os.path.exists(so) and \
+        os.path.getmtime(so) >= os.path.getmtime(source_path(name))
+
+
+def build(names=KERNELS):
+    """Compile every kernel of `names` whose library is missing or
+    older than its source into _build/, one nvcc per source, all started
+    together.  Returns nvcc's output (ptxas's registers, shared memory
+    and spills, under a `== <source>` line each), or None when every
+    library was up to date.  Raises on a failed build."""
+    if all(_fresh(n) for n in names):
         return None
     import fcntl
     os.makedirs(BUILD_DIR, exist_ok=True)
-    with open(_SO_PATH + '.lock', 'w') as lock:
+    with open(os.path.join(BUILD_DIR, 'nvcc.lock'), 'w') as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
-        if _fresh():
+        stale = [n for n in names if not _fresh(n)]
+        if not stale:
             return None
-        tmp = _SO_PATH + '.tmp%d' % os.getpid()
-        proc = subprocess.run(
-            [_nvcc()] + NVCC_FLAGS + ['-o', tmp, _SRC],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        if proc.returncode != 0:
+        nvcc = _nvcc()
+        jobs = []
+        for n in stale:
+            tmp = library_path(n) + '.tmp%d' % os.getpid()
+            jobs.append((n, tmp, subprocess.Popen(
+                [nvcc] + NVCC_FLAGS + ['-o', tmp, source_path(n)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        logs, failed = [], []
+        for n, tmp, proc in jobs:
+            out = proc.communicate()[0]
+            logs.append('== %s\n%s' % (os.path.basename(source_path(n)),
+                                       out))
+            if proc.returncode != 0:
+                failed.append(n)
+            else:
+                os.replace(tmp, library_path(n))
+        if failed:
             raise RuntimeError('nvcc failed building %s:\n%s'
-                               % (_SRC, proc.stdout))
-        os.replace(tmp, _SO_PATH)
-    return proc.stdout
+                               % (', '.join(failed), ''.join(logs)))
+    return ''.join(logs)
+
+
+def load_library(name, setup):
+    """The loaded kernel library `name` (built first if stale), with
+    `setup(lib)` run once to declare its entry points' types."""
+    with _lib_lock:
+        lib = _libs.get(name)
+        if lib is None:
+            build((name,))
+            lib = ctypes.CDLL(library_path(name))
+            setup(lib)
+            _libs[name] = lib
+        return lib
+
+
+def _setup_onehot(lib):
+    fn = lib.dn_onehot_dense_into
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int64, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_void_p]
 
 
 def _load():
     global _lib
-    with _lib_lock:
-        if _lib is None:
-            build()
-            lib = ctypes.CDLL(_SO_PATH)
-            fn = lib.dn_onehot_dense_into
-            fn.restype = ctypes.c_int
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                           ctypes.c_int, ctypes.c_int64, ctypes.c_void_p,
-                           ctypes.c_int, ctypes.c_void_p]
-            _lib = lib
-        return _lib
+    _lib = load_library('onehot_agg', _setup_onehot)
+    return _lib
 
 
 def current_stream_handle(index):

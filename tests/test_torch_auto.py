@@ -1156,18 +1156,24 @@ def test_cli_build_auto_matches_bin_dn(datafile, monkeypatch, tmp_path):
 
 
 def test_cli_engine_host_is_not_ported(cli_tree, monkeypatch):
+    """DN_ENGINE=host, once refused, is the per-record engine now:
+    stdout, stderr (--counters) and the exit code equal bin/dn's under
+    the same mode."""
+    from dragnet_tpu import cli as jcli
     from dragnet_tpu_torch import cli as tcli
     monkeypatch.setenv('DRAGNET_CONFIG', str(cli_tree / 'rc'))
+    monkeypatch.setenv('DN_PARSE_THREADS', '1')
     monkeypatch.setenv('DN_TORCH_DEVICE', 'cpu')
     monkeypatch.setenv('DN_ENGINE', 'host')
     for args in CLI_CASES.values():
-        rc, out, err = _run_cli(tcli.main, args)
-        assert rc == 1 and not out
-        assert err == 'dn: DN_ENGINE=host (the per-record engine) is not ' \
-            'yet ported; use auto, jax or vector\n'
+        ref = _run_cli(jcli.main, args)
+        got = _run_cli(tcli.main, args)
+        assert ref[0] == 0, ref[2]
+        assert got == ref
+        assert 'not yet ported' not in got[2]
 
 
 def test_cli_usage_names_the_engine_modes():
     from dragnet_tpu_torch import cli as tcli
-    for mode in ('auto', 'jax', 'vector', 'DN_ENGINE'):
+    for mode in ('auto', 'jax', 'vector', 'host', 'DN_ENGINE'):
         assert mode in tcli.USAGE_TEXT

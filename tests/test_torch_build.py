@@ -328,10 +328,9 @@ def test_port_build_argument_errors(tmp_path, monkeypatch):
     with pytest.raises(DNError, match='missing "indexpath"'):
         tdf.DatasourceFile(cfg).build(_port_metrics(), 'day',
                                       device='cpu')
-    # 'auto' is an engine of the port now; the per-record 'host'
-    # engine is not
+    # 'auto' and the per-record 'host' are engines of the port now
     with pytest.raises(DNError, match='unknown scan engine'):
-        ds.build(_port_metrics(), 'day', device='cpu', engine='host')
+        ds.build(_port_metrics(), 'day', device='cpu', engine='nosuch')
     dry = ds.build(_port_metrics(), 'day', dry_run=True, device='cpu')
     assert dry.dry_run_files == [str(datafile)]
     assert not os.path.exists(tmp_path / 'i')
@@ -450,12 +449,14 @@ def test_port_cli_metric_build_index_scan(cli_env, monkeypatch):
                 if not tjournal.is_durable_metadata(p)]) == 3
 
 
-@pytest.mark.parametrize('bad', [['--warnings'], ['--remote', 'x'],
+@pytest.mark.parametrize('bad', [['--raw'], ['--remote', 'x'],
                                  ['--iq-stack', '0'],
-                                 ['--parse', 'host'], ['--trace']])
+                                 ['--iq-threads', '2'], ['--trace']])
 def test_port_cli_build_unsupported_options(cli_env, monkeypatch, bad):
     """Options the port cannot honour yet are usage errors (exit 2),
-    as is a `query` option given to `build`."""
+    as are `scan` and `query` options given to `build`.  (`--warnings`
+    and `--parse`, once here, are build options of the port now:
+    tests/test_torch_record_engine.py and test_torch_byteparse.py.)"""
     env, tmp = cli_env
     got = _port_cli(monkeypatch, env, ['build'] + bad + ['muskie'])
     assert got.returncode == 2
