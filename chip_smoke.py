@@ -135,14 +135,39 @@ it happened; any failed check exits non-zero:
            --warnings), each output equal to the native lane's;
            records/s, MB/s and the parity's share of the parser's
            parse_seconds; a `parse` JSON line.
+9b. life  the index tree's lifecycle.  `dn follow --once` on the card
+           (DN_ENGINE=jax, DN_FOLLOW_APPEND=1, 16 MiB mini-batches cut by
+           the byte budget) after each of 4 appends of the N records to
+           a followed file, with phase 9's two flat metrics at
+           --interval=hour: every mini-batch folding through the stack,
+           K1 once per device batch, generations pending after rounds 2
+           on; `query --points` of two queries equal to the same over
+           phase 9's native-lane build; `dn compact`, its tree byte-equal
+           to that build (catalog included, follow state and quarantine
+           left out), the queries then equal with their --counters;
+           device memory allocated after the last mini-batch no more
+           than one batch's accumulators above the first, with the
+           page-locked staging slots allocated; the rewrite mode (no
+           DN_FOLLOW_APPEND) over the first 500,000 records, its tree
+           equal to a build of them; a kernel fault planted in one
+           mini-batch, which must exit 1 with the error and no publish
+           retry, its checkpoint at the last good batch; then `dn
+           rollup` on copies of phase 7's trees (--interval hour and
+           day), phase 7's query cases equal to its outputs, the bare
+           query through the rollups, a second rollup building nothing.
+           Prints each round's wall, records/s and follow.scan /
+           follow.publish seconds, the compaction's and the rollups'
+           walls, query walls before and after, and a `lifecycle` JSON
+           line.
 10. main   the kernel again, on the fused keys the main path gave it:
    keys    the largest batch of each kernel query at each segment count
            (the time window, and with it the accumulator, grows during
            the timestamp query), captured in phase 4.
 11. result the card's name and power limit (nvidia-smi), a `kernels`
            JSON line (per kernel: launches on the main path, the build,
-           the query phase and the eager auto runs, times, bound), and
-           as the last line {"ok": true, "device": {...}}.
+           the query phase, the eager auto runs and the follow rounds,
+           times, bound), and as the last line {"ok": true, "device":
+           {...}}.
 
 Without CUDA, or without the rest of the repository beside it, the
 script exits non-zero and prints no result.
@@ -283,6 +308,28 @@ FLAT_METRICS = [
      'operation,latency[aggr=quantize]'),
 ]
 PARITY_REPLACES = 'dragnet_tpu/ops/byteparse_kernels.py:94'
+# phase 9b: `dn follow` of the N records in LIFECYCLE_ROUNDS appends,
+# each mini-batch cut by the byte budget (a large latency target: with
+# DN_FOLLOW_LATENCY_MS=0 every 1 MiB poll of the tailer would be its own
+# batch), about one device batch each; the rewrite-mode run over the
+# first LIFECYCLE_REWRITE_RECORDS, the device fault over the first
+# LIFECYCLE_FAULT_RECORDS (its third mini-batch fails), and the queries
+# held between the follow tree and phase 9's build
+LIFECYCLE_ROUNDS = 4
+LIFECYCLE_REWRITE_RECORDS = 500000
+LIFECYCLE_FAULT_RECORDS = 300000
+LIFECYCLE_FAULT_BATCH = 3
+FOLLOW_KNOBS = {'DN_ENGINE': 'jax', 'DN_FOLLOW_MAX_BYTES': str(16 << 20),
+                'DN_FOLLOW_LATENCY_MS': '600000', 'DN_FOLLOW_POLL_MS': '5',
+                # the disk watermarks of a scratch run on a shared host
+                # (the defaults, 10 % and 5 % free, would pause the
+                # publishes of a test machine whose disk is nearly full)
+                'DN_DISK_LOW_PCT': '1', 'DN_DISK_CRITICAL_PCT': '0.5'}
+LIFECYCLE_QUERIES = [
+    ('host', ['-b', 'host']),
+    ('host x operation, latency >= 100',
+     ['-b', 'host,operation', '-f', '{"ge":["latency",100]}']),
+]
 # K7's least traffic: each row's local code and weight (16 B), each
 # translation entry (8 B), each accumulator segment read and written
 # (16 B)
@@ -2354,6 +2401,452 @@ def parse_phase(cli, mod_ds, ck, tmp, data, records, seed, forced, build,
     return out
 
 
+def line_offsets(path, counts):
+    """The byte offset just past line counts[i] of a file, for ascending
+    counts."""
+    out = []
+    todo = list(counts)
+    off = 0
+    with open(path, 'rb') as f:
+        for i, line in enumerate(f, 1):
+            off += len(line)
+            if todo and i == todo[0]:
+                out.append(off)
+                todo.pop(0)
+                if not todo:
+                    break
+    check(not todo, 'the data file has fewer lines than %r' % counts)
+    return out
+
+
+def copy_bytes(src, dst, start, end):
+    """Append src[start:end] to dst."""
+    with open(src, 'rb') as f, open(dst, 'ab') as g:
+        f.seek(start)
+        left = end - start
+        while left > 0:
+            buf = f.read(min(left, 64 << 20))
+            check(buf, 'short read of %s' % src)
+            g.write(buf)
+            left -= len(buf)
+
+
+def index_tree_files(root):
+    """tree_files without the follow state and the quarantine, which
+    are not part of what a query reads."""
+    from dragnet_tpu_torch import index_journal as mod_journal
+    skip = (mod_journal.FOLLOW_DIR, mod_journal.QUARANTINE_DIR)
+    return {k: v for k, v in tree_files(root).items()
+            if k.split(os.sep)[0] not in skip}
+
+
+def add_datasource(cli, name, path, idx, metrics):
+    rc, _, err = run_cli(cli, ['datasource-add', name, '--path=' + path,
+                               '--time-field=time', '--index-path=' + idx])
+    check(rc == 0, 'datasource-add %s failed: %s' % (name, err))
+    for metric, breakdowns in metrics:
+        rc, _, err = run_cli(cli, ['metric-add', '-b', breakdowns, name,
+                                   metric])
+        check(rc == 0, 'metric-add %s failed: %s' % (metric, err))
+
+
+def lifecycle_phase(cli, mod_ds, ck, tmp, data, records, query_outputs):
+    """Phase 9b: the index tree's lifecycle on the card.  `dn follow
+    --once` (DN_ENGINE=jax, DN_FOLLOW_APPEND=1) after each of
+    LIFECYCLE_ROUNDS appends of the N records, every mini-batch folding
+    through DeviceScanStack and K1 once per device batch, generations
+    pending after rounds 2 on; the queries held to phase 9's flat build;
+    `dn compact`, its tree byte-equal to phase 9's native-lane build;
+    device memory and page-locked staging across the daemon's batches;
+    the rewrite mode over LIFECYCLE_REWRITE_RECORDS against a build; a
+    planted kernel fault in one mini-batch, which must end the run with
+    rc 1 and no retry; then `dn rollup` on copies of phase 7's trees,
+    the query cases equal to phase 7's outputs, the bare one through
+    the rollups, and a second rollup a no-op."""
+    import shutil
+    import torch
+    from dragnet_tpu_torch import datasource_file as mod_dsf
+    from dragnet_tpu_torch import rollup as mod_rollup
+    from dragnet_tpu_torch.config import ConfigBackendLocal
+    from dragnet_tpu_torch.follow import loop as mod_floop
+    from dragnet_tpu_torch.follow.checkpoint import Checkpointer
+    from dragnet_tpu_torch.obs import metrics as obs_metrics
+    reg = obs_metrics.global_registry()
+    spy = Spy()
+    state = {'batch': 0, 'stack': 0, 'device': 0, 'acc_bytes': 0,
+             'ring_allocs': 0, 'ring_bytes': 0, 'fault_at': None,
+             'batches': []}
+
+    def wrap_publish(orig):
+        def publish_batch(self, batch, recover=True):
+            state['batch'] += 1
+            d0 = state['device']
+            rv = orig(self, batch, recover)
+            torch.cuda.synchronize()
+            state['batches'].append({
+                'records': batch.nlines, 'bytes': batch.nbytes,
+                'device_batches': state['device'] - d0,
+                'allocated': torch.cuda.memory_allocated(),
+                'reserved': torch.cuda.memory_reserved(),
+                'ring_allocs': state['ring_allocs'],
+                'ring_bytes': state['ring_bytes'],
+                'host_pinned': host_pinned()})
+            return rv
+        return publish_batch
+
+    def wrap_process(orig):
+        def process(self, provider, weights, alive):
+            state['stack'] += 1
+            return orig(self, provider, weights, alive)
+        return process
+
+    def wrap_device(orig):
+        def process_device(self, provider, weights, alive):
+            ok = orig(self, provider, weights, alive)
+            state['device'] += int(ok)
+            acc = sum(t.numel() * t.element_size() for sc in self.scans
+                      for t in (sc._acc or ()) if torch.is_tensor(t))
+            state['acc_bytes'] = max(state['acc_bytes'], acc)
+            return ok
+        return process_device
+
+    def wrap_alloc(orig):
+        def alloc(self, slot, nbytes, compute):
+            state['ring_allocs'] += 1
+            state['ring_bytes'] += nbytes
+            return orig(self, slot, nbytes, compute)
+        return alloc
+
+    def wrap_kernel(orig):
+        def onehot_dense_into(out, fused, weights):
+            if state['batch'] == state['fault_at']:
+                raise RuntimeError('planted one-hot kernel fault')
+            return orig(out, fused, weights)
+        return onehot_dense_into
+
+    def host_pinned():
+        # the caching host allocator's page-locked bytes in use and
+        # held, where this torch reports them
+        stats = getattr(torch.cuda, 'host_memory_stats', None)
+        if stats is None:
+            return None
+        keys = ('allocations.current', 'allocated_bytes.current',
+                'active_requests.current', 'active_bytes.current',
+                'num_host_alloc', 'num_host_free')
+        try:
+            doc = stats()
+        except RuntimeError:
+            return None
+        return {k: doc[k] for k in keys if k in doc}
+
+    def stage_s(name):
+        return reg.histogram(name).sum / 1e3
+
+    def follow(name, extra_env):
+        """One `follow --once` of datasource `name`: (rc, stdout,
+        stderr, wall s, its mini-batches, scan s, publish s)."""
+        b0 = len(state['batches'])
+        s0, p0 = stage_s('follow_scan_ms'), stage_s('follow_publish_ms')
+        with env_scope(**dict(FOLLOW_KNOBS, **extra_env)):
+            t0 = time.monotonic()
+            rc, out, err = run_cli(cli, ['follow', '--once',
+                                         '--interval=hour', name])
+            torch.cuda.synchronize()
+            dt = time.monotonic() - t0
+        return (rc, out, err, dt, state['batches'][b0:],
+                stage_s('follow_scan_ms') - s0,
+                stage_s('follow_publish_ms') - p0)
+
+    def query(args, name):
+        t0 = time.monotonic()
+        rc, out, err = run_cli(cli, ['query', '--points', '--counters',
+                                     '--interval=hour'] + args + [name])
+        torch.cuda.synchronize()
+        check(rc == 0 and out, 'lifecycle: query %r of %s failed: %s'
+              % (args, name, err))
+        return out, err, time.monotonic() - t0
+
+    spy.wrap(mod_floop.FollowLoop, 'publish_batch', wrap_publish)
+    spy.wrap(mod_ds.DeviceScanStack, 'process', wrap_process)
+    spy.wrap(mod_ds.DeviceScanStack, '_process_device', wrap_device)
+    spy.wrap(mod_ds._StagingRing, '_alloc', wrap_alloc)
+    spy.wrap(ck, 'onehot_dense_into', wrap_kernel)
+    doc = {}
+    try:
+        flat_ref = os.path.join(tmp, 'idx_flat.host')
+        add_datasource(cli, 'flat_ref', data, flat_ref, FLAT_METRICS)
+        ref_tree = index_tree_files(flat_ref)
+        check(len(ref_tree) > 2, 'lifecycle: phase 9\'s flat tree is '
+              'missing')
+
+        # follow, append mode, on the card: the follow path's counts
+        # zeroed just before its rounds, read just after
+        log_path = os.path.join(tmp, 'follow.log')
+        idx = os.path.join(tmp, 'idx_follow')
+        add_datasource(cli, 'follow', log_path, idx, FLAT_METRICS)
+        open(log_path, 'wb').close()
+        per = records // LIFECYCLE_ROUNDS
+        offs = [0] + line_offsets(data, [per * (i + 1) for i in
+                                         range(LIFECYCLE_ROUNDS - 1)]) + \
+            [os.path.getsize(data)]
+        rounds = []
+        ck.reset_launches()
+        st0, dv0 = state['stack'], state['device']
+        for r in range(LIFECYCLE_ROUNDS):
+            copy_bytes(data, log_path, offs[r], offs[r + 1])
+            nrec = per if r < LIFECYCLE_ROUNDS - 1 else \
+                records - per * (LIFECYCLE_ROUNDS - 1)
+            rc, out, err, dt, batches, scan_s, pub_s = follow(
+                'follow', {'DN_FOLLOW_APPEND': '1'})
+            check(rc == 0 and not out and not err,
+                  'lifecycle: follow round %d failed (rc %d): %s'
+                  % (r + 1, rc, err[-400:]))
+            check(batches and all(b['device_batches'] > 0
+                                  for b in batches),
+                  'lifecycle: round %d: a mini-batch did not fold on the '
+                  'device: %r' % (r + 1, [b['device_batches']
+                                          for b in batches]))
+            gens = mod_rollup.compaction_backlog(idx, 'hour')
+            if r >= 1:
+                check(gens > 0, 'lifecycle: no generation pending after '
+                      'round %d' % (r + 1))
+            rounds.append({
+                'round': r + 1, 'records': nrec, 'wall_s': dt,
+                'records_per_s': nrec / dt, 'mini_batches': len(batches),
+                'device_batches': sum(b['device_batches']
+                                      for b in batches),
+                'scan_s': scan_s, 'publish_s': pub_s,
+                'generations_pending': gens})
+            log('lifecycle follow round %d (append): %d records in %.2f s '
+                '(%.0f records/s), %d mini-batches, %d device batches | '
+                'follow.scan %.2f s, follow.publish %.2f s | %d '
+                'generations pending'
+                % (r + 1, nrec, dt, nrec / dt, len(batches),
+                   rounds[-1]['device_batches'], scan_s, pub_s, gens))
+        follow_launches = ck.launches['onehot_dense']
+        nstack, ndev = state['stack'] - st0, state['device'] - dv0
+        check(ndev > 0 and nstack == ndev and follow_launches == ndev,
+              'lifecycle: %d stacked batches, %d on the device, K1 '
+              'launched %d times' % (nstack, ndev, follow_launches))
+        doc['follow'] = {'rounds': rounds, 'stacked_batches': ndev,
+                         'k1_launches': follow_launches}
+        log('lifecycle follow: %d stacked batches, all on the device, K1 '
+            'launched %d times (once per device batch)'
+            % (ndev, follow_launches))
+
+        # memory across the daemon's batches
+        run_batches = state['batches'][:sum(r['mini_batches']
+                                            for r in rounds)]
+        first, last = run_batches[0], run_batches[-1]
+        grew = last['allocated'] - first['allocated']
+        doc['memory'] = {'first': first, 'last': last,
+                         'allocated_growth': grew,
+                         'accumulator_bytes': state['acc_bytes']}
+        log('lifecycle memory after mini-batch 1 | %d: allocated %d | %d '
+            'B, reserved %d | %d B, staging slots allocated %d | %d '
+            '(%d | %d page-locked B); growth %d B against one batch\'s '
+            'accumulators, %d B'
+            % (len(run_batches), first['allocated'], last['allocated'],
+               first['reserved'], last['reserved'], first['ring_allocs'],
+               last['ring_allocs'], first['ring_bytes'],
+               last['ring_bytes'], grew, state['acc_bytes']))
+        log('lifecycle page-locked host memory (caching allocator) after '
+            'mini-batch 1 | %d: %r | %r' % (len(run_batches),
+                                            first['host_pinned'],
+                                            last['host_pinned']))
+        check(grew <= state['acc_bytes'], 'lifecycle: device memory grew '
+              'by %d B across %d mini-batches' % (grew, len(run_batches)))
+
+        # the queries over the generation-bearing tree (the walk finds
+        # the generation files too, so only the points are compared),
+        # then compaction, then the same queries with their counters
+        qdoc = []
+        for qname, qargs in LIFECYCLE_QUERIES:
+            fout, ferr, ft = query(qargs, 'follow')
+            rout, rerr, rt = query(qargs, 'flat_ref')
+            check(fout == rout, 'lifecycle: query %s over the follow '
+                  'tree differs from phase 9\'s build' % qname)
+            qdoc.append({'name': qname, 'points': rout.count('\n'),
+                         'generations_s': ft, 'build_tree_s': rt})
+        gens = mod_rollup.compaction_backlog(idx, 'hour')
+        t0 = time.monotonic()
+        rc, out, err = run_cli(cli, ['compact', '--tree', idx,
+                                     '--interval', 'hour'])
+        ct = time.monotonic() - t0
+        check(rc == 0 and err.startswith('dn compact: '),
+              'lifecycle: compact failed: %s' % err)
+        check(mod_rollup.compaction_backlog(idx, 'hour') == 0,
+              'lifecycle: generations left after compact')
+        tree = index_tree_files(idx)
+        check(tree.keys() == ref_tree.keys() and
+              all(tree[k] == ref_tree[k] for k in tree),
+              'lifecycle: the compacted follow tree differs from phase '
+              '9\'s native-lane build: %r'
+              % sorted(k for k in set(tree) | set(ref_tree)
+                       if tree.get(k) != ref_tree.get(k)))
+        for q, (qname, qargs) in zip(qdoc, LIFECYCLE_QUERIES):
+            fout, ferr, ft = query(qargs, 'follow')
+            rout, rerr, rt = query(qargs, 'flat_ref')
+            check((fout, ferr) == (rout, rerr), 'lifecycle: query %s '
+                  'after compaction differs' % qname)
+            q['compacted_s'] = ft
+        doc['compact'] = {'wall_s': ct, 'generations_removed': gens,
+                          'message': err.strip(), 'queries': qdoc}
+        log('lifecycle compact: %.2f s, %d generations removed (%s); the '
+            'tree byte-equal to phase 9\'s build (%d files, catalog '
+            'included); queries equal before and after: %s'
+            % (ct, gens, err.strip(), len(tree),
+               ', '.join('%s %d points (%.3f s with generations, %.3f s '
+                         'compacted)' % (q['name'], q['points'],
+                                         q['generations_s'],
+                                         q['compacted_s'])
+                         for q in qdoc)))
+
+        # rewrite mode over the first LIFECYCLE_REWRITE_RECORDS
+        rw_log = os.path.join(tmp, 'follow_rw.log')
+        rw_idx = os.path.join(tmp, 'idx_follow_rw')
+        nrw = min(records, LIFECYCLE_REWRITE_RECORDS)
+        open(rw_log, 'wb').close()
+        copy_bytes(data, rw_log, 0, line_offsets(data, [nrw])[0])
+        add_datasource(cli, 'follow_rw', rw_log, rw_idx, FLAT_METRICS)
+        add_datasource(cli, 'rw_ref', rw_log,
+                       os.path.join(tmp, 'idx_rw_ref'), FLAT_METRICS)
+        rc, out, err, dt, batches, scan_s, pub_s = follow('follow_rw', {})
+        check(rc == 0 and not err, 'lifecycle: rewrite-mode follow '
+              'failed: %s' % err[-400:])
+        check(all(b['device_batches'] > 0 for b in batches),
+              'lifecycle: a rewrite-mode mini-batch did not fold on the '
+              'device')
+        with env_scope(DN_ENGINE='jax'):
+            rc, _, err = run_cli(cli, ['build', '--interval=hour',
+                                       'rw_ref'])
+        check(rc == 0, 'lifecycle: rw_ref build failed: %s' % err)
+        check(index_tree_files(rw_idx) ==
+              index_tree_files(os.path.join(tmp, 'idx_rw_ref')),
+              'lifecycle: the rewrite-mode follow tree differs from a '
+              'build of the same records')
+        doc['rewrite'] = {'records': nrw, 'wall_s': dt,
+                          'records_per_s': nrw / dt,
+                          'mini_batches': len(batches),
+                          'scan_s': scan_s, 'publish_s': pub_s}
+        log('lifecycle follow (rewrite): %d records in %.2f s (%.0f '
+            'records/s), %d mini-batches | follow.scan %.2f s, '
+            'follow.publish %.2f s | tree = a build of the same records'
+            % (nrw, dt, nrw / dt, len(batches), scan_s, pub_s))
+
+        # a device fault in one mini-batch: rc 1, no retry, checkpoint at
+        # the last good batch
+        f_log = os.path.join(tmp, 'follow_fault.log')
+        f_idx = os.path.join(tmp, 'idx_follow_fault')
+        nf = min(records, LIFECYCLE_FAULT_RECORDS)
+        open(f_log, 'wb').close()
+        copy_bytes(data, f_log, 0, line_offsets(data, [nf])[0])
+        add_datasource(cli, 'follow_fault', f_log, f_idx, FLAT_METRICS)
+        state['fault_at'] = state['batch'] + LIFECYCLE_FAULT_BATCH
+        try:
+            rc, out, err, dt, batches, _, _ = follow('follow_fault', {})
+        finally:
+            state['fault_at'] = None
+        ckpt = Checkpointer(f_idx).load()
+        check(rc == 1 and not out and
+              err.startswith('dn: mini-batch %d (' % LIFECYCLE_FAULT_BATCH)
+              and 'planted one-hot kernel fault' in err and
+              'publish failed (attempt' not in err,
+              'lifecycle: the planted device fault: rc %d, stderr %r'
+              % (rc, err[-400:]))
+        check(ckpt is not None and
+              ckpt['seq'] == LIFECYCLE_FAULT_BATCH - 1 and
+              len(batches) == LIFECYCLE_FAULT_BATCH - 1 and
+              ckpt['sources'][0]['offset'] ==
+              sum(b['bytes'] for b in batches),
+              'lifecycle: the checkpoint after the fault: %r' % ckpt)
+        doc['fault'] = {'rc': rc, 'stderr': err.strip(),
+                        'checkpoint_seq': ckpt['seq'],
+                        'checkpoint_offset': ckpt['sources'][0]['offset']}
+        log('lifecycle device fault: rc 1 in %.2f s, no retry, checkpoint '
+            'seq %d at byte %d | %s'
+            % (dt, ckpt['seq'], ckpt['sources'][0]['offset'],
+               err.strip()[:160]))
+
+        # rollups on copies of phase 7's trees
+        month = os.path.join(tmp, 'idx_month')
+        _, config = ConfigBackendLocal().load()
+        mdoc = config.datasource_get('month')
+        mdata = mdoc['ds_backend_config']['path']
+        rdoc = {}
+        captured = []
+
+        def wrap_query(orig):
+            def q(self, *a, **k):
+                rv = orig(self, *a, **k)
+                captured.append(rv)
+                return rv
+            return q
+        spy.wrap(mod_dsf.DatasourceFile, 'query', wrap_query)
+        for interval in ('hour', 'day'):
+            copy = os.path.join(tmp, 'idx_month_rollup_' + interval)
+            shutil.copytree(month, copy)
+            name = 'month_' + interval
+            add_datasource(cli, name, mdata, copy,
+                           [(m, b) for m, b, _ in BUILD_METRICS])
+            cases = [c for c in QUERY_CASES
+                     if '--interval=' + interval in c[1]]
+            before = {}
+            for qname, qargs, _ in cases:
+                t0 = time.monotonic()
+                rc, out, err = run_cli(cli, ['query', '--points',
+                                             '--counters'] + qargs +
+                                       [name])
+                torch.cuda.synchronize()
+                before[qname] = time.monotonic() - t0
+            t0 = time.monotonic()
+            rc, out, err = run_cli(cli, ['rollup', '--tree', copy,
+                                         '--interval', interval])
+            rt = time.monotonic() - t0
+            check(rc == 0 and 'shard(s) built' in err,
+                  'lifecycle: rollup --interval %s failed: %s'
+                  % (interval, err))
+            first_msg = err.strip()
+            built = int(err.split(': ')[1].split(' ')[0])
+            check(built > 0, 'lifecycle: rollup built nothing')
+            rc, _, err2 = run_cli(cli, ['rollup', '--tree', copy,
+                                        '--interval', interval])
+            check(rc == 0 and err2.startswith('dn rollup: 0 shard(s) '
+                                              'built'),
+                  'lifecycle: a second rollup built shards: %s' % err2)
+            qrows = []
+            for qname, qargs, _ in cases:
+                del captured[:]
+                t0 = time.monotonic()
+                rc, out, err = run_cli(cli, ['query', '--points',
+                                             '--counters'] + qargs +
+                                       [name])
+                torch.cuda.synchronize()
+                qt = time.monotonic() - t0
+                check(rc == 0 and (out, err) == query_outputs[qname],
+                      'lifecycle: query %s over the rollups differs from '
+                      'phase 7\'s output' % qname)
+                via = sum(st.counters.get('index shards via rollup', 0)
+                          for st in captured[-1].pipeline.stages)
+                if qargs == ['--interval=hour']:
+                    check(via > 0, 'lifecycle: the bare query did not '
+                          'engage the rollups')
+                qrows.append({'name': qname, 'before_s': before[qname],
+                              'after_s': qt, 'via_rollup': via})
+                log('lifecycle query %-33s %.3f s before the rollups, '
+                    '%.3f s after (%d shards via rollups) | = phase 7'
+                    % (qname, before[qname], qt, via))
+            rdoc[interval] = {'wall_s': rt, 'built': built,
+                              'message': first_msg,
+                              'again': err2.strip(), 'queries': qrows}
+            log('lifecycle rollup --interval %s: %s in %.2f s; again: %s'
+                % (interval, first_msg, rt, err2.strip()))
+        doc['rollup'] = rdoc
+    finally:
+        spy.restore()
+    return doc
+
+
 def main_path_keys(ck, captured, reps):
     """Phase 5: the kernel on the fused keys the main path gave it, the
     largest batch of each query at each segment count."""
@@ -2469,6 +2962,8 @@ def main():
                           query_outputs)
         parse = parse_phase(cli, mod_ds, ck, tmp, data, args.records,
                             args.seed, forced, build, args.reps)
+        lifecycle = lifecycle_phase(cli, mod_ds, ck, tmp, data,
+                                    args.records, query_outputs)
     torch.cuda.synchronize()
 
     # 10. the kernel on the main path's own keys, and on uniform keys at
@@ -2508,8 +3003,8 @@ def main():
                        'shapes': results, 'sparse_fold_bench': fold_bench,
                        'sparse_scans': sparse, 'build': build,
                        'pipeline': pipeline,
-                       'query': queries, 'auto': auto, 'parse': parse}, f,
-                      indent=1)
+                       'query': queries, 'auto': auto, 'parse': parse,
+                       'lifecycle': lifecycle}, f, indent=1)
     print(json.dumps({'query': [
         {k: q[k] for k in ('name', 'route', 'points', 'device_s',
                            'host_s', 'dispatches', 'rows', 'h2d_bytes',
@@ -2522,6 +3017,7 @@ def main():
         'builds': auto['builds'], 'queries': auto['queries']}}),
         flush=True)
     print(json.dumps({'parse': parse}), flush=True)
+    print(json.dumps({'lifecycle': lifecycle}), flush=True)
     block = parse['shapes'][0]
     log('smoke: %.1f s' % (time.monotonic() - t_smoke))
     log('gpu: %s' % card)
@@ -2531,6 +3027,7 @@ def main():
         'build_launches': build['build_launches'],
         'query_launches': queries['onehot_launches'],
         'auto_launches': auto['auto_launches'],
+        'follow_launches': lifecycle['follow']['k1_launches'],
         'max_abs_err': max(r['max_abs_err'] for r in results),
         'ms': main['ms'], 'plain_ms': main['plain_ms'],
         'bound_ms': main['bound_ms'], 'bound_by': main['bound_by'],

@@ -1,22 +1,26 @@
 """The port's command-line interface: `python -m dragnet_tpu_torch`.
 
 Counterpart of dragnet_tpu/cli.py for the commands this port covers:
-`scan`, `build`, `index-scan` and `query` (on DN_TORCH_DEVICE, default
-cuda, with the engine DN_ENGINE names, as bin/dn reads it: auto by
-default, jax for the device lane, vector for the host engine, host for
-the per-record engine; `scan` and `build` parse through the lane
-DN_PARSE or `--parse` names: auto, host, vector or device),
-`datasource-add`, `datasource-list`,
-`metric-add`, `metric-list`, `metric-remove` and `index-config`.
-Option parsing, breakdown expansion, warnings (`--warnings`) and output
-are the reference CLI's, so the port prints byte-identical results and
-writes byte-identical index trees.  Options the port cannot honour yet
+`scan`, `build`, `index-scan`, `query` and `follow` (on
+DN_TORCH_DEVICE, default cuda, with the engine DN_ENGINE names, as
+bin/dn reads it: auto by default, jax for the device lane, vector for
+the host engine, host for the per-record engine; `scan` and `build`
+parse through the lane DN_PARSE or `--parse` names: auto, host, vector
+or device), the host-side index commands `index-read`, `rollup` and
+`compact`, and the configuration commands `datasource-add`,
+`datasource-update`, `datasource-remove`, `datasource-list`,
+`datasource-show`, `metric-add`, `metric-list`, `metric-remove` and
+`index-config`.  Option parsing, breakdown expansion, warnings
+(`--warnings`), output and the `-t` timing flag are the reference
+CLI's, so the port prints byte-identical results and writes
+byte-identical index trees.  Options the port cannot honour yet
 (`--remote`, `--trace`, and `--assetroot` on `query`) are unknown
 options: a usage error.  The configuration is the same file as bin/dn's
 ($DRAGNET_CONFIG or ~/.dragnetrc).
 
 Exit codes: 2 for usage errors (with the usage text on stderr), 1 for
-fatal runtime errors ("dn: <message>").
+fatal runtime errors ("dn: <message>"); `follow` returns its own (1
+when its --once catch-up or drain gave up).
 """
 
 import os
@@ -39,7 +43,13 @@ dn datasource-add    [--backend=file] --path=DATA_PATH
                      [--index-path=INDEX_PATH] [--filter=FILTER]
                      [--time-field=FIELD] [--time-format=TIME_FORMAT]
                      [--data-format=json|json-skinner] DATASOURCE
+dn datasource-update [--backend=file] [--path=DATA_PATH]
+                     [--index-path=INDEX_PATH] [--filter=FILTER]
+                     [--time-field=FIELD] [--time-format=TIME_FORMAT]
+                     [--data-format=json|json-skinner] DATASOURCE
 dn datasource-list   [-v]
+dn datasource-remove DATASOURCE
+dn datasource-show   [-v] DATASOURCE
 dn metric-add        [--breakdowns=BREAKDOWN[,...]] [--filter=FILTER]
 \t\t     DATASOURCE METRIC
 dn metric-list       [-v] DATASOURCE
@@ -60,16 +70,24 @@ dn scan              [--before=START_TIME] [--after=END_TIME] [--filter=FILTER]
                      [--gnuplot] [--parse=auto|host|vector|device]
                      DATASOURCE
 dn index-config      DATASOURCE
+dn index-read        [--index-config=INDEX_CONFIG_FILE]
+                     [--interval=hour|day|all]
+                     DATASOURCE
 dn index-scan        [--index-config=INDEX_CONFIG_FILE]
                      [--interval=hour|day|all]
                      [--before=START_TIME] [--after=END_TIME] [--filter=FILTER]
                      [--breakdowns=BREAKDOWN[,...]] [--counters] DATASOURCE
+dn follow            [--interval=hour|day|all] [--index-config=CONFIG_FILE]
+                     [--once] [--validate] DATASOURCE [FILE|- ...]
+dn rollup            [--tree=INDEX_PATH] [--interval=hour|day]
+dn compact           [--tree=INDEX_PATH] [--interval=hour|day]
+                     [--min-gens=N]
 
-scan, build, index-scan and query run on DN_TORCH_DEVICE (default: cuda)
-with the engine DN_ENGINE names: auto (the default: the multithreaded
-host engine, the device taking the stream over once it wins an
-audition), jax (the device from the first batch), vector (the host
-engine) or host (the per-record engine).  DN_PARSE or --parse picks the
+scan, build, index-scan, query and follow run on DN_TORCH_DEVICE
+(default: cuda) with the engine DN_ENGINE names: auto (the default: the
+multithreaded host engine, the device taking the stream over once it
+wins an audition), jax (the device from the first batch), vector (the
+host engine) or host (the per-record engine).  DN_PARSE or --parse picks the
 parse lane of scan and build: auto (the C++ parser, or the byte lane
 without it), host, vector (the byte lane) or device (the byte lane with
 its quote-parity scan on DN_TORCH_DEVICE).
@@ -97,12 +115,23 @@ DN_OPTIONS = [
     # stacked index-query override; DN_IQ_STACK for one run: auto|0|1
     (['iq-stack'], 'string', None),
     (['index-path'], 'string', None),
+    # `dn compact`: only rewrite base shards holding at least this
+    # many follow mini-generations (default 1: fold everything)
+    (['min-gens'], 'string', None),
+    # `dn follow` catch-up mode: ingest to the sources' current EOF,
+    # publish, checkpoint, and exit instead of tailing forever
+    (['once'], 'bool', None),
     (['parse'], 'string', None),
     (['path'], 'string', None),
     (['points'], 'bool', None),
     (['raw'], 'bool', None),
     (['time-field'], 'string', None),
     (['time-format'], 'string', None),
+    # `dn rollup` / `dn compact`: limit the walk to one index root
+    (['tree'], 'string', None),
+    # `dn follow --validate`: check the knobs and sources, print the
+    # resolved configuration, touch nothing
+    (['validate'], 'bool', None),
     (['verbose', 'v'], 'bool', False),
     (['warnings'], 'bool', None),
 ]
@@ -357,6 +386,31 @@ def cmd_datasource_add(ctx, argv):
     _save(ctx, ctx['config'].datasource_add(dsconfig))
 
 
+def cmd_datasource_update(ctx, argv):
+    opts = dn_parse_args(argv, ['backend', 'data-format', 'filter', 'path',
+                                'time-field', 'time-format', 'index-path'])
+    check_arg_count(opts, 1)
+    dsname = opts._args[0]
+    dsupdate = {
+        'backend': opts.backend,
+        'backend_config': {
+            'path': opts.path,
+            'indexPath': opts.index_path,
+            'timeFormat': opts.time_format,
+            'timeField': opts.time_field,
+        },
+        'filter': opts.filter if opts.filter is not None else None,
+        'dataFormat': opts.data_format,
+    }
+    _save(ctx, ctx['config'].datasource_update(dsname, dsupdate))
+
+
+def cmd_datasource_remove(ctx, argv):
+    opts = dn_parse_args(argv, [])
+    check_arg_count(opts, 1)
+    _save(ctx, ctx['config'].datasource_remove(opts._args[0]))
+
+
 def _datasource_print(out, dsname, ds, verbose):
     if ds['ds_backend'] == 'manta':
         location = 'manta://us-east.manta.joyent.com%s' \
@@ -387,6 +441,18 @@ def cmd_datasource_list(ctx, argv):
     out.write('%-20s %-59s\n' % ('DATASOURCE', 'LOCATION'))
     for dsname, ds in ctx['config'].datasource_list():
         _datasource_print(out, dsname, ds, opts.verbose)
+
+
+def cmd_datasource_show(ctx, argv):
+    opts = dn_parse_args(argv, ['verbose'])
+    check_arg_count(opts, 1)
+    dsname = opts._args[0]
+    ds = ctx['config'].datasource_get(dsname)
+    if ds is None:
+        fatal(DNError('unknown datasource: "%s"' % dsname))
+    out = sys.stdout
+    out.write('%-20s %-59s\n' % ('DATASOURCE', 'LOCATION'))
+    _datasource_print(out, dsname, ds, opts.verbose)
 
 
 def cmd_metric_add(ctx, argv):
@@ -675,23 +741,277 @@ def cmd_index_scan(ctx, argv):
     dn_output(None, opts, result, dsname)
 
 
+def cmd_index_read(ctx, argv):
+    opts = dn_parse_args(argv, ['index-config', 'interval'])
+    check_arg_count(opts, 1)
+    dsname = opts._args[0]
+    indexcfg = _read_index_config(opts.index_config) \
+        if opts.index_config else None
+    ds = datasource_for_name(ctx['config'], dsname)
+    if isinstance(ds, DNError):
+        fatal(ds)
+    metrics = metrics_for_index(ctx['config'], dsname,
+                                index_config=indexcfg)
+    if len(metrics) == 0:
+        fatal(DNError('no metrics defined for dataset "%s"' % dsname))
+    # the write gate (resources.py): index-read lands shards — on a
+    # disk-critical tree it rejects up front, retryably, instead of
+    # consuming the stream and failing mid-publish (host work: no
+    # device is touched)
+    from . import resources as mod_resources
+    res_conf = mod_config.resources_config()
+    if isinstance(res_conf, DNError):
+        fatal(res_conf)
+    try:
+        mod_resources.check_tree_writable(
+            getattr(ds, 'ds_indexpath', None), res_conf,
+            what='index-read')
+        ds.index_read(metrics, opts.interval, sys.stdin.buffer)
+    except DNError as e:
+        fatal(e)
+
+
+def cmd_follow(ctx, argv):
+    """`dn follow [--interval=I] [--index-config=F] [--once]
+    [--validate] DATASOURCE [FILE ...]`: the continuous-ingest daemon
+    (follow/loop.py) — tail growing files (FILE of `-` reads stdin;
+    default: the datasource's own data path when it is a regular
+    file), cut mini-batches by DN_FOLLOW_LATENCY_MS /
+    DN_FOLLOW_MAX_BYTES, and incrementally publish shard updates with
+    an exactly-once checkpoint.  Each mini-batch scans on the CLI's
+    engine and device (DN_ENGINE, DN_TORCH_DEVICE); a device-lane
+    fault ends the loop (follow/loop.py)."""
+    import os
+    opts = dn_parse_args(argv, ['interval', 'index-config', 'once',
+                                'validate'])
+    if len(opts._args) < 1:
+        raise UsageError('missing arguments')
+    dsname = opts._args[0]
+    sources = opts._args[1:]
+    indexcfg = _read_index_config(opts.index_config) \
+        if opts.index_config else None
+    if opts.interval not in ('hour', 'day', 'all'):
+        fatal(DNError('interval not supported: "%s"' % opts.interval))
+
+    # the follow knobs share the fail-fast validation contract with
+    # the device and fault knobs: a malformed value is caught here
+    # (and by --validate), not at the first batch that needs it
+    conf = mod_config.follow_config()
+    if isinstance(conf, DNError):
+        fatal(conf)
+    faults_conf = mod_config.faults_config()
+    if isinstance(faults_conf, DNError):
+        fatal(faults_conf)
+    obs_conf = mod_config.obs_config()
+    if isinstance(obs_conf, DNError):
+        fatal(obs_conf)
+    res_conf = mod_config.resources_config()
+    if isinstance(res_conf, DNError):
+        fatal(res_conf)
+
+    ds = datasource_for_name(ctx['config'], dsname)
+    if isinstance(ds, DNError):
+        fatal(ds)
+    if getattr(ds, 'ds_indexpath', None) is None:
+        fatal(DNError('datasource is missing "indexpath"'))
+    if opts.interval != 'all' and \
+            getattr(ds, 'ds_timefield', None) is None:
+        fatal(DNError('datasource is missing "timefield"'))
+    metrics = metrics_for_index(ctx['config'], dsname,
+                                index_config=indexcfg)
+    if len(metrics) == 0:
+        fatal(DNError('no metrics defined for dataset "%s"' % dsname))
+
+    if not sources:
+        datapath = getattr(ds, 'ds_datapath', None)
+        if datapath is None or not os.path.isfile(datapath):
+            fatal(DNError('no sources given and the datasource path '
+                          'is not a regular file; name the file(s) '
+                          'to follow (or "-" for stdin)'))
+        sources = [datapath]
+    norm = []
+    for src in sources:
+        norm.append(src if src == '-' else os.path.abspath(src))
+    if norm.count('-') > 1:
+        raise UsageError('stdin ("-") may be named at most once')
+
+    if getattr(opts, 'validate', None):
+        # dry mode (bin/dn's): the DN_FOLLOW_* /
+        # DN_FAULTS / obs knobs and the source arguments were just
+        # validated through the paths the daemon uses; report the
+        # resolved configuration and exit without touching anything
+        sys.stdout.write(
+            'follow config ok: latency_ms=%d max_bytes=%d '
+            'poll_ms=%d\n'
+            % (conf['latency_ms'], conf['max_bytes'],
+               conf['poll_ms']))
+        sys.stdout.write(
+            'obs config ok: trace=%s slow_ms=%s buckets=%d\n'
+            % (obs_conf['trace'] or 'off',
+               obs_conf['slow_ms'] if obs_conf['slow_ms'] is not None
+               else 'off', len(obs_conf['buckets'])))
+        sys.stdout.write(
+            'resources config ok: disk_low_pct=%g '
+            'disk_critical_pct=%g poll_ms=%d\n'
+            % (res_conf['disk_low_pct'],
+               res_conf['disk_critical_pct'], res_conf['poll_ms']))
+        sys.stdout.write(
+            'follow plan: datasource=%s interval=%s index=%s '
+            'sources=%s\n'
+            % (dsname, opts.interval, ds.ds_indexpath,
+               ','.join(norm)))
+        sites = faults_conf['sites']
+        if sites:
+            sys.stdout.write(
+                'faults armed: %s\n' % ' '.join(
+                    '%s:%s:%g:%d' % (s, k, r, seed)
+                    for s, (k, r, seed) in sorted(sites.items())))
+        return 0
+
+    from .follow import loop as mod_floop
+    device, engine = _device(), _engine()
+    if engine in mod_floop.DEVICE_ENGINES:
+        # no batch is published before the device answers: CUDA asked
+        # for and absent fails here, not at the first mini-batch
+        from .ops import resolve_device
+        try:
+            resolve_device(device)
+        except DNError as e:
+            fatal(e)
+    try:
+        return mod_floop.follow_main(ds, metrics, opts.interval, norm,
+                                     conf, once=bool(opts.once),
+                                     device=device, engine=engine)
+    except DNError as e:
+        fatal(e)
+
+
+def _integrity_trees(opts):
+    """[(dsname-or-None, indexroot)] a rollup/compact pass covers:
+    the --tree override, else every configured file datasource's
+    index tree."""
+    from . import integrity as mod_integrity
+    if opts.tree:
+        return [(None, opts.tree)]
+    try:
+        trees = mod_integrity.configured_index_trees()
+    except DNError as e:
+        fatal(e)
+    if not trees:
+        fatal(DNError('no index trees configured (and no --tree '
+                      'given)'))
+    return trees
+
+
+def cmd_rollup(ctx, argv):
+    """`dn rollup [--tree T] [--interval hour|day]`: build/refresh
+    the multi-resolution rollup shards (day-from-hour, month-from-
+    day/hour; rollup.py) for the interval's fine tree — merging
+    EXISTING index shards, no raw rescan — and publish them through
+    the two-phase journal + integrity catalog.  The query planner
+    then answers wide-window queries from the coarsest covering
+    shard set, byte-identically.  Host work: no device is touched."""
+    from . import rollup as mod_rollup
+    opts = dn_parse_args(argv, ['tree', 'interval'])
+    check_arg_count(opts, 0)
+    if opts.interval not in ('hour', 'day'):
+        fatal(DNError('interval not supported: "%s"' % opts.interval))
+    total = {'built': 0, 'fresh': 0, 'removed': 0}
+    for dsname, root in _integrity_trees(opts):
+        try:
+            doc = mod_rollup.build_rollups(root, opts.interval)
+        except (DNError, OSError) as e:
+            fatal(e if isinstance(e, DNError) else DNError(str(e)))
+        for k in total:
+            total[k] += doc[k]
+        if doc['paused']:
+            sys.stderr.write('dn rollup: paused under resource '
+                             'pressure (tree "%s")\n' % root)
+    sys.stderr.write('dn rollup: %d shard(s) built, %d fresh, '
+                     '%d removed\n' % (total['built'], total['fresh'],
+                                       total['removed']))
+    return 0
+
+
+def cmd_compact(ctx, argv):
+    """`dn compact [--tree T] [--interval hour|day] [--min-gens N]`:
+    rewrite base shards + their `dn follow --append` mini-generations
+    into single shards (rollup.compact_tree).  The consumed
+    generations are deleted through the publish commit record —
+    crash-safe at every instant.  Host work: no device is touched."""
+    from . import rollup as mod_rollup
+    opts = dn_parse_args(argv, ['tree', 'interval', 'min-gens'])
+    check_arg_count(opts, 0)
+    if opts.interval not in ('hour', 'day'):
+        fatal(DNError('interval not supported: "%s"' % opts.interval))
+    min_gens = 1
+    if opts.min_gens is not None:
+        try:
+            min_gens = int(opts.min_gens)
+            if min_gens < 1:
+                raise ValueError(opts.min_gens)
+        except ValueError:
+            raise UsageError('bad value for "min-gens": "%s"'
+                             % opts.min_gens)
+    total = {'groups': 0, 'compacted': 0, 'generations_removed': 0}
+    for dsname, root in _integrity_trees(opts):
+        try:
+            doc = mod_rollup.compact_tree(root, opts.interval,
+                                          min_gens=min_gens)
+        except (DNError, OSError) as e:
+            fatal(e if isinstance(e, DNError) else DNError(str(e)))
+        for k in total:
+            total[k] += doc[k]
+        if doc['paused']:
+            sys.stderr.write('dn compact: paused under resource '
+                             'pressure (tree "%s")\n' % root)
+    sys.stderr.write('dn compact: %d group(s) compacted, %d '
+                     'generation(s) removed\n'
+                     % (total['compacted'],
+                        total['generations_removed']))
+    return 0
+
+
 COMMANDS = {
     'datasource-add': cmd_datasource_add,
     'datasource-list': cmd_datasource_list,
+    'datasource-remove': cmd_datasource_remove,
+    'datasource-update': cmd_datasource_update,
+    'datasource-show': cmd_datasource_show,
     'metric-add': cmd_metric_add,
     'metric-list': cmd_metric_list,
     'metric-remove': cmd_metric_remove,
     'build': cmd_build,
+    'follow': cmd_follow,
     'index-config': cmd_index_config,
+    'index-read': cmd_index_read,
     'index-scan': cmd_index_scan,
-    'scan': cmd_scan,
+    'compact': cmd_compact,
     'query': cmd_query,
+    'rollup': cmd_rollup,
+    'scan': cmd_scan,
 }
 
 
-def main(argv=None):
+def main(argv=None, startup=None):
+    """startup=(process_t0, require_seconds) from __main__ lets -t
+    split module-load cost from total, like the reference's
+    require-vs-total timing (bin/dn:80-83,1290-1296)."""
     if argv is None:
         argv = sys.argv[1:]
+
+    track_time = False
+    if argv and argv[0] == '-t':
+        track_time = True
+        argv = argv[1:]
+
+    import time
+    t0 = time.time()
+    require_s = None
+    if startup is not None:
+        t0, require_s = startup[0], startup[1]
+
+    rv = None
     try:
         if len(argv) < 1:
             raise UsageError('no command specified')
@@ -704,7 +1024,7 @@ def main(argv=None):
         if err is not None and not getattr(err, 'is_enoent', False):
             fatal(err)
         ctx = {'backend': backend, 'config': config}
-        COMMANDS[cmdname](ctx, argv[1:])
+        rv = COMMANDS[cmdname](ctx, argv[1:])
     except UsageError as e:
         if e.message:
             sys.stderr.write('%s: %s\n' % (ARG0, e.message))
@@ -715,4 +1035,11 @@ def main(argv=None):
         return 1
     except BrokenPipeError:
         return 0
-    return 0
+
+    if track_time:
+        sys.stderr.write('timing stats:\n')
+        if require_s is not None:
+            sys.stderr.write('    require:  %.3fs\n' % require_s)
+        sys.stderr.write('    total:    %.3fs\n' % (time.time() - t0))
+    # `follow` returns its exit code
+    return rv if isinstance(rv, int) else 0

@@ -3,8 +3,10 @@
 Counterpart of dragnet_tpu/config.py: the configuration model, its
 schema-validated load, the local file backend, and the knobs the index
 build reads: DN_DISK_* (resources_config) and DN_FAULTS (faults_config),
-and the device-lane knobs (device_config).  The serve and cluster knobs
-are not ported.  Re-implements lib/config-common.js (clone-on-write
+the device-lane knobs (device_config), and the knobs `dn follow`
+validates: DN_FOLLOW_* (follow_config) and the observability knobs
+(obs_config).  The serve and cluster knobs are not ported.
+Re-implements lib/config-common.js (clone-on-write
 DragnetConfig, versioned vmaj/vmin 0.0, schema-validated load) and
 lib/config-local.js (JSON file at $DRAGNET_CONFIG or
 ~/.dragnetrc, atomic tmp+rename save), so the port and bin/dn read and
@@ -430,6 +432,163 @@ def device_config(env=None):
             return DNError('%s: expected an integer >= %d, got "%s"'
                            % (name, minimum, raw))
         rv[key] = value
+    return rv
+
+
+# --- continuous-ingest knobs (DN_FOLLOW_*) ----------------------------
+#
+# Parsed and validated in one place (follow/loop.py consumes them;
+# `dn follow` checks them up front, and `--validate` prints them).
+# Each entry: (env name, kind, default, min).
+
+_FOLLOW_KNOBS = [
+    # target mini-batch latency: a pending batch is cut once its
+    # oldest bytes are this old (StreamBox-HBM's target-latency
+    # batching); 0 cuts as soon as any complete line is pending
+    ('DN_FOLLOW_LATENCY_MS', 'int', 500, 0),
+    # byte budget: a pending batch is cut early once it holds this
+    # many bytes, whatever its age
+    ('DN_FOLLOW_MAX_BYTES', 'int', 4 << 20, 1),
+    # idle poll cadence when no source produced new bytes
+    ('DN_FOLLOW_POLL_MS', 'int', 50, 1),
+    # append mode: land each batch as a mini-generation
+    # (`<shard>.sqlite-gNNNNNN`) next to its base shard instead of
+    # read-modify-rewriting the whole shard — O(batch) publishes;
+    # the background compactor (`dn compact`, DN_COMPACT_INTERVAL_S)
+    # folds generations back into one file
+    ('DN_FOLLOW_APPEND', 'bool', False, None),
+]
+
+
+def follow_config(env=None):
+    """The resolved DN_FOLLOW_* knob dict (keys: latency_ms,
+    max_bytes, poll_ms, append), or DNError on the first malformed
+    value — the shared fail-fast contract `dn follow --validate`
+    checks."""
+    if env is None:
+        env = os.environ
+    rv = {}
+    for name, kind, default, minimum in _FOLLOW_KNOBS:
+        key = name[len('DN_FOLLOW_'):].lower()
+        raw = env.get(name)
+        if raw is None or raw == '':
+            rv[key] = default
+            continue
+        if kind == 'bool':
+            if raw not in ('0', '1'):
+                return DNError('%s: expected 0 or 1, got "%s"'
+                               % (name, raw))
+            rv[key] = raw == '1'
+            continue
+        try:
+            value = int(raw)
+        except ValueError:
+            return DNError('%s: expected an integer >= %d, got "%s"'
+                           % (name, minimum, raw))
+        if value < minimum:
+            return DNError('%s: expected an integer >= %d, got "%s"'
+                           % (name, minimum, raw))
+        rv[key] = value
+    return rv
+
+
+# --- observability knobs (DN_TRACE / DN_SLOW_MS / DN_METRICS_BUCKETS) -
+#
+# Parsed and validated in one place, checked up front by `dn follow`
+# (and printed by its `--validate`); the obs runtime reads the env
+# forgivingly (a live daemon must not crash on an env edit) — THIS is
+# where malformed values are rejected with the shared DNError
+# contract.  The port has no tracing runtime yet: DN_TRACE and
+# DN_SLOW_MS are validated and reported, as bin/dn does, and otherwise
+# inert.
+
+def obs_config(env=None):
+    """The resolved observability knobs (keys: trace, slow_ms,
+    buckets, history_s, events, events_file, events_file_max_mb,
+    top_interval_ms), or DNError on the first malformed value.
+
+    * DN_TRACE: '' (off), 'stderr', or a trace-file path (one JSON
+      span-tree line per request is appended).
+    * DN_SLOW_MS: integer >= 0; requests at/over the threshold write
+      their span tree to stderr.  Empty/unset disables.
+    * DN_METRICS_BUCKETS: comma-separated strictly-increasing positive
+      histogram upper bounds (ms); unset uses the default ladder.
+    * DN_METRICS_HISTORY_S: seconds between metric-history snapshots
+      (obs/history.py); 0 (the default) disables the rings.
+    * DN_EVENTS: event-journal ring capacity (obs/events.py); 0 (the
+      default) disables the journal.
+    * DN_EVENTS_FILE: optional JSONL spill path for the journal
+      (implies a default ring when DN_EVENTS is unset); its directory
+      must exist, like DN_TRACE's.
+    * DN_EVENTS_FILE_MAX_MB: spill size cap before rotation to
+      `<path>.1` (obs/events.py); 0 disables rotation.
+    * DN_TOP_INTERVAL_MS: `dn top` poll cadence, integer >= 100.
+    """
+    if env is None:
+        env = os.environ
+    rv = {}
+    trace = env.get('DN_TRACE') or ''
+    if trace and trace != 'stderr':
+        parent = os.path.dirname(os.path.abspath(trace))
+        if not os.path.isdir(parent):
+            return DNError('DN_TRACE: expected "stderr" or a path in '
+                           'an existing directory, got "%s"' % trace)
+    rv['trace'] = trace or None
+    raw = env.get('DN_SLOW_MS')
+    if raw is None or raw == '':
+        rv['slow_ms'] = None
+    else:
+        try:
+            slow = int(raw)
+        except ValueError:
+            slow = -1
+        if slow < 0:
+            return DNError('DN_SLOW_MS: expected an integer >= 0, '
+                           'got "%s"' % raw)
+        rv['slow_ms'] = slow
+    for name, key, default, minimum in (
+            ('DN_METRICS_HISTORY_S', 'history_s', 0, 0),
+            ('DN_EVENTS', 'events', 0, 0),
+            # size cap (MB) for the DN_EVENTS_FILE JSONL spill: past
+            # it the file rotates to `<path>.1` (one predecessor
+            # kept); 0 disables rotation (the pre-cap unbounded
+            # growth, opt-in only)
+            ('DN_EVENTS_FILE_MAX_MB', 'events_file_max_mb', 64, 0),
+            ('DN_TOP_INTERVAL_MS', 'top_interval_ms', 1000, 100)):
+        raw = env.get(name)
+        if raw is None or raw == '':
+            rv[key] = default
+            continue
+        try:
+            value = int(raw)
+        except ValueError:
+            value = minimum - 1
+        if value < minimum:
+            return DNError('%s: expected an integer >= %d, got "%s"'
+                           % (name, minimum, raw))
+        rv[key] = value
+    evfile = env.get('DN_EVENTS_FILE') or ''
+    if evfile:
+        parent = os.path.dirname(os.path.abspath(evfile))
+        if not os.path.isdir(parent):
+            return DNError('DN_EVENTS_FILE: expected a path in an '
+                           'existing directory, got "%s"' % evfile)
+    rv['events_file'] = evfile or None
+    raw = env.get('DN_METRICS_BUCKETS')
+    if raw is None or raw == '':
+        from .obs.metrics import DEFAULT_BUCKETS_MS
+        rv['buckets'] = list(DEFAULT_BUCKETS_MS)
+        return rv
+    try:
+        bounds = [float(p) for p in raw.split(',')]
+    except ValueError:
+        bounds = []
+    if not bounds or any(b <= 0 for b in bounds) or \
+            any(b >= c for b, c in zip(bounds, bounds[1:])):
+        return DNError('DN_METRICS_BUCKETS: expected a '
+                       'comma-separated strictly-increasing list of '
+                       'positive numbers, got "%s"' % raw)
+    rv['buckets'] = bounds
     return rv
 
 

@@ -1,25 +1,25 @@
-"""File-backend scan, build, index-scan and query: input enumeration,
-the parse lanes, the scan engines and the index walk.
+"""File-backend scan, build, index-scan, index-read and query: input
+enumeration, the parse lanes, the scan engines and the index walk.
 
 Counterpart of dragnet_tpu/datasource_file.py (`scan`, `build`,
-`index_scan`, `query`): input enumeration (strftime-pruned when the
-datasource has a time format), one pass over the concatenated file
-bytes (a partial trailing line joins across file boundaries) through
-the parse lane DN_PARSE picks (byteparse.choose_lane: the C++ parser,
-native/dnparse.cc; the byte lane, byteparse.ByteParser, with its
-quote-parity scan in numpy or on the device; or the Python record
-path), batches fed to the forced device scan (engine='device'), to the
-host engine (engine.VectorScan) on DN_SCAN_THREADS workers (scan_mt.py),
-or under engine='auto' to those workers until the device takes the
-stream over (_takeover_stream, device_scan.AutoDeviceScan).
-engine='host' (DN_ENGINE=host), DN_BUILD_ENGINE=host and a warning
-callback (`--warnings`) run the per-record engine (scan.StreamScan).  A
-build feeds ONE parse stream to every metric's scan (stacked on the
-device: DeviceScanStack) and hands each metric's aggregate to the index
-writer (index_build_mt.py).  A query walks the
-index tree and answers through the rollup planner, the stacked path
-(index_query_stack.py, its weight sums on the device: device_index.py)
-or the per-shard loop (index_query_mt.py), in the reference's order.
+`index_scan`, `index_read`, `query`): input enumeration (strftime-pruned
+when the datasource has a time format), one pass over the concatenated
+file bytes (a partial trailing line joins across file boundaries)
+through the parse lane DN_PARSE picks (byteparse.choose_lane: the C++
+parser, native/dnparse.cc; the byte lane, byteparse.ByteParser, with its
+quote-parity scan in numpy or on the device; or the Python record path),
+batches fed to the forced device scan (engine='device'), to the host
+engine (engine.VectorScan) on DN_SCAN_THREADS workers (scan_mt.py), or
+under engine='auto' to those workers until the device takes the stream
+over (_takeover_stream, device_scan.AutoDeviceScan). engine='host'
+(DN_ENGINE=host), DN_BUILD_ENGINE=host and a warning callback
+(`--warnings`) run the per-record engine (scan.StreamScan). A build
+feeds ONE parse stream to every metric's scan (stacked on the device:
+DeviceScanStack) and hands each metric's aggregate to the index writer
+(index_build_mt.py). A query walks the index tree and answers through
+the rollup planner, the stacked path (index_query_stack.py, its weight
+sums on the device: device_index.py) or the per-shard loop
+(index_query_mt.py), in the reference's order.
 """
 
 import os
@@ -745,6 +745,42 @@ class DatasourceFile(object):
         except BaseException:
             writer.abort()
             raise
+
+    # how many stdin points index_read routes to the sinks at a time:
+    # large enough to amortize the bulk write, small enough that peak
+    # memory stays flat however long the piped stream is
+    INDEX_READ_CHUNK = 4096
+
+    def index_read(self, metrics, interval, instream):
+        """Read tagged json-skinner points (from stdin) and write index
+        files, streaming in bounded chunks through the build's
+        StreamingIndexWriter (host work: the points are already
+        aggregated).  (reference: lib/datasource-file.js:729-746)"""
+        error = self.check_index_args(interval, True, False)
+        if error is not None:
+            raise error
+        pipeline = Pipeline()
+        from . import index_build_mt as mod_ibmt
+        from . import resources as mod_resources
+        writer = mod_ibmt.StreamingIndexWriter(metrics, interval,
+                                               self.ds_indexpath)
+        with mod_resources.translate_pressure_errors('index-read'):
+            try:
+                chunk = []
+                for rec in mod_ingest.iter_records(
+                        mod_ingest.iter_stream_lines(instream),
+                        'json-skinner', pipeline):
+                    chunk.append(rec)
+                    if len(chunk) >= self.INDEX_READ_CHUNK:
+                        writer.write_points(chunk)
+                        chunk = []
+                if chunk:
+                    writer.write_points(chunk)
+                writer.finish()
+            except BaseException:
+                writer.abort()
+                raise
+        return ScanResult(pipeline)
 
     # -- query ------------------------------------------------------------
 

@@ -20,6 +20,8 @@ Counterpart of dragnet_tpu/integrity.py, its publish and read halves:
   MISSING on disk: short results must be an explicit degradation, not
   a silent one.
 
+`configured_index_trees` lists the index trees of the configured file
+datasources: what `dn rollup` and `dn compact` walk without `--tree`.
 The reference's scrub walk (`dn scrub`, the serve scrubber) and its
 quarantine inspection come with `dn serve`.
 """
@@ -416,3 +418,21 @@ def check_missing(indexroot, present_paths, subdir=None,
             '(e.g. "%s"); repair or `dn scrub --forget-missing`'
             % (indexroot, len(missing), missing[0]),
             indexroot=indexroot, shards=missing)
+
+
+def configured_index_trees(cfg_path=None):
+    """[(dsname, indexroot)] for every configured file datasource
+    with an index tree — what `dn rollup`/`dn compact` walk without
+    `--tree` (and, in the reference, `dn scrub` and its serve-side
+    scrubber)."""
+    from . import config as mod_config
+    backend = mod_config.ConfigBackendLocal(cfg_path)
+    err, config = backend.load()
+    if err is not None and not getattr(err, 'is_enoent', False):
+        raise err
+    out = []
+    for dsname, dsdoc in config.datasource_list():
+        idx = (dsdoc.get('ds_backend_config') or {}).get('indexPath')
+        if idx:
+            out.append((dsname, idx))
+    return out
