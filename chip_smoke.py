@@ -159,15 +159,40 @@ it happened; any failed check exits non-zero:
            follow.publish seconds, the compaction's and the rollups'
            walls, query walls before and after, and a `lifecycle` JSON
            line.
+12. serve  `dn serve` on the card (serve/server.py, in-process on a
+           unix socket, DN_ENGINE=jax, DN_DEVICE_RESIDENCY_MB=4096,
+           pre-warm on, 4 execution slots) over a copy of phase 7's
+           tree, every request through the port's `--remote` client:
+           the pre-warm's doc (state ok, both K7a shapes, its ms);
+           phase 7's QUERY_CASES three times, each output equal to phase
+           7's — misses that pin the shards, then one accumulator hit
+           per stacked case with no fold dispatch, then, after
+           drop_host_pins(), a pinned-shard hit for every staged shard
+           with only the translation tables uploaded; the two K1 scans
+           of phase 4 (outputs equal, K1 once per device batch); 8
+           client threads sending the queries and the K1 scan at once
+           (every answer equal to its serial one; K1 launches made on
+           worker threads printed); `build --remote` into the copy (the
+           next query drops stale pins and still equals phase 7's); a
+           fault planted in the K7 fold (that request rc 1 with "dn:
+           ...", the next one right); p50 and p99 of 50 repeats of query
+           (b) with residency, on a server without it, and (5 repeats)
+           in a cold `python -m dragnet_tpu_torch query` process; the
+           drain (stop() returns, the pins dropped, device memory back
+           within one batch's accumulators of its level before the
+           server).  Then K7 on a dispatch the served path gave it and
+           K7a at both pre-warm shapes against their plain versions,
+           exactly, with their times and bounds; a `serve` JSON line.
 10. main   the kernel again, on the fused keys the main path gave it:
    keys    the largest batch of each kernel query at each segment count
            (the time window, and with it the accumulator, grows during
            the timestamp query), captured in phase 4.
 11. result the card's name and power limit (nvidia-smi), a `kernels`
            JSON line (per kernel: launches on the main path, the build,
-           the query phase, the eager auto runs and the follow rounds,
-           times, bound), and as the last line {"ok": true, "device":
-           {...}}.
+           the query phase, the eager auto runs, the follow rounds and
+           the served path, times, bound; K7 and K7a, torch ops that
+           replace the reference's jitted XLA programs, with theirs),
+           and as the last line {"ok": true, "device": {...}}.
 
 Without CUDA, or without the rest of the repository beside it, the
 script exits non-zero and prints no result.
@@ -330,6 +355,19 @@ LIFECYCLE_QUERIES = [
     ('host x operation, latency >= 100',
      ['-b', 'host,operation', '-f', '{"ge":["latency",100]}']),
 ]
+# phase 12: the served path.  Query (b) is timed LATENCY_REPEATS times
+# on a server with residency and on one without, and COLD_REPEATS times
+# in a fresh process (each pays the interpreter, torch and CUDA start-up,
+# so fewer); CONCURRENT_CLIENTS threads each send two requests;
+# after the drain, device memory may stay above its level before the
+# server by at most one scan batch's accumulators (8,396,912 B for phase
+# 9b's flat metrics on an H100), rounded up
+LATENCY_REPEATS = 50
+COLD_REPEATS = 5
+CONCURRENT_CLIENTS = 8
+DRAIN_SLACK_BYTES = 16 << 20
+K7_REPLACES = 'dragnet_tpu/device_index.py:257'
+K7A_REPLACES = 'dragnet_tpu/index_query_stack.py:416'
 # K7's least traffic: each row's local code and weight (16 B), each
 # translation entry (8 B), each accumulator segment read and written
 # (16 B)
@@ -2847,6 +2885,444 @@ def lifecycle_phase(cli, mod_ds, ck, tmp, data, records, query_outputs):
     return doc
 
 
+def percentile(values, q):
+    """The q-quantile (0..1) of `values`, nearest rank."""
+    s = sorted(values)
+    return s[min(len(s) - 1, max(0, int(round(q * len(s) + 0.5)) - 1))]
+
+
+def served(tserver, cli, argv):
+    """One CLI call through the server's thread-stdio router (the
+    in-process server's workers write through it too, so a global
+    redirect would swallow their bytes): (rc, stdout, stderr, s)."""
+    t0 = time.monotonic()
+    with tserver.thread_stdio() as cap:
+        rc = cli.main(list(argv))
+    out, err = cap.finish()
+    return rc, out.decode(), err.decode(), time.monotonic() - t0
+
+
+def serve_phase(cli, ck, tmp, records, query_outputs, forced,
+                main_launches, reps):
+    """Phase 12: `dn serve` on the card over a copy of phase 7's hour
+    tree (see the module docstring).  Returns the `serve` doc and the
+    K7 and K7a kernel entries."""
+    import gc
+    import shutil
+    import threading
+    import torch
+    from dragnet_tpu_torch import device_index as mod_di
+    from dragnet_tpu_torch import index_query_stack as mod_iqs
+    from dragnet_tpu_torch.serve import residency as mod_res
+    from dragnet_tpu_torch.serve import server as tserver
+    from dragnet_tpu_torch.config import ConfigBackendLocal
+    t_phase = time.monotonic()
+    doc = {}
+    copy = os.path.join(tmp, 'idx_serve')
+    shutil.copytree(os.path.join(tmp, 'idx_month'), copy)
+    _, config = ConfigBackendLocal().load()
+    mdata = config.datasource_get('month')['ds_backend_config']['path']
+    add_datasource(cli, 'served', mdata, copy,
+                   [(m, b) for m, b, _ in BUILD_METRICS])
+    qargv = {name: ['--points', '--counters'] + qargs + ['served']
+             for name, qargs, _ in QUERY_CASES}
+    kernel_scans = [(name, qargs) for name, qargs, route in QUERIES
+                    if route == 'kernel']
+    sock = os.path.join(tmp, 'dn.sock')
+    spy = Spy()
+    stage_calls = [0]
+    worker_k1 = [0]
+    fold_args = []
+
+    def wrap_stage(orig):
+        def stage(inv_sl):
+            stage_calls[0] += 1
+            return orig(inv_sl)
+        return stage
+
+    def wrap_fold(orig):
+        def fold(lmat, wmat, ttabs, acc):
+            if not fold_args:
+                # kept on the host, out of the drain's memory check
+                fold_args.append(tuple(x.to('cpu', copy=True) for x in
+                                       (lmat, wmat, ttabs, acc)))
+            return orig(lmat, wmat, ttabs, acc)
+        return fold
+
+    def wrap_k1(orig):
+        def k1(out, fused, weights):
+            if threading.current_thread() is not threading.main_thread():
+                worker_k1[0] += 1
+            return orig(out, fused, weights)
+        return k1
+    spy.wrap(mod_di, '_stage_shard', wrap_stage)
+    spy.wrap(mod_di, '_fold_program', wrap_fold)
+    spy.wrap(ck, 'onehot_dense_into', wrap_k1)
+    knobs = {'DN_ENGINE': 'jax', 'DN_DEVICE_RESIDENCY_MB': '4096',
+             'DN_DEVICE_PREWARM': '1'}
+    try:
+        with env_scope(**knobs):
+            gc.collect()
+            torch.cuda.synchronize()
+            mem_before = torch.cuda.memory_allocated()
+            # the counts: zeroed just before the served path, read
+            # just after it
+            ck.reset_launches()
+            mod_di._reset_engagement()
+            mod_iqs.launches['sums'] = 0
+            t0 = time.monotonic()
+            srv = tserver.DnServer(socket_path=sock,
+                                   conf={'max_inflight': 4}).start()
+            bind_s = time.monotonic() - t0
+            try:
+                doc.update(_serve_checks(
+                    cli, ck, tserver, srv, mod_di, mod_res, qargv,
+                    query_outputs, kernel_scans, forced, main_launches,
+                    stage_calls, worker_k1))
+                lat_on = _latency(cli, tserver, sock, qargv, query_outputs)
+            finally:
+                srv.stop()
+            torch.cuda.synchronize()
+            serve_launches = {'onehot_dense': ck.launches['onehot_dense'],
+                              'quote_parity': ck.launches['quote_parity'],
+                              'fold': mod_di.stats_doc()['dispatches'],
+                              'sums': mod_iqs.launches['sums'],
+                              'onehot_dense_from_workers': worker_k1[0]}
+            mem_after = torch.cuda.memory_allocated()
+            check(mod_res.active() is None, 'serve: residency survived '
+                  'the drain')
+            check(mem_after - mem_before <= DRAIN_SLACK_BYTES,
+                  'serve: device memory after the drain %d B, before the '
+                  'server %d B' % (mem_after, mem_before))
+            log('serve drain: stop() done, device memory %d B before the '
+                'server, %d B after its drain (bind %.3f s)'
+                % (mem_before, mem_after, bind_s))
+        spy.restore()
+        with env_scope(DN_ENGINE='jax', DN_DEVICE_RESIDENCY_MB='0',
+                       DN_DEVICE_PREWARM='0'):
+            srv = tserver.DnServer(socket_path=sock,
+                                   conf={'max_inflight': 4}).start()
+            try:
+                lat_off = _latency(cli, tserver, sock, qargv,
+                                   query_outputs)
+            finally:
+                srv.stop()
+            lat_cold = _cold_latency(qargv, query_outputs)
+    finally:
+        spy.restore()
+    doc['latency_s'] = {'residency': lat_on, 'no_residency': lat_off,
+                        'cold_process': lat_cold}
+    for label, lat in doc['latency_s'].items():
+        log('serve latency of query (b), %-13s n=%d  p50 %.4f s  p99 '
+            '%.4f s  min %.4f s  max %.4f s'
+            % (label, len(lat), percentile(lat, 0.5),
+               percentile(lat, 0.99), min(lat), max(lat)))
+    doc['memory'] = {'before_server': mem_before, 'after_drain': mem_after}
+    doc['launches'] = serve_launches
+    doc['wall_s'] = time.monotonic() - t_phase
+    log('serve: launches %r; phase %.1f s' % (serve_launches,
+                                              doc['wall_s']))
+    k7 = _k7_entry(mod_di, fold_args, serve_launches['fold'], reps)
+    k7a = _k7a_entry(mod_iqs, serve_launches['sums'], reps)
+    return doc, k7, k7a
+
+
+def _serve_checks(cli, ck, tserver, srv, mod_di, mod_res, qargv,
+                  query_outputs, kernel_scans, forced, main_launches,
+                  stage_calls, worker_k1):
+    import threading
+    import torch
+    from dragnet_tpu_torch.obs import metrics as obs_metrics
+    doc = {}
+    sock = srv.socket_path
+    deadline = srv.device_conf['probe_timeout_s']
+    pw = srv.wait_prewarm(deadline)
+    check(pw is not None and pw['state'] == 'ok' and pw['programs'] == 2,
+          'serve: prewarm %r' % (pw,))
+    doc['prewarm'] = pw
+    log('serve prewarm: %s, %d K7a shapes, %.3f ms (backend %s)'
+        % (pw['state'], pw['programs'], pw['ms'], pw['backend']))
+    mgr = mod_res.active()
+    stacked = [n for n, _, route in QUERY_CASES if route == 'device']
+
+    def run_pass(label):
+        r0, e0, s0 = mgr.stats(), mod_di.stats_doc(), stage_calls[0]
+        walls = {}
+        for name, _, _ in QUERY_CASES:
+            rc, out, err, dt = served(tserver, cli, ['query', '--remote',
+                                                     sock] + qargv[name])
+            check(rc == 0 and (out, err) == query_outputs[name],
+                  'serve %s: query %s differs from phase 7 (rc %d): %s'
+                  % (label, name, rc, err[-300:]))
+            walls[name] = dt
+        torch.cuda.synchronize()
+        r1, e1 = mgr.stats(), mod_di.stats_doc()
+        d = {k: r1[k] - r0[k] for k in ('hits', 'misses', 'stale_drops',
+                                        'h2d_saved_bytes',
+                                        'd2h_saved_bytes')}
+        d.update({k: e1[k] - e0[k] for k in ('dispatches', 'h2d_bytes',
+                                              'pinned_shard_hits',
+                                              'h2d_saved_bytes')
+                  if k != 'h2d_saved_bytes'})
+        d['shard_h2d_saved'] = e1['h2d_saved_bytes'] - e0['h2d_saved_bytes']
+        d['staged_shards'] = stage_calls[0] - s0
+        d['pinned_bytes'] = r1['bytes']
+        d['shard_bytes'] = r1['shard_bytes']
+        d['walls_s'] = walls
+        log('serve %s: %s | %s' % (label, fmt_times(walls, 3), ', '.join(
+            '%s %s' % (k, v) for k, v in sorted(d.items())
+            if k != 'walls_s')))
+        return d
+
+    p1 = run_pass('pass 1 (misses)')
+    check(p1['dispatches'] > 0 and p1['shard_bytes'] > 0,
+          'serve pass 1: no fold or no shard pin: %r' % p1)
+    p2 = run_pass('pass 2 (accumulator hits)')
+    check(p2['hits'] == len(stacked) and p2['dispatches'] == 0 and
+          p2['d2h_saved_bytes'] > 0,
+          'serve pass 2: expected %d accumulator hits and no dispatch: %r'
+          % (len(stacked), p2))
+    mgr.drop_host_pins()
+    p3 = run_pass('pass 3 (pinned shards)')
+    check(p3['pinned_shard_hits'] == p3['staged_shards'] ==
+          p1['staged_shards'] and p3['dispatches'] == p1['dispatches'],
+          'serve pass 3: pinned shard hits %d of %d staged (pass 1 %d)'
+          % (p3['pinned_shard_hits'], p3['staged_shards'],
+             p1['staged_shards']))
+    check(p3['h2d_bytes'] == p1['h2d_bytes'] - p3['shard_h2d_saved'],
+          'serve pass 3: uploaded %d B, expected only the translation '
+          'tables (%d B)' % (p3['h2d_bytes'],
+                             p1['h2d_bytes'] - p3['shard_h2d_saved']))
+    doc['passes'] = [p1, p2, p3]
+
+    # served scans through K1
+    scans = {}
+    for name, qargs in kernel_scans:
+        l0 = ck.launches['onehot_dense']
+        rc, out, err, dt = served(tserver, cli, [
+            'scan', '--remote', sock, '--points', '--counters'] + qargs +
+            ['muskie'])
+        torch.cuda.synchronize()
+        check(rc == 0 and (out, err) == forced[name][:2],
+              'serve: scan %s differs from phase 4: %s' % (name, err[-300:]))
+        scans[name] = {'wall_s': dt,
+                       'launches': ck.launches['onehot_dense'] - l0}
+        log('serve scan %-36s %.2f s, K1 launches %d | = phase 4'
+            % (name, dt, scans[name]['launches']))
+    nk1 = sum(s['launches'] for s in scans.values())
+    check(nk1 == main_launches, 'serve: served scans launched K1 %d '
+          'times, phase 4 %d (once per device batch)' % (nk1, main_launches))
+    doc['scans'] = scans
+
+    # concurrency: 8 client threads, the remote queries and the K1 scan
+    mix = [('query', n) for n in ('a host x url, day',
+                                  'b method x status >= 500, hour',
+                                  'c (b) over one week, hour',
+                                  'e no breakdowns, hour')]
+    mix.append(('scan', kernel_scans[0][0]))
+    scan_argv = ['--points', '--counters'] + kernel_scans[0][1] + ['muskie']
+    errors = []
+    w0 = worker_k1[0]
+    barrier = threading.Barrier(CONCURRENT_CLIENTS)
+
+    def client(tid):
+        barrier.wait()
+        for k in range(2):
+            kind, name = mix[(tid + 2 * k) % len(mix)]
+            if kind == 'query':
+                argv = ['query', '--remote', sock] + qargv[name]
+                want = query_outputs[name]
+            else:
+                argv = ['scan', '--remote', sock] + scan_argv
+                want = forced[name][:2]
+            rc, out, err, dt = served(tserver, cli, argv)
+            if rc != 0 or (out, err) != want:
+                errors.append((tid, name, rc, err[-200:]))
+    t0 = time.monotonic()
+    threads = [threading.Thread(target=client, args=(t,))
+               for t in range(CONCURRENT_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    conc_s = time.monotonic() - t0
+    check(not errors, 'serve concurrency: %r' % errors[:3])
+    st = srv.stats_doc()
+    doc['concurrency'] = {'clients': CONCURRENT_CLIENTS,
+                          'requests': 2 * CONCURRENT_CLIENTS,
+                          'wall_s': conc_s,
+                          'k1_worker_launches': worker_k1[0] - w0,
+                          'coalesced': st['requests']['coalesced']}
+    log('serve concurrency: %d clients x 2 requests in %.2f s, all equal '
+        'to the serial answers; K1 launches from worker threads %d; '
+        'coalesced %d' % (CONCURRENT_CLIENTS, conc_s, worker_k1[0] - w0,
+                          st['requests']['coalesced']))
+
+    # a write through the server bumps the epoch
+    rc, out, err, dt = served(tserver, cli, ['build', '--remote', sock,
+                                             '--interval=hour', 'served'])
+    check(rc == 0 and err == 'indexes for "served" built\n',
+          'serve: build --remote failed: %s' % err[-300:])
+    b = 'b method x status >= 500, hour'
+    s0 = mgr.stats()['stale_drops']
+    rc, out, err, _ = served(tserver, cli, ['query', '--remote', sock] +
+                             qargv[b])
+    stale = mgr.stats()['stale_drops'] - s0
+    check(rc == 0 and (out, err) == query_outputs[b] and stale > 0,
+          'serve: after the write, stale drops %d, output %s'
+          % (stale, 'equal' if (out, err) == query_outputs[b] else err))
+    doc['write'] = {'build_s': dt, 'stale_drops': stale}
+    log('serve write: build --remote --interval=hour %.2f s; the next '
+        'query (b) dropped %d stale pins | = phase 7' % (dt, stale))
+
+    # a planted fault in the K7 fold fails one request only
+    mgr.clear()
+    real = mod_di._fold_program
+    planted = []
+
+    def broken(*a):
+        if not planted:
+            planted.append(1)
+            raise RuntimeError('planted K7 fold fault')
+        return real(*a)
+    mod_di._fold_program = broken
+    try:
+        rc, out, err, _ = served(tserver, cli, ['query', '--remote',
+                                                sock] + qargv[b])
+    finally:
+        mod_di._fold_program = real
+    check(rc == 1 and out == '' and err.startswith('dn: ') and
+          'planted K7 fold fault' in err,
+          'serve: the planted fault gave rc %d: %s' % (rc, err[-300:]))
+    rc2, out2, err2, _ = served(tserver, cli, ['query', '--remote', sock] +
+                                qargv[b])
+    check(rc2 == 0 and (out2, err2) == query_outputs[b],
+          'serve: the request after the fault failed: %s' % err2[-300:])
+    doc['fault'] = {'rc': rc, 'stderr': err.strip()}
+    log('serve fault: rc %d, %s; the next request = phase 7'
+        % (rc, err.strip()[:120]))
+    doc['stats_requests'] = srv.stats_doc()['requests']
+    doc['pipeline'] = obs_metrics.pipeline_doc()
+    return doc
+
+
+def _latency(cli, tserver, sock, qargv, query_outputs):
+    b = 'b method x status >= 500, hour'
+    walls = []
+    for _ in range(LATENCY_REPEATS):
+        rc, out, err, dt = served(tserver, cli, ['query', '--remote',
+                                                 sock] + qargv[b])
+        check(rc == 0 and (out, err) == query_outputs[b],
+              'serve latency: query (b) differs: %s' % err[-300:])
+        walls.append(dt)
+    return walls
+
+
+def _cold_latency(qargv, query_outputs):
+    """Query (b) in a fresh `python -m dragnet_tpu_torch` process."""
+    b = 'b method x status >= 500, hour'
+    here = os.path.dirname(os.path.abspath(__file__))
+    walls = []
+    for _ in range(COLD_REPEATS):
+        t0 = time.monotonic()
+        proc = subprocess.run(
+            [sys.executable, '-m', 'dragnet_tpu_torch', 'query'] +
+            qargv[b], cwd=here, env=dict(os.environ),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            timeout=300)
+        walls.append(time.monotonic() - t0)
+        check(proc.returncode == 0 and
+              (proc.stdout, proc.stderr) == query_outputs[b],
+              'serve: the cold query differs: %s' % proc.stderr[-300:])
+    return walls
+
+
+def _k7_entry(mod_di, fold_args, launches, reps):
+    """K7 on one dispatch the served path gave it, against the plain
+    numpy sums, timed with the plain torch version (a per-slot loop)."""
+    import numpy as np
+    import torch
+    check(fold_args, 'serve: no K7 dispatch was captured')
+    lmat, wmat, ttabs, acc0 = (x.to(DEVICE) for x in fold_args[0])
+    out = mod_di._fold_program(lmat, wmat, ttabs, acc0.clone())
+    ref = acc0.cpu().numpy().copy()
+    ln, wn, tn = (x.cpu().numpy() for x in (lmat, wmat, ttabs))
+    for j in range(ln.shape[0]):
+        np.add.at(ref, tn[j][ln[j]], wn[j])
+    err = int(np.abs(out.cpu().numpy() - ref).max())
+    check(err == 0, 'K7: the fold differs from the plain sums by %d' % err)
+    scratch = acc0.clone()
+    ms, eager = cuda_time_ms(
+        lambda: mod_di._fold_program(lmat, wmat, ttabs, scratch), reps)
+
+    def plain():
+        for j in range(lmat.shape[0]):
+            scratch.index_add_(0, ttabs[j][lmat[j]], wmat[j])
+    plain_ms, _ = cuda_time_ms(plain, reps)
+    s, prow = lmat.shape
+    nbytes = s * prow * K7_ROW_BYTES + ttabs.numel() * K7_TAB_BYTES + \
+        acc0.numel() * K7_SEG_BYTES
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    log('K7 on a served dispatch (%d slots x %d rows, %d segments): exact, '
+        '%.4f ms (eager %.4f), plain %.4f ms, bound %.6f ms'
+        % (s, prow, acc0.numel(), ms, eager, plain_ms, bound))
+    return {'name': 'index_fold', 'route': 'cuda',
+            'impl': 'torch ops (gather + i64 index_add_), the reference\'s '
+                    'jitted XLA program; not a Pallas kernel',
+            'source': 'dragnet_tpu_torch/device_index.py',
+            'replaces': K7_REPLACES, 'launches': launches,
+            'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms,
+            'bound_ms': bound, 'bound_by': 'bytes', 'library_ms': None,
+            'eager_ms': eager,
+            'shape': {'slots': s, 'rows': prow, 'segments': acc0.numel()}}
+
+
+def _k7a_entry(mod_iqs, launches, reps):
+    """K7a at both pre-warm shapes against the plain numpy sums, timed
+    with the plain torch version (scatter_add_) and index_add_ alone."""
+    import numpy as np
+    import torch
+    from dragnet_tpu_torch.serve import residency as mod_res
+    rows = []
+    for pn, pu in mod_res._PREWARM_SHAPES:
+        rng = np.random.RandomState(pn)
+        seg_n = rng.randint(0, pu, size=pn).astype(np.int64)
+        w_n = rng.randint(0, 1 << 20, size=pn).astype(np.int64)
+        seg = torch.from_numpy(seg_n).to(DEVICE)
+        w = torch.from_numpy(w_n).to(DEVICE)
+        prog = mod_iqs._sums_program(pn, pu)
+        ref = np.zeros(pu, dtype=np.int64)
+        np.add.at(ref, seg_n, w_n)
+        err = int(np.abs(prog(seg, w).cpu().numpy() - ref).max())
+        check(err == 0, 'K7a: (%d, %d) differs by %d' % (pn, pu, err))
+        ms, eager = cuda_time_ms(lambda: prog(seg, w), reps)
+        plain_ms, _ = cuda_time_ms(
+            lambda: torch.zeros(pu, dtype=torch.int64,
+                                device=DEVICE).scatter_add_(0, seg, w),
+            reps)
+        acc = torch.zeros(pu, dtype=torch.int64, device=DEVICE)
+        lib_ms, _ = cuda_time_ms(lambda: acc.index_add_(0, seg, w), reps)
+        bound = (16 * pn + 8 * pu) / HBM_BYTES_PER_S * 1e3
+        rows.append({'pn': pn, 'pu': pu, 'max_abs_err': err, 'ms': ms,
+                     'eager_ms': eager, 'plain_ms': plain_ms,
+                     'library_ms': lib_ms, 'bound_ms': bound})
+        log('K7a at (%d, %d): exact, %.4f ms (eager %.4f), plain %.4f ms, '
+            'index_add_ alone %.4f ms, bound %.6f ms'
+            % (pn, pu, ms, eager, plain_ms, lib_ms, bound))
+    big = rows[-1]
+    return {'name': 'index_sums', 'route': 'cuda',
+            'impl': 'torch ops (one i64 index_add_ into zeros), the '
+                    'reference\'s jitted XLA program; not a Pallas kernel',
+            'source': 'dragnet_tpu_torch/index_query_stack.py',
+            'replaces': K7A_REPLACES, 'launches': launches,
+            'max_abs_err': max(r['max_abs_err'] for r in rows),
+            'ms': big['ms'], 'plain_ms': big['plain_ms'],
+            'bound_ms': big['bound_ms'], 'bound_by': 'bytes',
+            'library_ms': big['library_ms'], 'eager_ms': big['eager_ms'],
+            'shape': {'pn': big['pn'], 'pu': big['pu']}, 'shapes': rows}
+
+
 def main_path_keys(ck, captured, reps):
     """Phase 5: the kernel on the fused keys the main path gave it, the
     largest batch of each query at each segment count."""
@@ -2964,6 +3440,9 @@ def main():
                             args.seed, forced, build, args.reps)
         lifecycle = lifecycle_phase(cli, mod_ds, ck, tmp, data,
                                     args.records, query_outputs)
+        serve, k7, k7a = serve_phase(cli, ck, tmp, args.records,
+                                     query_outputs, forced, main_launches,
+                                     args.reps)
     torch.cuda.synchronize()
 
     # 10. the kernel on the main path's own keys, and on uniform keys at
@@ -3004,7 +3483,8 @@ def main():
                        'sparse_scans': sparse, 'build': build,
                        'pipeline': pipeline,
                        'query': queries, 'auto': auto, 'parse': parse,
-                       'lifecycle': lifecycle}, f, indent=1)
+                       'lifecycle': lifecycle, 'serve': serve,
+                       'index_kernels': [k7, k7a]}, f, indent=1)
     print(json.dumps({'query': [
         {k: q[k] for k in ('name', 'route', 'points', 'device_s',
                            'host_s', 'dispatches', 'rows', 'h2d_bytes',
@@ -3018,6 +3498,9 @@ def main():
         flush=True)
     print(json.dumps({'parse': parse}), flush=True)
     print(json.dumps({'lifecycle': lifecycle}), flush=True)
+    print(json.dumps({'serve': {k: serve[k] for k in (
+        'prewarm', 'passes', 'scans', 'concurrency', 'write', 'fault',
+        'latency_s', 'memory', 'launches', 'wall_s')}}), flush=True)
     block = parse['shapes'][0]
     log('smoke: %.1f s' % (time.monotonic() - t_smoke))
     log('gpu: %s' % card)
@@ -3028,6 +3511,9 @@ def main():
         'query_launches': queries['onehot_launches'],
         'auto_launches': auto['auto_launches'],
         'follow_launches': lifecycle['follow']['k1_launches'],
+        'serve_launches': serve['launches']['onehot_dense'],
+        'serve_worker_launches':
+        serve['launches']['onehot_dense_from_workers'],
         'max_abs_err': max(r['max_abs_err'] for r in results),
         'ms': main['ms'], 'plain_ms': main['plain_ms'],
         'bound_ms': main['bound_ms'], 'bound_by': main['bound_by'],
@@ -3038,6 +3524,7 @@ def main():
         {'name': 'quote_parity', 'route': 'cuda', 'source': PARITY_SOURCE,
          'replaces': PARITY_REPLACES, 'launches': parse['launches'],
          'build_launches': parse['build_launches'],
+         'serve_launches': serve['launches']['quote_parity'],
          'max_abs_err': block['max_abs_err'], 'ms': block['ms'],
          'plain_ms': block['plain_ms'], 'bound_ms': block['bound_ms'],
          'bound_by': block['bound_by'], 'library_ms': None,
@@ -3047,8 +3534,10 @@ def main():
          'eager_ms': block['eager_ms'],
          'round_trip_ms': block['round_trip_ms'],
          'numpy_ms': block['numpy_ms'],
-         'shape': {'n': block['n']}, 'shapes': parse['shapes']})]}),
-        flush=True)
+         'shape': {'n': block['n']}, 'shapes': parse['shapes']}),
+        dict(k7, query_launches=sum(q['dispatches'] for q in
+                                    queries['queries'])),
+        k7a]}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,
         'count': torch.cuda.device_count()}}), flush=True)

@@ -10,13 +10,16 @@ or device), the host-side index commands `index-read`, `rollup` and
 `compact`, and the configuration commands `datasource-add`,
 `datasource-update`, `datasource-remove`, `datasource-list`,
 `datasource-show`, `metric-add`, `metric-list`, `metric-remove` and
-`index-config`.  Option parsing, breakdown expansion, warnings
-(`--warnings`), output and the `-t` timing flag are the reference
-CLI's, so the port prints byte-identical results and writes
-byte-identical index trees.  Options the port cannot honour yet
-(`--remote`, `--trace`, and `--assetroot` on `query`) are unknown
-options: a usage error.  The configuration is the same file as bin/dn's
-($DRAGNET_CONFIG or ~/.dragnetrc).
+`index-config`; and the resident server: `serve` (serve/server.py, on
+DN_TORCH_DEVICE), `stats` and `events`, with `--remote` and `--trace`
+on `scan`, `query` and `build`.  Option parsing, breakdown expansion,
+warnings (`--warnings`), output and the `-t` timing flag are the
+reference CLI's, so the port prints byte-identical results and writes
+byte-identical index trees, locally and over `--remote`.  `--assetroot`
+on `query`, the cluster options of `serve` and `stats --cluster` are
+not ported: the first is an unknown option (a usage error), the others
+fail naming what is missing.  The configuration is the same file as
+bin/dn's ($DRAGNET_CONFIG or ~/.dragnetrc).
 
 Exit codes: 2 for usage errors (with the usage text on stderr), 1 for
 fatal runtime errors ("dn: <message>"); `follow` returns its own (1
@@ -58,16 +61,19 @@ dn build             [--before=START_TIME] [--after=END_TIME]
                      [--interval=hour|day|all] [--index-config=CONFIG_FILE]
                      [--dry-run] [--assetroot=ASSET_ROOT] [--warnings]
                      [--parse=auto|host|vector|device]
-                     [--build-threads=auto|N] DATASOURCE
+                     [--build-threads=auto|N]
+                     [--remote=SOCKET|HOST:PORT] [--trace] DATASOURCE
 dn query             [--before=START_TIME] [--after=END_TIME] [--filter=FILTER]
                      [--breakdowns=BREAKDOWN[,...]] [--interval=hour|day|all]
                      [--raw] [--points] [--counters] [--gnuplot]
                      [--dry-run] [--iq-threads=auto|N] [--iq-stack=auto|0|1]
+                     [--remote=SOCKET|HOST:PORT] [--trace]
                      DATASOURCE
 dn scan              [--before=START_TIME] [--after=END_TIME] [--filter=FILTER]
                      [--breakdowns=BREAKDOWN[,...]]
                      [--raw] [--points] [--counters] [--warnings] [--dry-run]
                      [--gnuplot] [--parse=auto|host|vector|device]
+                     [--remote=SOCKET|HOST:PORT] [--trace]
                      DATASOURCE
 dn index-config      DATASOURCE
 dn index-read        [--index-config=INDEX_CONFIG_FILE]
@@ -82,6 +88,9 @@ dn follow            [--interval=hour|day|all] [--index-config=CONFIG_FILE]
 dn rollup            [--tree=INDEX_PATH] [--interval=hour|day]
 dn compact           [--tree=INDEX_PATH] [--interval=hour|day]
                      [--min-gens=N]
+dn serve             --socket=PATH | --port=N [--pidfile=PATH] [--validate]
+dn stats             [--remote=SOCKET|HOST:PORT] [--prom]
+dn events            [--remote=SOCKET|HOST:PORT] [--follow]
 
 scan, build, index-scan, query and follow run on DN_TORCH_DEVICE
 (default: cuda) with the engine DN_ENGINE names: auto (the default: the
@@ -90,7 +99,8 @@ wins an audition), jax (the device from the first batch), vector (the
 host engine) or host (the per-record engine).  DN_PARSE or --parse picks the
 parse lane of scan and build: auto (the C++ parser, or the byte lane
 without it), host, vector (the byte lane) or device (the byte lane with
-its quote-parity scan on DN_TORCH_DEVICE).
+its quote-parity scan on DN_TORCH_DEVICE).  serve runs every request on
+DN_TORCH_DEVICE; --remote ships scan, query and build to it.
 """
 
 # Option table (reference: bin/dn:146-215), the subset these commands
@@ -103,10 +113,15 @@ DN_OPTIONS = [
     (['breakdowns', 'b'], 'arrayOfString', []),
     # index-build writer pool override; DN_BUILD_THREADS for one run
     (['build-threads'], 'string', None),
+    # `dn serve --cluster=TOPOLOGY.json --member=NAME`: parsed so the
+    # refusal names what is missing (the cluster is not ported)
+    (['cluster'], 'string', None),
     (['counters'], 'bool', None),
     (['data-format'], 'string', 'json'),
     (['dry-run', 'n'], 'bool', False),
     (['filter', 'f'], 'string', None),
+    # `dn events --follow`: keep polling the remote journal
+    (['follow'], 'bool', None),
     (['gnuplot'], 'bool', None),
     (['interval', 'i'], 'string', 'day'),
     (['index-config'], 'string', None),
@@ -117,18 +132,31 @@ DN_OPTIONS = [
     (['index-path'], 'string', None),
     # `dn compact`: only rewrite base shards holding at least this
     # many follow mini-generations (default 1: fold everything)
+    (['member'], 'string', None),
     (['min-gens'], 'string', None),
     # `dn follow` catch-up mode: ingest to the sources' current EOF,
     # publish, checkpoint, and exit instead of tailing forever
     (['once'], 'bool', None),
     (['parse'], 'string', None),
     (['path'], 'string', None),
+    # `dn serve` endpoint options and the data commands' --remote
+    # endpoint (a unix socket path or HOST:PORT)
+    (['pidfile'], 'string', None),
     (['points'], 'bool', None),
+    (['port'], 'string', None),
+    # `dn stats --prom`: the Prometheus text exposition
+    (['prom'], 'bool', None),
     (['raw'], 'bool', None),
+    (['remote'], 'string', None),
+    (['socket'], 'string', None),
     (['time-field'], 'string', None),
     (['time-format'], 'string', None),
     # `dn rollup` / `dn compact`: limit the walk to one index root
     (['tree'], 'string', None),
+    # one JSON span tree per data command on stderr (DN_TRACE=stderr
+    # for one run); composes with --remote — the client ships its
+    # trace id and grafts the server's spans
+    (['trace'], 'bool', None),
     # `dn follow --validate`: check the knobs and sources, print the
     # resolved configuration, touch nothing
     (['validate'], 'bool', None),
@@ -499,7 +527,10 @@ def cmd_metric_list(ctx, argv):
 # scan / query
 # ---------------------------------------------------------------------------
 
-def dn_query_config(opts):
+def dn_query_doc(opts):
+    """The query document parsed options produce — query_load's input
+    here, and the document `--remote` ships so the server's
+    query_load yields the identical QueryConfig."""
     queryconfig = {'breakdowns': opts.breakdowns}
     if opts.after:
         queryconfig['timeAfter'] = opts.after
@@ -507,7 +538,11 @@ def dn_query_config(opts):
         queryconfig['timeBefore'] = opts.before
     if opts.filter is not None:
         queryconfig['filter'] = opts.filter
-    qc = mod_query.query_load(queryconfig)
+    return queryconfig
+
+
+def dn_query_config(opts):
+    qc = mod_query.query_load(dn_query_doc(opts))
     if isinstance(qc, DNError):
         fatal(qc)
     if getattr(opts, 'gnuplot', None) and len(qc.qc_breakdowns) != 1:
@@ -586,46 +621,144 @@ def _warn_printer(stage, kind, error):
     sys.stderr.write('    at %s\n' % stage.name)
 
 
+def _obs_command(op, opts):
+    """Observability scope for one data command: installs a request
+    trace context when asked (--trace, DN_TRACE, DN_SLOW_MS) —
+    emitting one JSON span-tree line at command end — and nothing at
+    all otherwise (output stays byte-identical: tracing writes to the
+    DN_TRACE sink / process stderr only when armed).  --trace is
+    DN_TRACE=stderr for one run, without clobbering an explicit
+    DN_TRACE target."""
+    import contextlib
+    from .obs import trace as obs_trace
+
+    @contextlib.contextmanager
+    def scope():
+        explicit = bool(getattr(opts, 'trace', None))
+        value = 'stderr' if explicit and \
+            not os.environ.get('DN_TRACE') else None
+        with _env_scope('DN_TRACE', value):
+            if explicit or obs_trace.tracing_requested():
+                with obs_trace.request(op):
+                    yield
+            else:
+                yield
+    return scope()
+
+
+# ---------------------------------------------------------------------------
+# Remote execution (`--remote SOCK` -> a resident `dn serve`)
+# ---------------------------------------------------------------------------
+
+def _remote_output_opts(opts):
+    return {
+        'raw': bool(getattr(opts, 'raw', None)),
+        'points': bool(getattr(opts, 'points', None)),
+        'counters': bool(getattr(opts, 'counters', None)),
+        'gnuplot': bool(getattr(opts, 'gnuplot', None)),
+        'dry_run': bool(getattr(opts, 'dry_run', None)),
+    }
+
+
+# per-run execution-mode flags that scope a process-local env var for
+# one command: they cannot travel to a shared server (whose process
+# env governs every request), and silently dropping them would be a
+# behavior change the user explicitly asked against
+_LOCAL_ONLY_FLAGS = [('warnings', '--warnings'), ('parse', '--parse'),
+                     ('iq_threads', '--iq-threads'),
+                     ('iq_stack', '--iq-stack'),
+                     ('build_threads', '--build-threads')]
+
+
+def _try_remote(ctx, opts, req):
+    """Ship `req` to opts.remote.  Returns the remote exit code, or
+    None after the unreachable-fallback warning (the caller then runs
+    the command locally, on this process's device).  Local-only flags
+    must not silently go remote."""
+    for attr, flag in _LOCAL_ONLY_FLAGS:
+        if getattr(opts, attr, None):
+            raise UsageError(
+                '"%s" cannot be combined with "--remote"' % flag)
+    req['config'] = ctx['backend'].cbl_path
+    if req.get('op') == 'build':
+        # builds are not idempotent: the key lets the transport
+        # layer's retry loop re-send safely — the server replays the
+        # recorded response instead of double-writing (serve/client.py)
+        import uuid
+        req['idempotency'] = uuid.uuid4().hex
+    from .serve import client as mod_serve_client
+    try:
+        return mod_serve_client.run_or_fallback(opts.remote, req)
+    except DNError as e:
+        # transport retries exhausted or a post-commit failure: the
+        # server may have acted and bytes may already be on stdout, so
+        # neither another retry nor a local fallback is safe — report
+        fatal(e)
+
+
 def cmd_scan(ctx, argv):
     opts = dn_parse_args(argv, ['before', 'after', 'filter', 'breakdowns',
                                 'raw', 'points', 'counters', 'warnings',
-                                'gnuplot', 'dry-run', 'parse'])
+                                'gnuplot', 'dry-run', 'parse', 'remote',
+                                'trace'])
     check_arg_count(opts, 1)
     dsname = opts._args[0]
     ds = datasource_for_name(ctx['config'], dsname)
     if isinstance(ds, DNError):
         fatal(ds)
     query = dn_query_config(opts)
-    warn_func = _warn_printer if getattr(opts, 'warnings', None) else None
-    with _mode_flag_env('parse', opts.parse, 'DN_PARSE', PARSE_MODES):
-        try:
-            result = ds.scan(query, device=_device(), engine=_engine(),
-                             dry_run=opts.dry_run, warn_func=warn_func)
-        except DNError as e:
-            fatal(e)
-    dn_output(query, opts, result, dsname)
+    with _obs_command('scan', opts):
+        if opts.remote:
+            rc = _try_remote(ctx, opts, {
+                'op': 'scan', 'ds': dsname,
+                'queryconfig': dn_query_doc(opts),
+                'opts': _remote_output_opts(opts),
+            })
+            if rc is not None:
+                return rc
+        warn_func = _warn_printer if getattr(opts, 'warnings', None) \
+            else None
+        with _mode_flag_env('parse', opts.parse, 'DN_PARSE', PARSE_MODES):
+            try:
+                result = ds.scan(query, device=_device(), engine=_engine(),
+                                 dry_run=opts.dry_run, warn_func=warn_func)
+            except DNError as e:
+                fatal(e)
+        dn_output(query, opts, result, dsname)
 
 
 def cmd_query(ctx, argv):
     opts = dn_parse_args(argv, ['before', 'after', 'filter', 'breakdowns',
                                 'raw', 'points', 'counters', 'interval',
                                 'gnuplot', 'dry-run', 'iq-threads',
-                                'iq-stack'])
+                                'iq-stack', 'remote', 'trace'])
     check_arg_count(opts, 1)
     dsname = opts._args[0]
     ds = datasource_for_name(ctx['config'], dsname)
     if isinstance(ds, DNError):
         fatal(ds)
     query = dn_query_config(opts)
-    with _pool_flag_env('iq-threads', opts.iq_threads, 'DN_IQ_THREADS'), \
-            _mode_flag_env('iq-stack', opts.iq_stack, 'DN_IQ_STACK',
-                           ('auto', '0', '1')):
-        try:
-            result = ds.query(query, opts.interval, dry_run=opts.dry_run,
-                              device=_device(), engine=_engine())
-        except DNError as e:
-            fatal(e)
-    dn_output(query, opts, result, dsname)
+    with _obs_command('query', opts):
+        if opts.remote:
+            rc = _try_remote(ctx, opts, {
+                'op': 'query', 'ds': dsname,
+                'interval': opts.interval,
+                'queryconfig': dn_query_doc(opts),
+                'opts': _remote_output_opts(opts),
+            })
+            if rc is not None:
+                return rc
+        with _pool_flag_env('iq-threads', opts.iq_threads,
+                            'DN_IQ_THREADS'), \
+                _mode_flag_env('iq-stack', opts.iq_stack, 'DN_IQ_STACK',
+                               ('auto', '0', '1')):
+            try:
+                result = ds.query(query, opts.interval,
+                                  dry_run=opts.dry_run, device=_device(),
+                                  engine=_engine())
+            except DNError as e:
+                fatal(e)
+        dn_output(query, opts, result, dsname)
 
 
 # ---------------------------------------------------------------------------
@@ -647,7 +780,8 @@ def _read_index_config(filename):
 def cmd_build(ctx, argv):
     opts = dn_parse_args(argv, ['after', 'before', 'counters', 'dry-run',
                                 'index-config', 'interval', 'warnings',
-                                'assetroot', 'build-threads', 'parse'])
+                                'assetroot', 'build-threads', 'parse',
+                                'remote', 'trace'])
     check_arg_count(opts, 1)
     dsname = opts._args[0]
     indexcfg = _read_index_config(opts.index_config) \
@@ -666,7 +800,21 @@ def cmd_build(ctx, argv):
                                 index_config=indexcfg)
     if len(metrics) == 0:
         fatal(DNError('no metrics defined for dataset "%s"' % dsname))
+    with _obs_command('build', opts):
+        if opts.remote:
+            rc = _try_remote(ctx, opts, {
+                'op': 'build', 'ds': dsname,
+                'interval': opts.interval,
+                'before': opts.before, 'after': opts.after,
+                'index_config': indexcfg,
+                'opts': _remote_output_opts(opts),
+            })
+            if rc is not None:
+                return rc
+        return _build_local(opts, ds, metrics, dsname)
 
+
+def _build_local(opts, ds, metrics, dsname):
     # the local write gate: a disk-critical index tree rejects the
     # build up front with the clean retryable disk_full error instead
     # of failing mid-publish
@@ -972,6 +1120,239 @@ def cmd_compact(ctx, argv):
     return 0
 
 
+# ---------------------------------------------------------------------------
+# The resident server: serve / stats / events
+# ---------------------------------------------------------------------------
+
+def _remote_bytes(remote, req, timeout_s):
+    from .serve import client as mod_serve_client
+    try:
+        return mod_serve_client.request_bytes(remote, req,
+                                              timeout_s=timeout_s)
+    except (OSError, ValueError, DNError) as e:
+        fatal(DNError('serve endpoint "%s" unreachable' % remote,
+                      cause=DNError(str(e))))
+
+
+def cmd_stats(ctx, argv):
+    """`dn stats [--remote SOCK|HOST:PORT] [--prom]`: a resident
+    server's /stats document (or its Prometheus exposition with
+    --prom); without --remote, this process's own metrics registry.
+    `--cluster` (the merged fleet document) needs serve/fleet.py, which
+    is not ported: it fails saying so."""
+    import json as mod_json
+    argv = list(argv)
+    if '--cluster' in argv:
+        fatal(DNError('"stats --cluster" is not ported to '
+                      'dragnet_tpu_torch (it needs serve/fleet.py)'))
+    opts = dn_parse_args(argv, ['remote', 'prom'])
+    check_arg_count(opts, 0)
+    if opts.remote:
+        op = 'metrics' if getattr(opts, 'prom', None) else 'stats'
+        rc, header, out, err = _remote_bytes(opts.remote, {'op': op},
+                                             30.0)
+        sys.stderr.write(err.decode('utf-8', 'replace'))
+        sys.stdout.write(out.decode('utf-8', 'replace'))
+        return rc
+    from . import vpipe as mod_vpipe
+    from .obs import export as obs_export
+    counters = mod_vpipe.global_counters()
+    if getattr(opts, 'prom', None):
+        sys.stdout.write(obs_export.prometheus_text(counters=counters))
+        return 0
+    doc = obs_export.stats_section(counters=counters)
+    sys.stdout.write(mod_json.dumps(doc, sort_keys=True, indent=2) + '\n')
+    return 0
+
+
+def cmd_events(ctx, argv):
+    """`dn events [--follow] [--remote SOCK|HOST:PORT]`: the structured
+    event journal (obs/events.py), one JSON line per entry.  --remote
+    reads a resident server's journal through the `events` op;
+    --follow keeps polling and prints new entries as they land (the
+    server's journal is armed by DN_EVENTS / DN_EVENTS_FILE).  Without
+    --remote, this process's own journal."""
+    import json as mod_json
+    import time as mod_time
+    opts = dn_parse_args(argv, ['remote', 'follow'])
+    check_arg_count(opts, 0)
+    obs_conf = mod_config.obs_config()
+    if isinstance(obs_conf, DNError):
+        fatal(obs_conf)
+
+    def emit_lines(entries):
+        for e in entries:
+            sys.stdout.write(mod_json.dumps(
+                e, sort_keys=True, separators=(',', ':')) + '\n')
+        if entries:
+            sys.stdout.flush()
+
+    if not opts.remote:
+        from .obs import events as obs_events
+        j = obs_events.journal()
+        if j is None:
+            sys.stderr.write('dn: event journal disabled (set '
+                             'DN_EVENTS or DN_EVENTS_FILE)\n')
+            return 1
+        emit_lines(j.tail())
+        return 0
+
+    since = 0
+    poll_s = max(0.1, obs_conf['top_interval_ms'] / 1000.0)
+    while True:
+        rc, header, out, err = _remote_bytes(
+            opts.remote, {'op': 'events', 'since': since}, 30.0)
+        if rc != 0:
+            sys.stderr.write(err.decode('utf-8', 'replace'))
+            return rc
+        doc = mod_json.loads(out.decode('utf-8'))
+        if not doc.get('enabled'):
+            sys.stderr.write('dn: event journal disabled on the server '
+                             '(set DN_EVENTS or DN_EVENTS_FILE)\n')
+            return 1
+        entries = doc.get('events') or []
+        emit_lines(entries)
+        since = max([doc.get('seq') or 0] +
+                    [e.get('seq') or 0 for e in entries])
+        if not getattr(opts, 'follow', None):
+            return 0
+        try:
+            mod_time.sleep(poll_s)
+        except KeyboardInterrupt:
+            return 0
+
+
+def _serve_configs():
+    """Every knob `dn serve` reads, validated (a malformed value is
+    fatal), and the unported ones refused."""
+    from .serve import server as mod_server
+    confs = {}
+    for name, fn in (('serve', mod_config.serve_config),
+                     ('remote', mod_config.remote_config),
+                     ('faults', mod_config.faults_config),
+                     ('obs', mod_config.obs_config),
+                     ('integrity', mod_config.integrity_config),
+                     ('resources', mod_config.resources_config),
+                     ('device', mod_config.device_config),
+                     ('index_device', mod_config.index_device_config)):
+        conf = fn()
+        if isinstance(conf, DNError):
+            fatal(conf)
+        confs[name] = conf
+    err = mod_server.check_unported_knobs(confs['integrity'],
+                                          confs['obs'])
+    if err is not None:
+        fatal(err)
+    return confs
+
+
+def cmd_serve(ctx, argv):
+    """`dn serve --socket PATH | --port N [--pidfile P] [--validate]`:
+    the resident single-member server (serve/server.py) on
+    DN_TORCH_DEVICE (CUDA unless it says cpu).  `--cluster`/`--member`
+    (and DN_SERVE_TOPOLOGY) need the cluster modules, which are not
+    ported: they fail saying so."""
+    from .ops import resolve_device
+    opts = dn_parse_args(argv, ['socket', 'port', 'pidfile', 'cluster',
+                                'member', 'validate'])
+    check_arg_count(opts, 0)
+    confs = _serve_configs()
+    if opts.cluster or opts.member or os.environ.get('DN_SERVE_TOPOLOGY'):
+        fatal(DNError('"serve --cluster/--member" is not ported to '
+                      'dragnet_tpu_torch (it needs the cluster router '
+                      'and topology, serve/router.py and '
+                      'serve/topology.py)'))
+    port = None
+    if opts.port is not None:
+        try:
+            port = int(opts.port)
+            if not 0 <= port <= 65535:
+                raise ValueError(opts.port)
+        except ValueError:
+            raise UsageError('bad value for "port": "%s"' % opts.port)
+    if (opts.socket is None) == (port is None):
+        raise UsageError(
+            'exactly one of "--socket" and "--port" is required')
+    try:
+        device = str(resolve_device(_device()))
+    except DNError as e:
+        fatal(e)
+
+    if getattr(opts, 'validate', None):
+        # dry mode: the knobs and the endpoint arguments were just
+        # validated through the same paths the daemon and client use;
+        # report the resolved configuration and exit without binding
+        from . import device_scan as mod_ds
+        from . import scan_mt as mod_scan_mt
+        conf, remote_conf = confs['serve'], confs['remote']
+        obs_conf, integ_conf = confs['obs'], confs['integrity']
+        res_conf, dev_conf = confs['resources'], confs['device']
+        iq_conf = confs['index_device']
+        w = sys.stdout.write
+        w('serve config ok: max_inflight=%d queue_depth=%d '
+          'deadline_ms=%d coalesce=%d drain_s=%d\n'
+          % (conf['max_inflight'], conf['queue_depth'],
+             conf['deadline_ms'], 1 if conf['coalesce'] else 0,
+             conf['drain_s']))
+        w('serve front-end ok: read_deadline_ms=%d write_deadline_ms=%d '
+          'idle_ms=%d\n'
+          % (conf['read_deadline_ms'], conf['write_deadline_ms'],
+             conf['idle_ms']))
+        w('serve tenancy ok: quota=%d default_weight=%d weights=%s\n'
+          % (conf['tenant_quota'], conf['tenant_default_weight'],
+             ','.join('%s:%d' % (n, v) for n, v in
+                      sorted(conf['tenant_weights'].items())) or 'none'))
+        w('remote config ok: retries=%d backoff_ms=%d '
+          'connect_timeout_s=%d deadline_ms=%d\n'
+          % (remote_conf['retries'], remote_conf['backoff_ms'],
+             remote_conf['connect_timeout_s'],
+             remote_conf['deadline_ms']))
+        w('obs config ok: trace=%s slow_ms=%s buckets=%d\n'
+          % (obs_conf['trace'] or 'off',
+             obs_conf['slow_ms'] if obs_conf['slow_ms'] is not None
+             else 'off', len(obs_conf['buckets'])))
+        w('events ok: events=%d events_file=%s\n'
+          % (obs_conf['events'], obs_conf['events_file'] or 'off'))
+        w('integrity config ok: verify=%s\n' % integ_conf['verify'])
+        w('resources config ok: disk_low_pct=%g disk_critical_pct=%g '
+          'poll_ms=%d mem_budget_mb=%d fd_headroom=%d '
+          'events_file_max_mb=%d\n'
+          % (res_conf['disk_low_pct'], res_conf['disk_critical_pct'],
+             res_conf['poll_ms'], res_conf['mem_budget_mb'],
+             res_conf['fd_headroom'], obs_conf['events_file_max_mb']))
+        apath, entries, wins = mod_ds.audition_cache_entries()
+        w('device lane ok: engine=%s device=%s residency_mb=%d '
+          'prewarm=%d probe_timeout_s=%d audition_cache=%s entries=%d '
+          'wins=%d\n'
+          % (_engine(), device, dev_conf['residency_mb'],
+             1 if dev_conf['prewarm'] else 0,
+             dev_conf['probe_timeout_s'], apath or 'off', entries, wins))
+        w('index device lane ok: mode=%s batch_rows=%d '
+          'residency_share=%.2f\n'
+          % (iq_conf['mode'], iq_conf['batch_rows'],
+             iq_conf['residency_share']))
+        w('scan pipeline ok: pipeline_depth=%d partitions=%s '
+          'scan_threads=%d\n'
+          % (dev_conf['pipeline_depth'],
+             '%d (auto)' % mod_scan_mt.scan_partitions()
+             if dev_conf['scan_partitions'] == 'auto'
+             else dev_conf['scan_partitions'],
+             mod_scan_mt.scan_threads()))
+        sites = confs['faults']['sites']
+        if sites:
+            w('faults armed: %s\n' % ' '.join(
+                '%s:%s:%g:%d' % (site, k, r, seed)
+                for site, (k, r, seed) in sorted(sites.items())))
+        return 0
+
+    from .serve import server as mod_server
+    try:
+        return mod_server.serve_main(socket_path=opts.socket, port=port,
+                                     pidfile=opts.pidfile)
+    except DNError as e:
+        fatal(e)
+
+
 COMMANDS = {
     'datasource-add': cmd_datasource_add,
     'datasource-list': cmd_datasource_list,
@@ -990,6 +1371,9 @@ COMMANDS = {
     'query': cmd_query,
     'rollup': cmd_rollup,
     'scan': cmd_scan,
+    'serve': cmd_serve,
+    'stats': cmd_stats,
+    'events': cmd_events,
 }
 
 
@@ -1041,5 +1425,5 @@ def main(argv=None, startup=None):
         if require_s is not None:
             sys.stderr.write('    require:  %.3fs\n' % require_s)
         sys.stderr.write('    total:    %.3fs\n' % (time.time() - t0))
-    # `follow` returns its exit code
+    # `follow` and the remote-executing commands return their exit code
     return rv if isinstance(rv, int) else 0

@@ -5,7 +5,11 @@ schema-validated load, the local file backend, and the knobs the index
 build reads: DN_DISK_* (resources_config) and DN_FAULTS (faults_config),
 the device-lane knobs (device_config), and the knobs `dn follow`
 validates: DN_FOLLOW_* (follow_config) and the observability knobs
-(obs_config).  The serve and cluster knobs are not ported.
+(obs_config), and the knobs `dn serve` validates: DN_SERVE_*
+(serve_config), DN_REMOTE_* (remote_config), DN_VERIFY/DN_SCRUB_*
+(integrity_config) and the index query's device lane
+(index_device_config).  The cluster, topology and subscription knobs
+are not ported.
 Re-implements lib/config-common.js (clone-on-write
 DragnetConfig, versioned vmaj/vmin 0.0, schema-validated load) and
 lib/config-local.js (JSON file at $DRAGNET_CONFIG or
@@ -310,6 +314,223 @@ def load_config(inp):
     return dc
 
 
+# --- dn serve knobs (DN_SERVE_*) --------------------------------------
+#
+# Parsed and validated in ONE place so `dn serve` (and its --validate
+# dry mode) fails fast with the shared DNError contract instead of at
+# the first request.  Each entry: (env name, kind, default, minimum).
+
+_SERVE_KNOBS = [
+    # concurrent data-command executions; queue-full beyond this +
+    # queue_depth is a fast 429-style DNError
+    ('DN_SERVE_MAX_INFLIGHT', 'int', 4, 1),
+    # requests allowed to WAIT for an execution slot before the
+    # server starts rejecting ("429")
+    ('DN_SERVE_QUEUE_DEPTH', 'int', 16, 0),
+    # per-request wall-clock deadline; 0 disables
+    ('DN_SERVE_DEADLINE_MS', 'int', 0, 0),
+    # share one execution across identical/compatible in-flight
+    # requests (admission.py); 0 disables
+    ('DN_SERVE_COALESCE', 'bool', True, None),
+    # how long a SIGTERM/SIGINT drain waits for in-flight requests
+    ('DN_SERVE_DRAIN_S', 'int', 30, 0),
+    # connection-front-end deadlines (serve/ioloop.py): a PARTIAL
+    # request line older than this is reaped (the slow-loris bound);
+    # 0 disables
+    ('DN_SERVE_READ_DEADLINE_MS', 'int', 10000, 0),
+    # a queued-but-unflushed response older than this closes the
+    # connection (the slow-reader bound); 0 disables
+    ('DN_SERVE_WRITE_DEADLINE_MS', 'int', 60000, 0),
+    # a connection with no traffic and no in-flight work for this
+    # long is closed (pooled peers just re-dial); 0 disables
+    ('DN_SERVE_IDLE_MS', 'int', 300000, 0),
+    # per-tenant queued-request cap (admission.py weighted-fair
+    # queues); 0 = no per-tenant cap (the global DN_SERVE_QUEUE_DEPTH
+    # still binds)
+    ('DN_SERVE_TENANT_QUOTA', 'int', 0, 0),
+    # fair-dequeue weight for tenants not named in
+    # DN_SERVE_TENANT_WEIGHTS
+    ('DN_SERVE_TENANT_DEFAULT_WEIGHT', 'int', 1, 1),
+    # query-result cache byte budget (MB; serve/qcache.py): repeated
+    # identical queries answer from memory, invalidated on any index
+    # write and bounded against the SAME budget
+    # DN_SERVE_MEM_BUDGET_MB admits requests under.  0 (the default)
+    # disables the cache — byte-identical to the uncached path either
+    # way.
+    ('DN_SERVE_CACHE_MB', 'int', 0, 0),
+]
+
+
+def _parse_tenant_weights(raw):
+    """DN_SERVE_TENANT_WEIGHTS spec: 'name:weight,name:weight,...'
+    with integer weights >= 1.  Returns {name: weight} or DNError."""
+    weights = {}
+    for part in raw.split(','):
+        part = part.strip()
+        if not part:
+            continue
+        name, sep, w = part.rpartition(':')
+        if not sep or not name:
+            return DNError('DN_SERVE_TENANT_WEIGHTS: expected '
+                           '"name:weight,...", got "%s"' % part)
+        try:
+            weight = int(w)
+        except ValueError:
+            weight = 0
+        if weight < 1:
+            return DNError('DN_SERVE_TENANT_WEIGHTS: weight for '
+                           '"%s" must be an integer >= 1, got "%s"'
+                           % (name, w))
+        weights[name] = weight
+    return weights
+
+
+def serve_config(env=None):
+    """The resolved DN_SERVE_* knob dict (keys: max_inflight,
+    queue_depth, deadline_ms, coalesce, drain_s, read_deadline_ms,
+    write_deadline_ms, idle_ms, tenant_quota, tenant_default_weight,
+    tenant_weights, cache_mb), or DNError on the
+    first malformed value — 'DN_SERVE_X: expected ..., got "v"'."""
+    if env is None:
+        env = os.environ
+    rv = {}
+    for name, kind, default, minimum in _SERVE_KNOBS:
+        key = name[len('DN_SERVE_'):].lower()
+        raw = env.get(name)
+        if raw is None or raw == '':
+            rv[key] = default
+            continue
+        if kind == 'bool':
+            if raw not in ('0', '1'):
+                return DNError('%s: expected 0 or 1, got "%s"'
+                               % (name, raw))
+            rv[key] = raw == '1'
+            continue
+        try:
+            value = int(raw)
+        except ValueError:
+            return DNError('%s: expected an integer >= %d, got "%s"'
+                           % (name, minimum, raw))
+        if value < minimum:
+            return DNError('%s: expected an integer >= %d, got "%s"'
+                           % (name, minimum, raw))
+        rv[key] = value
+    raw = env.get('DN_SERVE_TENANT_WEIGHTS')
+    if raw is None or raw == '':
+        rv['tenant_weights'] = {}
+    else:
+        weights = _parse_tenant_weights(raw)
+        if isinstance(weights, DNError):
+            return weights
+        rv['tenant_weights'] = weights
+    return rv
+
+
+# --- remote-client retry knobs (DN_REMOTE_*) --------------------------
+#
+# Same contract as the serve knobs: parsed and validated in one place
+# (serve/client.py consumes them per request; `dn serve --validate`
+# checks them up front).  Each entry: (env name, kind, default, min).
+
+_REMOTE_KNOBS = [
+    # transport retries AFTER the first attempt (pre-commit failures
+    # and retryable server rejections); 0 disables retrying
+    ('DN_REMOTE_RETRIES', 'int', 2, 0),
+    # exponential-backoff base; attempt k sleeps ~base * 2^(k-1) with
+    # +/-50% jitter
+    ('DN_REMOTE_BACKOFF_MS', 'int', 50, 1),
+    # connect() deadline per attempt (the overall request timeout,
+    # DN_SERVE_CLIENT_TIMEOUT_S, still governs the exchange)
+    ('DN_REMOTE_CONNECT_TIMEOUT_S', 'int', 5, 1),
+    # end-to-end deadline attached to every shipped request (rides
+    # client -> router -> member partials; the server sheds work it
+    # cannot finish inside it); 0 = no deadline attached
+    ('DN_REMOTE_DEADLINE_MS', 'int', 0, 0),
+]
+
+
+def remote_config(env=None):
+    """The resolved DN_REMOTE_* knob dict (keys: retries, backoff_ms,
+    connect_timeout_s, deadline_ms), or DNError on the first
+    malformed value."""
+    if env is None:
+        env = os.environ
+    rv = {}
+    for name, kind, default, minimum in _REMOTE_KNOBS:
+        key = name[len('DN_REMOTE_'):].lower()
+        raw = env.get(name)
+        if raw is None or raw == '':
+            rv[key] = default
+            continue
+        try:
+            value = int(raw)
+        except ValueError:
+            return DNError('%s: expected an integer >= %d, got "%s"'
+                           % (name, minimum, raw))
+        if value < minimum:
+            return DNError('%s: expected an integer >= %d, got "%s"'
+                           % (name, minimum, raw))
+        rv[key] = value
+    return rv
+
+
+# --- shard-integrity knobs (DN_VERIFY / DN_SCRUB_*) -------------------
+#
+# Same contract as the serve/remote knobs: parsed and validated in one
+# place (integrity.py reads DN_VERIFY forgivingly at runtime; THIS is
+# where malformed values are rejected, checked up front by `dn serve`
+# and `--validate`).
+
+_SCRUB_KNOBS = [
+    # the reference's background threads in `dn serve` (scrub, rollup
+    # and compaction cadences); the port's server refuses any of them
+    # above 0 (serve/server.py check_unported_knobs): `dn rollup` and
+    # `dn compact` run on demand
+    ('DN_SCRUB_INTERVAL_S', 'int', 0, 1),
+    ('DN_ROLLUP_INTERVAL_S', 'int', 0, 1),
+    ('DN_COMPACT_INTERVAL_S', 'int', 0, 1),
+]
+
+
+def integrity_config(env=None):
+    """The resolved integrity knobs a single-member server reads (keys:
+    verify, scrub_interval_s, rollup_interval_s, compact_interval_s),
+    or DNError on the first malformed value.
+
+    * DN_VERIFY: 'off' (default — byte-identical to the unverified
+      path), 'open' (size+crc32 checked against the tree's integrity
+      catalog on first shard-handle open, amortized by the handle
+      cache), or 'full' (re-verified on every lease).
+    """
+    if env is None:
+        env = os.environ
+    rv = {}
+    raw = env.get('DN_VERIFY')
+    if raw is None or raw == '':
+        rv['verify'] = 'off'
+    elif raw in ('off', 'open', 'full'):
+        rv['verify'] = raw
+    else:
+        return DNError('DN_VERIFY: expected "off", "open" or '
+                       '"full", got "%s"' % raw)
+    for name, kind, default, minimum in _SCRUB_KNOBS:
+        key = name[len('DN_'):].lower()
+        raw = env.get(name)
+        if raw is None or raw == '':
+            rv[key] = default
+            continue
+        try:
+            value = int(raw)
+        except ValueError:
+            value = None
+        if value is None or (value != 0 and value < minimum) or \
+                value < 0:
+            return DNError('%s: expected 0 or an integer >= %d, '
+                           'got "%s"' % (name, minimum, raw))
+        rv[key] = value
+    return rv
+
+
 # --- resource-governance knobs (DN_DISK_* / DN_SERVE_MEM_BUDGET_MB) ---
 #
 # Same contract as the serve/remote knobs: parsed and validated in one
@@ -386,12 +607,19 @@ def resources_config(env=None):
 # forgivingly at run time (a malformed value reads as the default
 # there); the CLI calls device_config before a command reaches the
 # device, so a malformed value is rejected with the shared DNError
-# contract instead.  The reference's serve-only knobs
-# (DN_DEVICE_RESIDENCY_MB, DN_DEVICE_PREWARM) and its padding floor
-# (DN_DEVICE_BATCH_FLOOR) have no reader in the port.
+# contract instead; `dn serve --validate` checks them up front.  The
+# reference's padding floor (DN_DEVICE_BATCH_FLOOR) has no reader in the
+# port.
 
 _DEVICE_KNOBS = [
     # (env name, key, kind, default, minimum)
+    # device-memory byte budget for serve-time residency (pinned
+    # accumulators and shard tensors, serve/residency.py); 0 disables
+    # — the device lane uploads and fetches per request
+    ('DN_DEVICE_RESIDENCY_MB', 'residency_mb', 'int', 0, 0),
+    # run the K7a launches of the prewarm shapes and report the
+    # audition cache at serve bind, before the first request
+    ('DN_DEVICE_PREWARM', 'prewarm', 'bool', True, None),
     # hard deadline for backend probes (device_scan.probe_deadline_s)
     ('DN_DEVICE_PROBE_TIMEOUT', 'probe_timeout_s', 'int', 420, 1),
     # wall-clock freshness of persisted audition verdicts
@@ -406,9 +634,9 @@ _DEVICE_KNOBS = [
 
 
 def device_config(env=None):
-    """The resolved device-lane knobs (keys: probe_timeout_s,
-    audition_ttl_s, pipeline_depth, scan_partitions), or DNError on the
-    first malformed value."""
+    """The resolved device-lane knobs (keys: residency_mb, prewarm,
+    probe_timeout_s, audition_ttl_s, pipeline_depth, scan_partitions),
+    or DNError on the first malformed value."""
     if env is None:
         env = os.environ
     rv = {}
@@ -416,6 +644,16 @@ def device_config(env=None):
         raw = env.get(name)
         if raw is None or raw == '':
             rv[key] = default
+            continue
+        if kind == 'bool':
+            low = raw.strip().lower()
+            if low in ('1', 'true', 'yes', 'on'):
+                rv[key] = True
+            elif low in ('0', 'false', 'no', 'off'):
+                rv[key] = False
+            else:
+                return DNError('%s: expected a boolean (0/1), got '
+                               '"%s"' % (name, raw))
             continue
         if kind == 'intauto' and raw.strip().lower() == 'auto':
             rv[key] = 'auto'
@@ -432,6 +670,58 @@ def device_config(env=None):
             return DNError('%s: expected an integer >= %d, got "%s"'
                            % (name, minimum, raw))
         rv[key] = value
+    return rv
+
+
+def index_device_config(env=None):
+    """The resolved index-query device-lane knobs (keys: mode,
+    batch_rows, residency_share), or DNError on the first malformed
+    value — validated up front like device_config; device_index.py
+    and serve/residency.py read the env forgivingly at runtime.
+
+    * DN_INDEX_DEVICE: 'auto' (default; DN_ENGINE=jax engages, auto
+      escalates on a persisted audition win), '1' (force the device
+      lane), '0' (pin the host bincount).
+    * DN_INDEX_DEVICE_BATCH_ROWS: padded-row budget per slot-packed
+      dispatch (>= 4096; how many shards merge per launch).
+    * DN_INDEX_RESIDENCY_SHARE: fraction [0, 1] of the HBM residency
+      budget pinned shard tensors may occupy (accumulator pins own
+      the rest)."""
+    if env is None:
+        env = os.environ
+    rv = {}
+    raw = env.get('DN_INDEX_DEVICE')
+    if raw is None or raw == '':
+        rv['mode'] = 'auto'
+    elif raw in ('auto', '0', '1'):
+        rv['mode'] = raw
+    else:
+        return DNError("DN_INDEX_DEVICE: expected 'auto', '0' or "
+                       "'1', got \"%s\"" % raw)
+    raw = env.get('DN_INDEX_DEVICE_BATCH_ROWS')
+    if raw is None or raw == '':
+        rv['batch_rows'] = 1 << 20
+    else:
+        try:
+            value = int(raw)
+        except ValueError:
+            value = -1
+        if value < 4096:
+            return DNError('DN_INDEX_DEVICE_BATCH_ROWS: expected an '
+                           'integer >= 4096, got "%s"' % raw)
+        rv['batch_rows'] = value
+    raw = env.get('DN_INDEX_RESIDENCY_SHARE')
+    if raw is None or raw == '':
+        rv['residency_share'] = 0.5
+    else:
+        try:
+            value = float(raw)
+        except ValueError:
+            value = -1.0
+        if not 0.0 <= value <= 1.0:
+            return DNError('DN_INDEX_RESIDENCY_SHARE: expected a '
+                           'fraction in [0, 1], got "%s"' % raw)
+        rv['residency_share'] = value
     return rv
 
 

@@ -59,6 +59,25 @@ class ScanResult(object):
         self.dry_run_files = dry_run_files
         self.parse_plan = None      # scan dry run: DN_PARSE lane info
 
+    def clone_for_output(self):
+        """An output-formatting view of this result with a PRIVATE
+        pipeline (stage names/counters copied, points shared
+        read-only).  The CLI output layer mutates the pipeline it
+        formats — it appends a Flattener stage and bumps counters — so
+        `dn serve` requests coalesced onto one shared execution (or
+        answered from the result cache) each format through their own
+        clone."""
+        pl = Pipeline()
+        pl.warn_func = None
+        for s in self.pipeline.stages:
+            stage = pl.stage(s.name)
+            stage.counters = dict(s.counters)
+            stage.hidden = set(s.hidden)
+        rv = ScanResult(pl, points=self.points,
+                        dry_run_files=self.dry_run_files)
+        rv.parse_plan = self.parse_plan
+        return rv
+
 
 class DatasourceFile(object):
     def __init__(self, dsconfig):

@@ -16,11 +16,24 @@ one scatter-add of every shard's rows into dense bucket tensors:
   DN_INDEX_DEVICE_BATCH_ROWS and _MAX_SLOTS) into one fold
   (`_fold_program`): a gather of each slot's local codes through its
   translation row, then one i64 `index_add_` into the accumulator.  The
-  ladder, and with it the dispatch count, is the reference's.
+  ladder, and with it the dispatch count, is the reference's.  A slot
+  is either host arrays (stacked with the chunk's other host slots and
+  uploaded in one copy) or a shard's own device tensors (a residency
+  pin, or a fresh per-shard upload that gets pinned); the chunk's
+  slots are packed on the card (`torch.stack`).
+* **Residency (`dn serve`).**  With serve/residency.py armed, each
+  shard's padded (local, weight) pair is pinned on the card under
+  (`plan_signature`, `_shard_identity`, padded rows), and the final
+  accumulator under the content digest of (inv, weights): an exact
+  repeat answers from the pinned accumulator's fetched copy with no
+  dispatch, and a different query over the same shards skips their
+  uploads.  The epoch of index_query_mt.cache_epoch() retires every
+  pin on an index write.
 * **Device-resident fold, ONE fetch.**  The accumulator stays on the
   card through every dispatch (added in place; the reference re-feeds
   its jit output), and only `acc[:nuniq]` comes back, once, as float64
-  — the host bincount's type, part of byte identity.
+  — the host bincount's type, part of byte identity.  The accumulator
+  is never written after that fetch, so it can be pinned.
 
 Lane routing (`lane_decision`): DN_INDEX_DEVICE=0 pins the host
 `np.bincount`; otherwise the device engine (DN_ENGINE=jax) forces the
@@ -29,9 +42,9 @@ audition-gated, as in the reference: a fresh persisted `iq:` verdict
 that the device won this query shape sends it to the device; with no
 verdict, a process that has already initialized CUDA auditions (both
 paths run, timed, compared exactly, the verdict persisted in the
-port's audition cache, device_scan.audition_cache_put); otherwise the
-host answers — a cold `dn query` never pays CUDA's start-up to ask.
-The reference's residency pins come with `dn serve`.
+port's audition cache, device_scan.audition_cache_put), and so does a
+`dn serve` whose residency is armed; otherwise the host answers — a
+cold `dn query` never pays CUDA's start-up to ask.
 
 Exactness: integer atomics are exact and independent of order, so the
 i64 sums of the integer weights the stacked gate admits are bit-equal
@@ -54,6 +67,8 @@ _ENGAGE = {
     'shards': 0,
     'rows': 0,
     'h2d_bytes': 0,
+    'pinned_shard_hits': 0,
+    'h2d_saved_bytes': 0,
     'auditions': 0,
     'last_audition': None,
     'last_lane': None,
@@ -65,7 +80,8 @@ _MAX_SLOTS = 64
 
 def _reset_engagement():
     """Test/bench hook: zero the per-process engagement snapshot."""
-    for k in ('dispatches', 'shards', 'rows', 'h2d_bytes', 'auditions'):
+    for k in ('dispatches', 'shards', 'rows', 'h2d_bytes',
+              'pinned_shard_hits', 'h2d_saved_bytes', 'auditions'):
         _ENGAGE[k] = 0
     _ENGAGE['last_lane'] = _ENGAGE['last_route'] = None
     _ENGAGE['last_audition'] = None
@@ -119,12 +135,13 @@ def _audition_key(nrows, nuniq):
 
 def _audition_warm(device):
     """Whether an auto-mode audition may touch the device here: only
-    when the process has already initialized CUDA (a scan or build
-    before it).  The reference also counts an armed `dn serve`
-    residency manager; residency is not ported yet."""
+    on CUDA, and only when the process has already initialized it (a
+    scan, a build or the serve pre-warm before it) or a `dn serve`
+    residency manager is armed."""
     import torch
-    return device is not None and torch.device(device).type == 'cuda' \
-        and torch.cuda.is_initialized()
+    if device is None or torch.device(device).type != 'cuda':
+        return False
+    return torch.cuda.is_initialized() or _residency() is not None
 
 
 def lane_decision(engine, nrows=0, nuniq=0, device=None):
@@ -149,6 +166,58 @@ def lane_decision(engine, nrows=0, nuniq=0, device=None):
     if _audition_warm(device):
         return 'audition', 'audition'
     return 'host', 'host: auto, device cold'
+
+
+# -- shard identity ---------------------------------------------------------
+
+_CATALOG_DIR_MEMO = {}
+
+
+def _shard_identity(path, statkey):
+    """Residency identity for one shard file: the integrity catalog's
+    (size, crc32) when the tree publishes one — content identity that
+    survives a byte-identical republish — else the handle cache's
+    (mtime_ns, size, ino) statkey.  None when neither exists (the
+    shard then stages fresh every query, which is always correct)."""
+    from . import integrity as mod_integrity
+    d = os.path.dirname(os.path.abspath(path))
+    for root in (d, os.path.dirname(d)):
+        has = _CATALOG_DIR_MEMO.get(root)
+        if has is None:
+            has = os.path.exists(mod_integrity.catalog_path(root))
+            _CATALOG_DIR_MEMO[root] = has
+        if not has:
+            continue
+        try:
+            cat = mod_integrity.cached_catalog(root)
+        except Exception:
+            break
+        rel = os.path.relpath(os.path.abspath(path), root)
+        ent = cat.get(rel)
+        if ent is not None:
+            return ('crc', rel, int(ent[0]), int(ent[1]))
+    if statkey is not None:
+        return ('stat',) + tuple(statkey)
+    return None
+
+
+def plan_signature(query):
+    """Digest of everything that determines a shard's staged tensors
+    GIVEN its content: the composed filter inputs, the breakdown specs
+    (bucketizer parameters included), and the time window.  Two
+    queries with equal signatures stage byte-identical (local, weight)
+    tensors from an identical shard."""
+    import hashlib
+    h = hashlib.blake2b(digest_size=12)
+    h.update(repr((query.qc_filter, query.qc_breakdowns,
+                   query.qc_before, query.qc_after)).encode())
+    return h.hexdigest()
+
+
+def _residency():
+    """The serve-installed device residency manager, or None."""
+    from .serve import residency as mod_residency
+    return mod_residency.active()
 
 
 # -- staging ----------------------------------------------------------------
@@ -197,16 +266,21 @@ def _fold_program(lmat, wmat, ttabs, acc):
     return acc
 
 
-def _note_engagement(ndispatch, nshards, nrows, h2d_bytes):
+def _note_engagement(ndispatch, nshards, nrows, pinned_hits,
+                     h2d_bytes, h2d_saved):
     from .obs import metrics as obs_metrics
     _ENGAGE['dispatches'] += ndispatch
     _ENGAGE['shards'] += nshards
     _ENGAGE['rows'] += nrows
+    _ENGAGE['pinned_shard_hits'] += pinned_hits
     _ENGAGE['h2d_bytes'] += h2d_bytes
+    _ENGAGE['h2d_saved_bytes'] += h2d_saved
     obs_metrics.inc('index_device_dispatches', ndispatch)
     obs_metrics.inc('index_device_shards', nshards)
     obs_metrics.inc('index_device_rows', nrows)
+    obs_metrics.inc('index_device_pinned_hits', pinned_hits)
     obs_metrics.inc('index_device_h2d_bytes', h2d_bytes)
+    obs_metrics.inc('index_device_h2d_saved_bytes', h2d_saved)
     if ndispatch:
         obs_metrics.set_gauge('index_device_shards_per_dispatch',
                               nshards / ndispatch)
@@ -214,7 +288,7 @@ def _note_engagement(ndispatch, nshards, nrows, h2d_bytes):
 
 def stats_doc():
     """The engagement snapshot: dispatches, shards, rows, upload bytes,
-    auditions (and the last one's verdict), the last lane and route,
+    pinned shard hits and the upload bytes they saved, auditions (and the last one's verdict), the last lane and route,
     and the count of each route taken."""
     doc = dict(_ENGAGE, routes=dict(_ENGAGE['routes']))
     d = doc['dispatches']
@@ -225,25 +299,69 @@ def stats_doc():
 
 # -- execution --------------------------------------------------------------
 
-def _device_fold(inv, w64, nuniq, shard_ctx, dev):
+def _device_fold(inv, w64, nuniq, shard_ctx, dev, info):
     """The staged, slot-packed, device-resident fold on `dev`.  Returns
-    (acc i64[nuniq] host ndarray, dispatches, H2D bytes).
+    (acc i64[nuniq] host ndarray, dispatches, H2D bytes), and fills
+    `info` with the accumulator tensor ('acc'), the pinned shard hits
+    ('pinned_hits') and the H2D bytes they saved ('h2d_saved').
     `shard_ctx` is (sids i64[n] ascending, [(path, statkey)] per shard,
     query) from the stacked path, or None (one anonymous shard)."""
     import torch
     pu = _pow2(nuniq)
-    sid = shard_ctx[0] if shard_ctx is not None \
-        else np.zeros(len(inv), dtype=np.int64)
+    if shard_ctx is not None:
+        sid, pairs, query = shard_ctx
+    else:
+        sid = np.zeros(len(inv), dtype=np.int64)
+        pairs, query = [(None, None)], None
     nshards_total = (int(sid[-1]) + 1) if len(sid) else 0
     bounds = np.searchsorted(sid, np.arange(nshards_total + 1))
 
-    staged = []                  # (prow, ttable, nlocal, local, w)
+    res = _residency()
+    repoch = plan = None
+    if res is not None:
+        from . import index_query_mt as mod_iqmt
+        repoch = mod_iqmt.cache_epoch()
+        if query is not None:
+            plan = plan_signature(query)
+
+    # stage every non-empty shard: pinned device tensors where
+    # residency has them, a fresh per-shard upload (then pinned) where
+    # it can pin, host arrays (uploaded with their chunk) otherwise
+    staged = []        # (prow, ttable, nlocal, device pair, host pair)
+    pinned_hits = 0
+    h2d_bytes = 0
+    h2d_saved = 0
     for s in range(nshards_total):
         lo, hi = int(bounds[s]), int(bounds[s + 1])
         if lo == hi:
             continue
         local, ttable, nlocal = _stage_shard(inv[lo:hi])
-        staged.append((_pow2(hi - lo), ttable, nlocal, local, w64[lo:hi]))
+        prow = _pow2(hi - lo)
+        key = None
+        if plan is not None and s < len(pairs):
+            ident = _shard_identity(*pairs[s]) \
+                if pairs[s][0] is not None else None
+            if ident is not None:
+                key = ('iq-shard', plan, ident, prow)
+            pinned = res.get_device(key, repoch)
+            if pinned is not None:
+                staged.append((prow, ttable, nlocal, pinned, None))
+                pinned_hits += 1
+                h2d_saved += prow * 16          # two i64 lanes
+                continue
+        pl, pw = _pad_slot(local, w64[lo:hi], nlocal, prow)
+        if key is None:
+            staged.append((prow, ttable, nlocal, None, (pl, pw)))
+            continue
+        pair = (torch.from_numpy(pl).to(dev), torch.from_numpy(pw).to(dev))
+        h2d_bytes += pl.nbytes + pw.nbytes
+        res.put_device(key, repoch, pair, nbytes=pl.nbytes + pw.nbytes)
+        staged.append((prow, ttable, nlocal, pair, None))
+
+    acc = torch.zeros(pu, dtype=torch.int64, device=dev)
+    info.update(acc=acc, pinned_hits=pinned_hits, h2d_saved=h2d_saved)
+    if not staged:
+        return np.zeros(nuniq, dtype=np.int64), 0, 0
 
     # pack by padded row count: pow2 slot ladder bounded by the
     # batch-rows budget (the reference's order and dispatch count)
@@ -251,9 +369,7 @@ def _device_fold(inv, w64, nuniq, shard_ctx, dev):
     for st in staged:
         groups.setdefault(st[0], []).append(st)
     budget = batch_rows()
-    acc = torch.zeros(pu, dtype=torch.int64, device=dev)
     ndispatch = 0
-    h2d_bytes = 0
     for prow in sorted(groups):
         todo = groups[prow]
         smax = max(1, min(_MAX_SLOTS, budget // prow))
@@ -266,19 +382,44 @@ def _device_fold(inv, w64, nuniq, shard_ctx, dev):
             i += s
             ptab = _pow2(max(c[2] + 1 for c in chunk))
             ttabs = np.full((s, ptab), pu - 1, dtype=np.int64)
-            lmat = np.empty((s, prow), dtype=np.int64)
-            wmat = np.empty((s, prow), dtype=np.int64)
-            for j, (_pr, tt, nl, local, w) in enumerate(chunk):
+            for j, (_pr, tt, nl, _dev, _host) in enumerate(chunk):
                 ttabs[j, :nl] = tt
-                lmat[j], wmat[j] = _pad_slot(local, w, nl, prow)
-            h2d_bytes += lmat.nbytes + wmat.nbytes + ttabs.nbytes
-            _fold_program(torch.from_numpy(lmat).to(dev),
-                          torch.from_numpy(wmat).to(dev),
-                          torch.from_numpy(ttabs).to(dev), acc)
+            lmat, wmat, nbytes = _pack_slots(chunk, dev)
+            h2d_bytes += nbytes + ttabs.nbytes
+            _fold_program(lmat, wmat, torch.from_numpy(ttabs).to(dev),
+                          acc)
             ndispatch += 1
     # ONE fetch: everything upstream stayed on the device
     out = acc[:nuniq].cpu().numpy()
     return out, ndispatch, h2d_bytes
+
+
+def _pack_slots(chunk, dev):
+    """The [S, prow] local-code and weight matrices of one dispatch on
+    `dev`, and the bytes uploaded for them: the chunk's host slots in
+    one copy each, its device slots stacked on the card."""
+    import torch
+    host = [c[4] for c in chunk if c[4] is not None]
+    nbytes = 0
+    if host:
+        lm = np.stack([h[0] for h in host])
+        wm = np.stack([h[1] for h in host])
+        up_l = torch.from_numpy(lm).to(dev)
+        up_w = torch.from_numpy(wm).to(dev)
+        nbytes = lm.nbytes + wm.nbytes
+        if len(host) == len(chunk):
+            return up_l, up_w, nbytes
+    rows_l, rows_w = [], []
+    k = 0
+    for c in chunk:
+        if c[3] is not None:
+            rows_l.append(c[3][0])
+            rows_w.append(c[3][1])
+        else:
+            rows_l.append(up_l[k])
+            rows_w.append(up_w[k])
+            k += 1
+    return torch.stack(rows_l), torch.stack(rows_w), nbytes
 
 
 def batched_sums(inv, weights, nuniq, shard_ctx=None, stage=None,
@@ -290,25 +431,49 @@ def batched_sums(inv, weights, nuniq, shard_ctx=None, stage=None,
     `audition=True` the host bincount runs too: both are timed, the
     sums compared exactly (a difference raises), and the verdict — the
     device won when its rate beat the host's — persists under the
-    `iq:` family for the next auto query."""
+    `iq:` family for the next auto query.  With residency armed
+    (`dn serve`), an exact repeat answers from the pinned accumulator
+    without a dispatch, and a computed accumulator is pinned."""
     import time
     from .engine import MAX_DENSE_SEGMENTS
     from .ops import resolve_device
     if nuniq > MAX_DENSE_SEGMENTS or len(inv) == 0:
         return None
     dev = resolve_device(device)
+    w64 = weights.astype(np.int64)
+    res = _residency()
+    rkey = repoch = None
+    if res is not None:
+        from . import index_query_mt as mod_iqmt
+        from .serve import residency as mod_residency
+        rkey = mod_residency.content_key('iq-acc', (inv, w64),
+                                         (_pow2(nuniq), nuniq))
+        repoch = mod_iqmt.cache_epoch()
+        pinned = res.get(rkey, repoch)
+        if pinned is not None:
+            _ENGAGE['last_lane'] = 'device'
+            if stage is not None:
+                stage.bump_hidden('index device sums', 1)
+            return pinned.copy()
     t0 = time.monotonic()
-    acc, ndispatch, h2d_bytes = _device_fold(
-        inv, weights.astype(np.int64), nuniq, shard_ctx, dev)
+    info = {}
+    acc, ndispatch, h2d_bytes = _device_fold(inv, w64, nuniq, shard_ctx,
+                                             dev, info)
     device_s = time.monotonic() - t0
     nshards = len(shard_ctx[1]) if shard_ctx is not None else 1
-    _note_engagement(ndispatch, nshards, len(inv), h2d_bytes)
+    _note_engagement(ndispatch, nshards, len(inv), info['pinned_hits'],
+                     h2d_bytes, info['h2d_saved'])
     _ENGAGE['last_lane'] = 'device'
     if stage is not None:
         stage.bump_hidden('index device sums', 1)
     out = acc.astype(np.float64)
     if audition:
         _audition(inv, weights, nuniq, out, device_s, dev)
+    if res is not None:
+        # pin the final accumulator (no fold writes it again) and its
+        # one fetched copy: an exact repeat answers with no transfer
+        res.put(rkey, repoch, info['acc'], out, h2d_bytes=h2d_bytes)
+        return out.copy()
     return out
 
 

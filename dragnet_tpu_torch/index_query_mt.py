@@ -29,8 +29,8 @@ module owns its three host-side pieces:
   invalidate rewritten paths.  A watchdog.LeakCheck makes undrained
   executors and leaked (never checked-in) handles fail loudly at exit.
 
-The reference's per-request counter scopes (`dn serve`) are not
-ported: pool workers bump the process-global counters directly.
+Pool workers adopt the submitting request's counter scope
+(vpipe.adopt_scope), so a `dn serve` request's counters attribute to it.
 """
 
 import os
@@ -38,6 +38,8 @@ import queue
 import threading
 import time
 from collections import OrderedDict
+
+from . import vpipe
 from datetime import datetime, timedelta, timezone
 
 from .errors import DNError
@@ -183,6 +185,17 @@ def _fanout_reset():
         _FANOUT_EMA['pool'] = _FANOUT_EMA['seq'] = None
         _FANOUT_STATE['n'] = 0
         _FANOUT_STATE['last_mode'] = None
+
+
+def fanout_stats():
+    """Measured per-shard fan-out costs + the last strategy used —
+    `dn serve` /stats surfaces it so a degraded pool is visible, not
+    silent."""
+    with _FANOUT_LOCK:
+        return {'pool_ms_per_shard': _FANOUT_EMA['pool'],
+                'seq_ms_per_shard': _FANOUT_EMA['seq'],
+                'fanouts': _FANOUT_STATE['n'],
+                'last_mode': _FANOUT_STATE['last_mode']}
 
 
 def _choose_fanout(npaths, nworkers):
@@ -577,11 +590,53 @@ def shard_cache_clear():
         handle.querier.close()
 
 
+def shard_cache_stats():
+    with _CACHE_LOCK:
+        return dict(_CACHE_STATS, size=len(_CACHE))
+
+
+def invalidate_index_tree(root):
+    """Drop every cached handle and find-memo entry at or under
+    `root` — the serving layer's post-build coherence hook: a rebuild
+    touches many shards (and may DELETE some), so after the per-path
+    writer invalidations the whole tree's cached state is retired in
+    one sweep.  Cheap when nothing under `root` is cached."""
+    root = os.path.abspath(root)
+    prefix = root + os.sep
+    closing = []
+    with _CACHE_LOCK:
+        for path in [p for p in _CACHE
+                     if os.path.abspath(p) == root or
+                     os.path.abspath(p).startswith(prefix)]:
+            _INVAL_GEN[path] = _INVAL_GEN.get(path, 0) + 1
+            closing.append(_CACHE.pop(path))
+        # handles currently LEASED to an in-flight query are not in
+        # _CACHE, so per-path generation bumps cannot reach them; the
+        # epoch bump makes every handle leased across this sweep
+        # close at checkin instead of re-entering the cache
+        _EPOCH[0] += 1
+    with _FIND_LOCK:
+        for d in [d for d in _FIND_CACHE
+                  if os.path.abspath(d) == root or
+                  os.path.abspath(d).startswith(prefix)]:
+            _FIND_CACHE.pop(d)
+    for handle in closing:
+        handle.querier.close()
+
+
+def find_cache_stats():
+    """Size of the whole-tree find memo (`dn serve` /stats)."""
+    with _FIND_LOCK:
+        return {'size': len(_FIND_CACHE)}
+
+
 def cache_epoch():
-    """Monotonic epoch of the shard/find caches, bumped by
-    shard_cache_clear.  `dn serve`'s result cache and residency pins
-    (not ported yet) stamp entries with it, so an epoch bump retires
-    them all at once."""
+    """Monotonic epoch of the shard/find caches — bumped by
+    shard_cache_clear and every whole-tree invalidation
+    (invalidate_index_tree), i.e. whenever an index under this process
+    was rewritten.  The serve result cache and the device residency
+    pins stamp entries with it, so an epoch bump retires them all at
+    once."""
     with _CACHE_LOCK:
         return _EPOCH[0]
 
@@ -780,6 +835,10 @@ class ShardQueryExecutor(object):
         self.workq = queue.Queue(maxsize=nworkers + self.QUEUE_DEPTH)
         self.resultq = queue.Queue()
         self._stopping = False
+        # workers adopt the submitting request's counter scope so
+        # cache-hit/miss telemetry attributes to the right `dn serve`
+        # request even on the per-shard pool path
+        self._scope = vpipe.current_scope()
         self.threads = []
         for _ in range(nworkers):
             t = threading.Thread(target=self._worker, daemon=True)
@@ -787,6 +846,10 @@ class ShardQueryExecutor(object):
             self.threads.append(t)
 
     def _worker(self):
+        with vpipe.adopt_scope(self._scope):
+            self._worker_loop()
+
+    def _worker_loop(self):
         while True:
             item = self.workq.get()
             if item is None:

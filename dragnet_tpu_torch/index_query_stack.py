@@ -37,9 +37,9 @@ envelope fall back to the per-shard loop.
 Device lane: the per-tuple weight sums go through
 device_index.aggregate_weights, the slot-packed i64 fold on the card
 (exact for the integer weights the gate admits, so device and host
-results are bit-equal).  The reference's legacy single-dispatch lane
-(`_sums_program` / `_device_sums`), whose only caller is `dn serve`'s
-residency pre-warm, comes with `dn serve`.
+results are bit-equal).  This module also keeps the reference's
+single-dispatch lane, K7a (`_sums_program` / `_device_sums`): `dn
+serve`'s residency pre-warm runs it at its two shapes.
 """
 
 import os
@@ -376,6 +376,102 @@ class _BreakdownStack(object):
 
 
 # -- device lane -----------------------------------------------------------
+
+# -- K7a: the single-dispatch device lane ---------------------------------
+
+# one entry per warmed (pn, pu), as the reference's jit cache: the
+# serve pre-warm reports what it holds
+_SUMS_CACHE = {}
+# K7a launches since process start (chip_smoke.py reads it)
+launches = {'sums': 0}
+
+
+def _pow2(x):
+    p = 8
+    while p < x:
+        p <<= 1
+    return p
+
+
+def _sums_program(pn, pu):
+    """K7a: (segment ids i64[pn], weights i64[pn]) -> i64[pu] sums on
+    the ids' device, one i64 `index_add_` into a zeroed accumulator
+    (integer atomics on CUDA: exact, independent of order).  Replaces
+    the reference's jitted `segment_sum`
+    (dragnet_tpu/index_query_stack.py `_sums_program`); shapes are
+    pow2-padded as there."""
+    prog = _SUMS_CACHE.get((pn, pu))
+    if prog is None:
+        import torch
+
+        def prog(seg, w):
+            launches['sums'] += 1
+            return torch.zeros(pu, dtype=torch.int64,
+                               device=seg.device).index_add_(0, seg, w)
+        if len(_SUMS_CACHE) >= 32:
+            _SUMS_CACHE.pop(next(iter(_SUMS_CACHE)))
+        _SUMS_CACHE[(pn, pu)] = prog
+    return prog
+
+
+def _residency():
+    """The serve-installed device residency manager, or None (bare CLI
+    processes never configure one)."""
+    from .serve import residency as mod_residency
+    return mod_residency.active()
+
+
+def _device_sums(inv, weights, nuniq, device=None):
+    """Per-tuple weight sums on `device` (CUDA unless the caller asks
+    for the CPU) as float64, or None on the structural host routes (a
+    segment count past the dense ceiling, no rows).  Sums run in i64,
+    so for integer weights the result is bit-equal to the host
+    bincount.  A device failure raises: unlike the reference, there is
+    no host fallback and no sticky availability verdict.
+
+    Inside a residency-armed `dn serve` (serve/residency.py), the
+    accumulator stays pinned on the card keyed by the content of the
+    staged host columns: a request over the same rows skips the upload,
+    the launch and the fetch, and answers with a private copy of the
+    host array the first execution fetched, while the writer epoch
+    retires pins on any index write."""
+    import torch
+    from .engine import MAX_DENSE_SEGMENTS
+    from .ops import resolve_device
+    if nuniq > MAX_DENSE_SEGMENTS or len(inv) == 0:
+        return None
+    dev = resolve_device(device)
+    pn = _pow2(len(inv))
+    pu = _pow2(nuniq)
+    seg = np.full(pn, pu - 1, dtype=np.int64)
+    seg[:len(inv)] = inv
+    w = np.zeros(pn, dtype=np.int64)
+    w[:len(inv)] = weights.astype(np.int64)
+
+    res = _residency()
+    rkey = repoch = None
+    if res is not None:
+        from . import index_query_mt as mod_iqmt
+        from .serve import residency as mod_residency
+        rkey = mod_residency.content_key('iq-sums', (seg, w),
+                                         (pn, pu, nuniq))
+        repoch = mod_iqmt.cache_epoch()
+        pinned = res.get(rkey, repoch)
+        if pinned is not None:
+            # the pinned copy is shared across requests; hand out a
+            # private clone (downstream aggregation may scale it)
+            return pinned.copy()
+    dense = _sums_program(pn, pu)(torch.from_numpy(seg).to(dev),
+                                  torch.from_numpy(w).to(dev))
+    host = dense[:nuniq].cpu().numpy().astype(np.float64)
+    if res is not None:
+        # pin the accumulator (never written again) and its fetched
+        # copy; future hits book the upload and fetch bytes paid here
+        res.put(rkey, repoch, dense, host,
+                h2d_bytes=seg.nbytes + w.nbytes)
+        return host.copy()
+    return host
+
 
 def _aggregate_weights(inv, weights, nuniq, stage=None, shard_ctx=None,
                        engine='device', device=None):

@@ -436,3 +436,37 @@ def configured_index_trees(cfg_path=None):
         if idx:
             out.append((dsname, idx))
     return out
+
+
+# -- quarantine inspection (the `dn serve` /stats recovery gauges) ----------
+
+def quarantine_entries(indexroot):
+    """[(name, bytes, age_s, path)] for the tree's quarantine
+    directory, oldest first."""
+    from . import index_journal as mod_journal
+    qdir = os.path.join(os.path.abspath(indexroot),
+                        mod_journal.QUARANTINE_DIR)
+    out = []
+    now = time.time()
+    try:
+        names = os.listdir(qdir)
+    except OSError:
+        return out
+    for name in names:
+        path = os.path.join(qdir, name)
+        try:
+            st = os.stat(path)
+        except OSError:
+            continue
+        out.append((name, st.st_size, max(0.0, now - st.st_mtime),
+                    path))
+    out.sort(key=lambda e: -e[2])
+    return out
+
+
+def quarantine_stats(indexroot):
+    """{'files', 'bytes'} of the tree's quarantine directory (the
+    /stats `recovery.quarantine_bytes` gauge feed)."""
+    entries = quarantine_entries(indexroot)
+    return {'files': len(entries),
+            'bytes': sum(e[1] for e in entries)}

@@ -1,5 +1,5 @@
-"""Observability seams of the port: typed metrics (`metrics`), the
-span hooks (`trace`) that the index build and publish path call, and
-the event journal (`events`).  Counterpart of dragnet_tpu/obs, without
-its exports and history rings.
+"""Observability of the port: typed metrics (`metrics`), per-request
+span trees (`trace`), their Prometheus and /stats exports (`export`)
+and the event journal (`events`).  Counterpart of dragnet_tpu/obs,
+without its metric history rings (obs/history.py).
 """

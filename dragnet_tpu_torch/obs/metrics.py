@@ -1,9 +1,8 @@
 """Typed metrics: counters, gauges, fixed-bucket latency histograms.
 
-Counterpart of dragnet_tpu/obs/metrics.py without its serve-side parts
-(request-scoped registries, the device and rollup gauge refreshers),
-which come with `dn serve`.  The index build and publish path records
-its stage timings here (``timed_stage``):
+Counterpart of dragnet_tpu/obs/metrics.py.  The index build and publish
+path records its stage timings here (``timed_stage``), and `dn serve`
+its per-op latencies:
 
 * ``Counter``    — monotonically increasing count.
 * ``Gauge``      — last-set value.
@@ -12,6 +11,12 @@ its stage timings here (``timed_stage``):
 
 Metric identity is ``name`` + optional label pairs
 (``observe('stage_ms', 12.5, stage='index_build.commit')``).
+
+Writes route through the module helpers (``inc`` / ``set_gauge`` /
+``observe``): inside a request scope that carries an obs context
+(vpipe.Scope.obs) they land in the request's private registry, merged
+into the process registry when the request ends; otherwise in the
+process-global one.
 
 The device scan's pipelined dispatch (device_scan._note_dispatch, the
 staging ring) writes, and ``pipeline_doc`` reads back:
@@ -30,6 +35,8 @@ import contextlib
 import os
 import threading
 import time
+
+from .. import vpipe as mod_vpipe
 
 # Default latency buckets (milliseconds).  Upper bounds, ascending;
 # +Inf is implicit.  Chosen to straddle the measured serving range:
@@ -265,10 +272,11 @@ def reset_global_registry():
 
 
 def _active_registry():
-    """The process-global registry (the reference routes writes inside
-    a `dn serve` request scope to the request's registry; the port has
-    no request scopes yet)."""
-    return _GLOBAL
+    """The request-scoped registry when this thread is inside a scope
+    whose obs context carries one, else the global registry."""
+    obs = getattr(mod_vpipe.current_scope(), 'obs', None)
+    reg = getattr(obs, 'registry', None)
+    return reg if reg is not None else _GLOBAL
 
 
 def inc(name, n=1, **labels):
@@ -318,3 +326,109 @@ def pipeline_doc(registry=None):
         'h2d_overlapped_bytes': ov,
         'overlap_ratio': round(ov / h2d, 4) if h2d else 0.0,
     }
+
+
+# -- device gauges (ROADMAP open item 4: the reporting half) ---------------
+
+_DEVICE_COUNTER_GAUGES = (
+    ('ndevicebatches', 'device_batches'),
+    ('nstackedbatches', 'device_stacked_batches'),
+    ('index device sums', 'device_index_sums'),
+)
+
+# serve/residency.py registers its stats() here at configure time (and
+# clears it at drain) — obs stays import-independent of the serve
+# package while the device gauges still see pinned-memory truth
+_RESIDENCY_SOURCE = None
+
+
+def set_residency_source(fn):
+    """Install (or clear, fn=None) the device-residency stats provider
+    refresh_device_gauges consults: a zero-arg callable returning the
+    serve/residency.py stats doc."""
+    global _RESIDENCY_SOURCE
+    _RESIDENCY_SOURCE = fn
+
+
+def refresh_device_gauges(counters, registry=None):
+    """Wire the device-lane engagement picture into typed gauges from
+    the existing hidden counters (vpipe.global_counters()):
+
+    * ``device_engaged``          — 1.0 when any device-lane counter
+      is non-zero (the same signal /stats' `device.engaged` reports).
+    * ``device_batches`` / ``device_stacked_batches`` /
+      ``device_index_sums``      — the raw engagement counters.
+    * ``device_residency_pct``   — share of engine batches that ran on
+      the device lane (device / (device + host)); 0 when nothing ran.
+    * ``device_mfu_pct``         — measured device records/s against
+      the rig's calibrated peak (DN_DEVICE_PEAK_RECORDS_PER_SEC).
+      HONEST ZEROS: without a measured device rate (CPU rigs, host
+      lane) and a calibrated peak, this reports 0.0 rather than a
+      guess.  device_scan sets `device_records_per_sec` when the
+      device lane actually measures a window.
+    * ``device_residency_hit_rate`` / ``device_pinned_bytes`` /
+      ``device_h2d_saved_bytes`` / ``device_d2h_saved_bytes`` — HBM
+      residency (serve/residency.py), present only when a serve
+      process has configured it (set_residency_source).
+    """
+    reg = registry if registry is not None else _GLOBAL
+    total_dev = 0
+    for counter, gauge in _DEVICE_COUNTER_GAUGES:
+        v = int(counters.get(counter, 0) or 0)
+        total_dev += v
+        reg.set_gauge(gauge, v)
+    reg.set_gauge('device_engaged', 1.0 if total_dev else 0.0)
+    host_batches = int(counters.get('nhostbatches', 0) or 0)
+    dev_batches = int(counters.get('ndevicebatches', 0) or 0) + \
+        int(counters.get('nstackedbatches', 0) or 0)
+    denom = host_batches + dev_batches
+    reg.set_gauge('device_residency_pct',
+                  100.0 * dev_batches / denom if denom else 0.0)
+    rate = 0.0
+    with reg._lock:
+        for (n, _lb), m in reg._metrics.items():
+            if n == 'device_records_per_sec' and m.kind == GAUGE:
+                rate = max(rate, float(m.value))
+    peak = 0.0
+    try:
+        peak = float(os.environ.get(
+            'DN_DEVICE_PEAK_RECORDS_PER_SEC', '0') or 0)
+    except ValueError:
+        peak = 0.0
+    mfu = 100.0 * rate / peak if (rate > 0 and peak > 0) else 0.0
+    reg.set_gauge('device_mfu_pct', mfu)
+    src = _RESIDENCY_SOURCE
+    if src is not None:
+        try:
+            rs = src() or {}
+        except Exception:
+            rs = {}
+        if rs.get('enabled'):
+            reg.set_gauge('device_residency_hit_rate',
+                          float(rs.get('hit_rate', 0.0) or 0.0))
+            reg.set_gauge('device_pinned_bytes',
+                          float(rs.get('bytes', 0) or 0))
+            reg.set_gauge('device_h2d_saved_bytes',
+                          float(rs.get('h2d_saved_bytes', 0) or 0))
+            reg.set_gauge('device_d2h_saved_bytes',
+                          float(rs.get('d2h_saved_bytes', 0) or 0))
+
+
+def refresh_rollup_gauges(counters, registry=None):
+    """Rollup-planner engagement from the hidden query counters:
+
+    * ``rollup_covered_shards_total`` / ``rollup_shards_read_total``
+      — fine shards whose answers came from rollups, and the coarse
+      shards actually read for them.
+    * ``rollup_coverage_pct`` — share of all fine-shard reads the
+      planner served from rollups (0 when nothing ran; honest zero,
+      like the device gauges).
+    """
+    reg = registry if registry is not None else _GLOBAL
+    covered = int(counters.get('index shards via rollup', 0) or 0)
+    read = int(counters.get('rollup shards queried', 0) or 0)
+    queried = int(counters.get('index shards queried', 0) or 0)
+    reg.set_gauge('rollup_covered_shards_total', covered)
+    reg.set_gauge('rollup_shards_read_total', read)
+    reg.set_gauge('rollup_coverage_pct',
+                  100.0 * covered / queried if queried else 0.0)

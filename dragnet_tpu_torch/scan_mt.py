@@ -22,9 +22,10 @@ worker bumps its own pipeline's stages, which mirror the main
 pipeline's scan stages one-to-one and are summed into them at the end.
 
 DN_SCAN_THREADS sets the worker count (auto = up to 6, bounded by CPU
-count; 0 disables the executor entirely).  The reference's request
-counter scopes (`dn serve`) and its fan-out trace span are not ported:
-the port has neither a server nor a trace context.
+count; 0 disables the executor entirely).  Workers adopt the submitting
+request's counter scope (vpipe.adopt_scope), so a `dn serve` request's
+counters and spans attribute to it; the fan-out reports one
+`scan_mt.fanout` span.
 """
 
 import os
@@ -534,8 +535,10 @@ class MTScanExecutor(object):
 
     def __init__(self, nworkers, build_worker, apply_result,
                  main_pipeline, stage_offset, finish_fn=None):
+        import time as mod_time
         from .vpipe import Pipeline
         self.closed = False
+        self._t0 = mod_time.perf_counter()
         _EXECUTOR_LEAKS.track(self)
         self.nworkers = nworkers
         self.apply_result = apply_result
@@ -547,6 +550,11 @@ class MTScanExecutor(object):
         self.errors = []
         self.seq = 0
         self.worker_pipelines = []
+        # workers adopt the submitting request's counter scope so the
+        # hidden parse/engine telemetry their pipelines mirror still
+        # attributes to the right `dn serve` request
+        from . import vpipe as mod_vpipe
+        self._scope = mod_vpipe.current_scope()
         self.threads = []
         for _ in range(nworkers):
             wp = Pipeline()
@@ -559,6 +567,11 @@ class MTScanExecutor(object):
         self.merger.start()
 
     def _worker(self, build_worker, wp):
+        from . import vpipe as mod_vpipe
+        with mod_vpipe.adopt_scope(self._scope):
+            self._worker_loop(build_worker, wp)
+
+    def _worker_loop(self, build_worker, wp):
         import time as mod_time
         from .obs import metrics as obs_metrics
         try:
@@ -624,7 +637,15 @@ class MTScanExecutor(object):
     def finish(self):
         """Drain everything, merge worker counters into the main
         pipeline, and re-raise the first worker error."""
+        import time as mod_time
+        from .obs import trace as obs_trace
         self.close()
+        # one synthesized span for the whole fan-out (per-batch latency
+        # lives in the always-on scan_batch_ms histogram instead)
+        obs_trace.add_span(
+            'scan_mt.fanout',
+            (mod_time.perf_counter() - self._t0) * 1000.0,
+            nworkers=self.nworkers, batches=self.seq)
         if self.errors:
             raise self.errors[0]
         if self.finish_fn is not None:

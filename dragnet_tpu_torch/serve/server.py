@@ -1,0 +1,1508 @@
+"""`dn serve` on the card: a long-lived multi-threaded server that
+executes scan/build/query requests with warm process state.
+
+Counterpart of dragnet_tpu/serve/server.py for a single member.  Every
+`dn query` pays a cold start per invocation: interpreter boot, the
+CUDA context, the kernel libraries, shard handles, the find memo and
+the audition cache.  This server is the one process that lives across
+requests and holds them:
+
+* the shard-handle LRU + whole-tree find memo (index_query_mt),
+* the CUDA context, the built kernel libraries and the audition
+  verdicts (device_scan, ops),
+* the device residency pins (serve/residency.py): a repeat stacked
+  aggregation answers from its pinned accumulator, a different query
+  over the same shards from their pinned tensors,
+* the stacked cross-shard execution path (index_query_stack), which
+  request coalescing (admission.py) turns into one aggregation for N
+  compatible concurrent queries.
+
+Protocol: newline-JSON over a unix socket (TCP optional), framed by
+serve/protocol.py — v1 (one request per connection) and v2 (persistent
+multiplexed connections, `"proto": 2` plus a request `"id"`), served
+by the selector front end (serve/ioloop.py).  Response: one JSON
+header line {"ok", "rc", "nout", "nerr", "stats"} followed by exactly
+nout stdout bytes and nerr stderr bytes, BYTE-IDENTICAL to what the
+local CLI command would have written: requests run through the same
+datasource entry points and output layer, on the server's device
+(DN_TORCH_DEVICE, CUDA unless it says cpu) and engine (DN_ENGINE),
+with each worker thread's stdout/stderr routed to per-request buffers
+(the thread-stdio router below).
+
+Overload posture (admission.py): per-tenant weighted-fair admission,
+deadline propagation and early load shedding, as in the reference.
+
+Ops: scan, query, build, stats, metrics, health, events, topology,
+ping (+ `_sleep` when DN_SERVE_TEST_OPS=1).  The cluster, standing-query,
+fleet and scrub ops, and the knobs that would start the reference's
+scrub, maintenance and history threads, are not ported: each fails
+loudly with a message that names what is missing.  A device fault in
+a request fails that request (rc 1, "dn: ..."); the server keeps
+serving, and nothing answers from the host where the device was
+asked for.
+"""
+
+import codecs
+import contextlib
+import gc
+import io
+import json
+import os
+import signal
+import socket
+import sys
+import threading
+import time
+
+from .. import cli as mod_cli
+from .. import config as mod_config
+from .. import faults as mod_faults
+from .. import integrity as mod_integrity
+from .. import resources as mod_resources
+from .. import vpipe as mod_vpipe
+from .. import index_query_mt as mod_iqmt
+from .. import log as mod_log
+from ..errors import DNError
+from ..obs import events as obs_events
+from ..obs import export as obs_export
+from ..obs import metrics as obs_metrics
+from ..obs import trace as obs_trace
+from ..watchdog import LeakCheck
+from . import admission as mod_admission
+from . import ioloop as mod_ioloop
+from . import lifecycle as mod_lifecycle
+from . import protocol as mod_protocol
+from . import qcache as mod_qcache
+from . import residency as mod_residency
+
+
+MAX_REQUEST_BYTES = mod_protocol.MAX_FRAME_BYTES
+
+# a server that exits while `running` never drained: in-flight
+# requests (and their clients) may have been dropped on the floor
+_SERVER_LEAKS = LeakCheck(
+    'dn serve server(s) never drained; in-flight requests may have '
+    'been dropped', lambda s: s.running)
+
+
+# -- output-encoding parity with bin/dn.py ----------------------------------
+
+def _dn_fffd(err):
+    return ('�' * (err.end - err.start), err.end)
+
+
+def output_errors():
+    """The error handler name request buffers encode with — the same
+    lone-surrogate -> U+FFFD behavior bin/dn.py installs on the real
+    stdout, so response bytes match the CLI's byte-for-byte."""
+    try:
+        codecs.lookup_error('dn_fffd')
+    except LookupError:
+        codecs.register_error('dn_fffd', _dn_fffd)
+    return 'dn_fffd'
+
+
+# -- thread-directed stdio --------------------------------------------------
+#
+# The CLI output layer writes to sys.stdout / sys.stderr directly, and
+# that is exactly what guarantees byte parity — so instead of
+# refactoring every write site, the server routes the PROCESS streams
+# through a per-thread binding: worker threads bind their request
+# buffers, every other thread falls through to the real stream.  The
+# binding registry is module-global (not per-router-instance) so a
+# router displaced by test harnesses that swap sys.stdout can be
+# reinstalled at any time without stranding live bindings.
+
+_STDIO_TLS = threading.local()
+_STDIO_LOCK = threading.Lock()
+
+
+class _ThreadStream(object):
+    def __init__(self, which, fallback):
+        self._which = which
+        self._fallback = fallback
+
+    def _target(self):
+        bound = getattr(_STDIO_TLS, self._which, None)
+        return self._fallback if bound is None else bound
+
+    def write(self, data):
+        return self._target().write(data)
+
+    def writelines(self, lines):
+        return self._target().writelines(lines)
+
+    def flush(self):
+        return self._target().flush()
+
+    def __getattr__(self, name):
+        return getattr(self._target(), name)
+
+
+def install_stdio_router():
+    """Idempotently route sys.stdout/sys.stderr through the
+    thread-binding proxies (re-wrapping whatever stream is current if
+    something replaced them since the last install)."""
+    with _STDIO_LOCK:
+        if not isinstance(sys.stdout, _ThreadStream):
+            sys.stdout = _ThreadStream('out', sys.stdout)
+        if not isinstance(sys.stderr, _ThreadStream):
+            sys.stderr = _ThreadStream('err', sys.stderr)
+
+
+class _Capture(object):
+    """Per-request byte buffers presented as text streams (utf-8 with
+    the CLI's surrogate policy)."""
+
+    def __init__(self):
+        errors = output_errors()
+        self.out_b = io.BytesIO()
+        self.err_b = io.BytesIO()
+        self.out_t = io.TextIOWrapper(self.out_b, encoding='utf-8',
+                                      errors=errors, newline='')
+        self.err_t = io.TextIOWrapper(self.err_b, encoding='utf-8',
+                                      errors=errors, newline='')
+
+    def finish(self):
+        """Flush and return (stdout_bytes, stderr_bytes); the buffers
+        detach so the text wrappers' GC cannot close them early."""
+        self.out_t.flush()
+        self.err_t.flush()
+        out, err = self.out_b.getvalue(), self.err_b.getvalue()
+        self.out_t.detach()
+        self.err_t.detach()
+        return out, err
+
+
+@contextlib.contextmanager
+def bound_stdio(capture):
+    """Bind THIS thread's sys.stdout/sys.stderr to the capture."""
+    install_stdio_router()
+    prior = (getattr(_STDIO_TLS, 'out', None),
+             getattr(_STDIO_TLS, 'err', None))
+    _STDIO_TLS.out = capture.out_t
+    _STDIO_TLS.err = capture.err_t
+    try:
+        yield
+    finally:
+        _STDIO_TLS.out, _STDIO_TLS.err = prior
+
+
+@contextlib.contextmanager
+def thread_stdio():
+    """Capture this thread's CLI output as bytes (tests use this to
+    compute expected local bytes through the same router the server
+    routes through): yields the _Capture; read via .finish()."""
+    cap = _Capture()
+    with bound_stdio(cap):
+        yield cap
+
+
+# -- request options shim ---------------------------------------------------
+
+class _ReqOpts(object):
+    """The parsed-options surface cli.dn_query_config / cli.dn_output
+    expect, rebuilt from a request's shipped documents."""
+
+
+def _opts_shim(req):
+    o = _ReqOpts()
+    qc = req.get('queryconfig') or {}
+    o.breakdowns = qc.get('breakdowns') or []
+    o.after = qc.get('timeAfter')
+    o.before = qc.get('timeBefore')
+    o.filter = qc.get('filter')
+    opts = req.get('opts') or {}
+    for name in ('raw', 'points', 'counters', 'gnuplot'):
+        setattr(o, name, opts.get(name))
+    o.dry_run = bool(opts.get('dry_run'))
+    o.interval = req.get('interval')
+    return o
+
+
+def _config_ident(path):
+    try:
+        st = os.stat(path)
+        return [path, st.st_mtime_ns, st.st_size]
+    except OSError:
+        return [path, None, None]
+
+
+_DEVICE_SIGNALS = ('ndevicebatches', 'nstackedbatches',
+                   'index device sums')
+
+
+def device_engaged(counters):
+    return any(counters.get(k) for k in _DEVICE_SIGNALS)
+
+
+# -- what a single-member server does not carry ----------------------------
+
+# ops that reach the reference's cluster, standing-query, fleet and
+# scrub modules (serve/router.py, subscribe.py, fleet.py, scrub.py,
+# rebalance.py), and the module each needs
+UNPORTED_OPS = {
+    'subscribe': 'serve/subscribe.py',
+    'sub_ack': 'serve/subscribe.py',
+    'unsubscribe': 'serve/subscribe.py',
+    'fleet_stats': 'serve/fleet.py',
+    'scrub': 'serve/scrub.py',
+    'query_partial': 'the cluster router (serve/router.py)',
+    'shard_manifest': 'the shard handoff (serve/rebalance.py)',
+    'shard_fetch': 'the shard handoff (serve/rebalance.py)',
+}
+
+
+def unported_error(what, missing):
+    return DNError('%s is not ported to dragnet_tpu_torch (it needs %s)'
+                   % (what, missing))
+
+
+def check_unported_knobs(integ_conf, obs_conf):
+    """DNError for the first knob that would start a reference thread
+    this server does not carry, else None."""
+    for key, name, missing in (
+            ('scrub_interval_s', 'DN_SCRUB_INTERVAL_S',
+             'the scrub thread (serve/scrub.py)'),
+            ('rollup_interval_s', 'DN_ROLLUP_INTERVAL_S',
+             'the maintenance thread (serve/scrub.py)'),
+            ('compact_interval_s', 'DN_COMPACT_INTERVAL_S',
+             'the maintenance thread (serve/scrub.py)')):
+        if integ_conf[key] > 0:
+            return unported_error('%s > 0' % name, missing)
+    if obs_conf['history_s'] > 0:
+        return unported_error('DN_METRICS_HISTORY_S > 0',
+                              'the metric history (obs/history.py)')
+    return None
+
+
+# -- the server -------------------------------------------------------------
+
+class DnServer(object):
+    def __init__(self, socket_path=None, port=None, host='127.0.0.1',
+                 conf=None, pidfile=None, device=None):
+        from ..ops import resolve_device
+        if conf is None:
+            conf = mod_config.serve_config()
+        if isinstance(conf, DNError):
+            raise conf
+        assert (socket_path is None) != (port is None), \
+            'exactly one of socket_path/port'
+        # embedders (tests, the chip smoke) pass partial conf dicts; the
+        # front-end/tenancy knobs fall back to their defaults
+        full = mod_config.serve_config(env={})
+        full.update(conf)
+        self.conf = conf = full
+        # the device every request runs on: CUDA unless DN_TORCH_DEVICE
+        # (or the caller) says cpu; CUDA asked for and absent fails
+        # here, before anything binds
+        self.device = str(resolve_device(
+            device or os.environ.get('DN_TORCH_DEVICE') or 'cuda'))
+        self.socket_path = socket_path
+        self.port = port
+        self.host = host
+        self.pidfile = pidfile
+        self.bound_port = None
+        integ_conf = mod_config.integrity_config()
+        if isinstance(integ_conf, DNError):
+            raise integ_conf
+        obs_conf = mod_config.obs_config()
+        if isinstance(obs_conf, DNError):
+            raise obs_conf
+        err = check_unported_knobs(integ_conf, obs_conf)
+        if err is not None:
+            raise err
+        self.integrity_conf = integ_conf
+        # resource governance (resources.py): disk watermarks drive
+        # low/critical modes (the member flips read-only while queries
+        # keep serving); the memory budget sheds over-footprint
+        # admissions with retry hints
+        res_conf = mod_config.resources_config()
+        if isinstance(res_conf, DNError):
+            raise res_conf
+        self._resource_paths_memo = (None, 0.0)
+        self.governor = mod_resources.ResourceGovernor(
+            res_conf, paths=self._resource_paths)
+        self.admission = mod_admission.Admission(
+            conf['max_inflight'], conf['queue_depth'],
+            tenant_quota=conf['tenant_quota'],
+            tenant_weights=conf['tenant_weights'],
+            tenant_default_weight=conf['tenant_default_weight'])
+        self.coalescer = mod_admission.Coalescer(conf['coalesce'])
+        # query-result cache (serve/qcache.py): repeat identical
+        # queries answer from memory, invalidated by the writer epoch
+        # + tree stat validators.  DN_SERVE_CACHE_MB=0 (default)
+        # disables.
+        self.qcache = mod_qcache.ResultCache(
+            conf['cache_mb'] << 20, governor=self.governor)
+        # device residency (serve/residency.py): pinned accumulators
+        # and shard tensors on the card, invalidated by the same
+        # writer epoch.  DN_DEVICE_RESIDENCY_MB=0 (default) disables.
+        dev_conf = mod_config.device_config()
+        if isinstance(dev_conf, DNError):
+            raise dev_conf
+        self.device_conf = dev_conf
+        iq_conf = mod_config.index_device_config()
+        if isinstance(iq_conf, DNError):
+            raise iq_conf
+        self.index_device_conf = iq_conf
+        self._memory_before = _device_memory(self.device)
+        mod_residency.configure(dev_conf['residency_mb'] << 20)
+        self._prewarm_doc = None
+        self._prewarm_thread = None
+        self.log = mod_log.get('serve')
+        self.running = False
+        self.draining = False
+        self._listener = None
+        self.loop = None
+        self._stop = threading.Event()
+        self._drained = threading.Event()
+        self._workers = set()
+        self._workers_lock = threading.Lock()
+        self._stats_lock = threading.Lock()
+        self._counters = {'requests': 0, 'errors': 0,
+                          'busy_rejected': 0, 'deadline_expired': 0,
+                          'draining_rejected': 0,
+                          'shed_overloaded': 0,
+                          'build_idem_replays': 0}
+        # build idempotency: key -> {'done': Event, 'result': tuple}.
+        # A retried `dn build --remote` (same client-generated key)
+        # replays the recorded response instead of double-writing.
+        self._idem_lock = threading.Lock()
+        self._idem = {}
+        self._by_op = {}
+        self._t0 = time.monotonic()
+        self._started_wall = time.time()
+        self._hook = None
+        self._thread = None
+        # per-index-tree reader/writer locks (admission.TreeLock):
+        # index queries read-lock, builds write-lock
+        self._tree_locks = {}
+        self._tree_locks_lock = threading.Lock()
+
+    # -- lifecycle --------------------------------------------------------
+
+    def bind(self):
+        if self.socket_path is not None:
+            listener = socket.socket(socket.AF_UNIX,
+                                     socket.SOCK_STREAM)
+            listener.bind(self.socket_path)
+        else:
+            listener = socket.socket(socket.AF_INET,
+                                     socket.SOCK_STREAM)
+            listener.setsockopt(socket.SOL_SOCKET,
+                                socket.SO_REUSEADDR, 1)
+            listener.bind((self.host, self.port))
+            self.bound_port = listener.getsockname()[1]
+        listener.listen(512)
+        self._listener = listener
+        # the selector front end (serve/ioloop.py): accepts, frames,
+        # reaps; workers are spawned per dispatched request
+        self.loop = mod_ioloop.IOLoop(
+            listener,
+            {'read_deadline_ms': self.conf['read_deadline_ms'],
+             'write_deadline_ms': self.conf['write_deadline_ms'],
+             'idle_ms': self.conf['idle_ms']},
+            on_request=self._on_frame,
+            on_overflow=self._on_overflow,
+            on_accept=self._on_accept,
+            log=self.log)
+        self.running = True
+        _SERVER_LEAKS.track(self)
+        self._hook = mod_lifecycle.install_writer_invalidation()
+        # the event journal is per-PROCESS: the first server to bind
+        # installs it (DN_EVENTS / DN_EVENTS_FILE arm it)
+        if obs_events.journal() is None:
+            obs_events.install()
+        self.governor.start()
+        # serve-time device pre-warm (serve/residency.py): the CUDA
+        # context and K7a's first launches on a background thread,
+        # bounded by the probe deadline — a wedged card costs a
+        # bounded background wait, never a hung bind
+        if self.device_conf['prewarm'] and self._device_lane_possible():
+            self._prewarm_thread = threading.Thread(
+                target=self._run_prewarm, name='dn-prewarm',
+                daemon=True)
+            self._prewarm_thread.start()
+        self.log.info('listening',
+                      socket=self.socket_path, port=self.bound_port,
+                      device=self.device,
+                      max_inflight=self.conf['max_inflight'])
+
+    def serve_forever(self):
+        """Run the selector front end (blocks until request_stop);
+        drains on exit: stop accepting, finish in-flight, flush
+        responses, flush caches, unlink the socket."""
+        install_stdio_router()
+        self.loop.start()
+        try:
+            self._stop.wait()
+        finally:
+            self._drain()
+
+    def start(self):
+        """Embedded mode (tests, the chip smoke): bind if needed and
+        run the accept loop on a background thread."""
+        if self._listener is None:
+            self.bind()
+        self._thread = threading.Thread(target=self.serve_forever,
+                                        daemon=True)
+        self._thread.start()
+        return self
+
+    def request_stop(self):
+        # queued-but-unadmitted requests wake NOW with the clean,
+        # retryable DrainingError; admitted executions finish inside
+        # the drain grace
+        self.draining = True
+        self.admission.shutdown()
+        self._stop.set()
+
+    def stop(self, wait=True):
+        self.request_stop()
+        if self._thread is not None and wait:
+            self._thread.join(self.conf['drain_s'] + 5)
+        elif wait:
+            self._drained.wait(self.conf['drain_s'] + 5)
+
+    def wait_prewarm(self, timeout=None):
+        """The pre-warm's doc once its thread finished (None when it
+        was gated off or is still running at `timeout`)."""
+        if self._prewarm_thread is not None:
+            self._prewarm_thread.join(timeout)
+        return self._prewarm_doc
+
+    def _drain(self):
+        if self._drained.is_set():
+            return
+        self.loop.stop_accepting()
+        deadline = time.monotonic() + self.conf['drain_s']
+        with self._workers_lock:
+            workers = list(self._workers)
+        for t in workers:
+            t.join(max(0.0, deadline - time.monotonic()))
+        leftover = sum(1 for t in workers if t.is_alive())
+        if leftover:
+            self.log.warn('drain grace expired', abandoned=leftover)
+        # flush queued response bytes (the draining rejections the
+        # workers just framed included), then close every connection
+        self.loop.shutdown(max(1.0, deadline - time.monotonic() + 1))
+        self.governor.stop()
+        # flush warm state cleanly: cached shard handles hold open
+        # mmaps / sqlite connections; the result cache hands its
+        # reserved governor bytes back
+        self.qcache.clear()
+        mod_iqmt.shard_cache_clear()
+        # drop every pinned device tensor so the caching allocator can
+        # reuse the memory, and deregister the residency gauges; a
+        # finished device scan can sit in a reference cycle until the
+        # cyclic collector runs, holding its accumulators: collect now
+        mod_residency.deconfigure()
+        gc.collect()
+        if self._hook is not None:
+            mod_lifecycle.remove_writer_invalidation(self._hook)
+            self._hook = None
+        mod_lifecycle.release(socket_path=self.socket_path,
+                              pidfile=self.pidfile)
+        self.running = False
+        _SERVER_LEAKS.untrack(self)
+        self._drained.set()
+        self.log.info('drained', requests=self._counters['requests'])
+
+    # -- device lane (serve/residency.py) ---------------------------------
+
+    def _device_lane_possible(self):
+        """Can a request of this process reach the device lane?  The
+        forced lane (DN_ENGINE=jax) always; auto only on CUDA (on the
+        CPU auto stays on the host engine).  Env inspection only."""
+        mode = mod_cli._engine()
+        if mode == 'device':
+            return True
+        return mode == 'auto' and self.device.startswith('cuda')
+
+    def _run_prewarm(self):
+        try:
+            doc = mod_residency.prewarm(
+                deadline_s=self.device_conf['probe_timeout_s'],
+                device=self.device)
+        except Exception as e:        # honest doc over a dead thread
+            doc = {'state': 'failed', 'error': str(e)}
+        self._prewarm_doc = doc
+        log = self.log.info if doc.get('state') == 'ok' \
+            else self.log.error
+        log('device prewarm', state=doc.get('state'),
+            backend=doc.get('backend'), programs=doc.get('programs'),
+            auditions=doc.get('auditions'), ms=doc.get('ms'),
+            error=doc.get('error'))
+
+    def memory_doc(self):
+        """Device memory now against its level when this server
+        configured residency (bytes; None on the CPU)."""
+        now = _device_memory(self.device)
+        if now is None:
+            return None
+        return {'allocated_bytes': now,
+                'before_server_bytes': self._memory_before}
+
+    def topology_doc(self):
+        """The /stats `topology` body of a member outside any cluster
+        (the reference's answer without --cluster)."""
+        return {'member': None, 'configured': False}
+
+    # -- stats ------------------------------------------------------------
+
+    def _bump(self, name, n=1):
+        with self._stats_lock:
+            self._counters[name] = self._counters.get(name, 0) + n
+
+    def _member_datasources(self):
+        """[(dsname, ds)] of file datasources with index trees in the
+        process's configuration."""
+        from .. import datasource_for_name
+        backend = mod_config.ConfigBackendLocal()
+        err, config = backend.load()
+        if err is not None and not getattr(err, 'is_enoent', False):
+            raise err
+        out = []
+        for dsname, dsdoc in config.datasource_list():
+            idx = (dsdoc.get('ds_backend_config') or {}).get('indexPath')
+            if not idx:
+                continue
+            ds = datasource_for_name(config, dsname)
+            if isinstance(ds, DNError):
+                continue
+            out.append((dsname, ds))
+        return out
+
+    def _resource_paths(self):
+        """Index roots the resource governor watches (30s-memoized:
+        resolving them loads the config, which must not run once per
+        2s poll)."""
+        paths, at = self._resource_paths_memo
+        now = time.monotonic()
+        if paths is not None and now - at < 30.0:
+            return paths
+        paths = []
+        try:
+            for dsname, ds in self._member_datasources():
+                paths.append(ds.ds_indexpath)
+        except Exception:
+            pass
+        self._resource_paths_memo = (paths, now)
+        return paths
+
+    def _admit_resources(self, op, ds):
+        """Memory-budget admission (resources.py): reserve the
+        request's estimated footprint for its lifetime; an over-budget
+        request sheds through OverloadedError with an honest retry
+        hint.  Returns the lease."""
+        try:
+            return self.governor.admit_request(op, ds)
+        except mod_resources.MemoryBudgetError as e:
+            obs_metrics.inc('serve_shed_total', reason='memory')
+            raise mod_admission.OverloadedError(
+                e.message,
+                retry_after_ms=self.admission.retry_after_ms())
+
+    def _quarantine_usage(self):
+        """The quarantine_bytes/quarantine_files gauges for /stats
+        `recovery`."""
+        files = 0
+        total = 0
+        try:
+            for dsname, ds in self._member_datasources():
+                q = mod_integrity.quarantine_stats(ds.ds_indexpath)
+                files += q['files']
+                total += q['bytes']
+        except Exception:
+            pass
+        obs_metrics.set_gauge('quarantine_bytes', float(total))
+        return {'quarantine_files': files, 'quarantine_bytes': total}
+
+    def _bump_op(self, op):
+        with self._stats_lock:
+            self._counters['requests'] += 1
+            self._by_op[op] = self._by_op.get(op, 0) + 1
+
+    def _index_query_doc(self):
+        """The index query's device-lane engagement (device_index):
+        dispatches, shards, rows, pinned shard hits, upload bytes and
+        the bytes the pins saved, with the resolved lane knobs."""
+        from .. import device_index as mod_di
+        doc = mod_di.stats_doc()
+        doc['mode'] = self.index_device_conf['mode']
+        doc['batch_rows'] = self.index_device_conf['batch_rows']
+        return doc
+
+    def _scan_merge_doc(self):
+        from .. import scan_mt as mod_scan_mt
+        ms = mod_scan_mt.merge_stats()
+        return {
+            'partitions': mod_scan_mt.scan_partitions(),
+            'merge_ms': round(ms['merge_ms'], 3),
+            'merges': ms['engaged'],
+            'rows_in': ms['rows'],
+            'unique_rows': ms['unique'],
+        }
+
+    def stats_doc(self):
+        from .. import device_scan as mod_ds
+        counters = mod_vpipe.global_counters()
+        with self._stats_lock:
+            requests = dict(self._counters, by_op=dict(self._by_op))
+        requests.update(self.coalescer.stats())
+        doc = {
+            'pid': os.getpid(),
+            'uptime_s': round(time.monotonic() - self._t0, 3),
+            'started_at': round(self._started_wall, 3),
+            'socket': self.socket_path,
+            'port': self.bound_port,
+            'draining': self.draining,
+            'requests': requests,
+            'inflight': self.admission.depth(),
+            'tenants': self.admission.tenants_doc(),
+            'protocol': self.loop.stats()
+            if self.loop is not None else {},
+            'caches': {
+                'shard_handles': mod_iqmt.shard_cache_stats(),
+                'find_memo': mod_iqmt.find_cache_stats(),
+                'results': self.qcache.stats(),
+                'index_fanout': mod_iqmt.fanout_stats(),
+                'audition_verdicts': mod_ds._audition_cache_file(),
+            },
+            'counters': counters,
+            'device': {
+                'device': self.device,
+                'engaged': device_engaged(counters),
+                'signals': {k: counters.get(k, 0)
+                            for k in _DEVICE_SIGNALS},
+                # device residency + serve-start pre-warm; prewarm is
+                # None until the background thread reports (or when
+                # gated off)
+                'residency': mod_residency.stats(),
+                'prewarm': self._prewarm_doc,
+                'memory': self.memory_doc(),
+                # pipelined-dispatch telemetry (device_scan): window
+                # depth, dispatch/overlap counters, page-locked bytes
+                'pipeline': obs_metrics.pipeline_doc(),
+                'index_query': self._index_query_doc(),
+            },
+            'scan_merge': self._scan_merge_doc(),
+            'resources': self.governor.stats_doc(),
+            'faults': mod_faults.stats(),
+            'recovery': dict(
+                {k: counters.get(k, 0)
+                 for k in ('index recovery rollbacks',
+                           'index recovery rollforwards',
+                           'index tmps quarantined')},
+                **self._quarantine_usage()),
+            'integrity': {
+                'verify': mod_integrity.verify_mode(),
+                'reads_verified':
+                counters.get('integrity reads verified', 0),
+                'reads_unverified':
+                counters.get('integrity reads unverified', 0),
+                'corrupt_shards':
+                counters.get('integrity corrupt shards', 0),
+                'missing_shards':
+                counters.get('integrity missing shards', 0),
+                # the repair queue and the background scrub are the
+                # reference's cluster and scrub modules: not ported
+                'repair': None,
+                'scrub': None,
+            },
+            'rollup': {
+                'covered_shards':
+                counters.get('index shards via rollup', 0),
+                'rollup_shards_read':
+                counters.get('rollup shards queried', 0),
+                'shards_queried':
+                counters.get('index shards queried', 0),
+                'coverage_ratio': round(
+                    counters.get('index shards via rollup', 0) /
+                    counters.get('index shards queried', 1), 4)
+                if counters.get('index shards queried', 0) else 0.0,
+            },
+            'metrics': obs_export.stats_section(counters=counters),
+            'events': obs_events.journal().doc()
+            if obs_events.journal() is not None
+            else obs_events.disabled_doc(),
+        }
+        return doc
+
+    # -- connection front end (loop-thread callbacks) ---------------------
+
+    def _on_accept(self, conn):
+        """Accept veto hook (loop thread): an injected accept fault
+        drops the connection, exactly the failure the client's
+        pre-commit retry loop exists for."""
+        try:
+            mod_faults.fire('serve.accept')
+        except mod_faults.FaultInjected:
+            return False
+        return True
+
+    def _on_overflow(self, conn):
+        """A frame grew past MAX_REQUEST_BYTES without a newline: the
+        connection cannot be resynchronized — answer with a clean v1
+        error and close (loop thread)."""
+        msg = ('dn: bad request: frame exceeds %d bytes\n'
+               % MAX_REQUEST_BYTES).encode()
+        self.loop.send(conn,
+                       mod_protocol.encode_response(1, b'', msg, {}),
+                       close_after=True)
+
+    def _on_frame(self, conn, line):
+        """One complete request line (loop thread): parse, classify
+        v1 vs v2, and hand execution to a worker thread.  Never
+        blocks — malformed frames are answered (or the connection
+        dropped) right here."""
+        rx = time.monotonic()
+        try:
+            req = json.loads(line.decode('utf-8'))
+            if not isinstance(req, dict):
+                raise ValueError('not an object')
+        except (ValueError, UnicodeDecodeError) as e:
+            err = ('dn: bad request: %s\n' % e).encode()
+            self.loop.send(
+                conn, mod_protocol.encode_response(1, b'', err, {}),
+                close_after=True, completes=True)
+            return
+        try:
+            proto, rid = mod_protocol.classify_request(req)
+        except mod_protocol.FrameError as e:
+            err = ('dn: bad request: %s\n' % e).encode()
+            self.loop.send(
+                conn, mod_protocol.encode_response(1, b'', err, {}),
+                close_after=True, completes=True)
+            return
+        if proto == mod_protocol.PROTO_V2:
+            if conn.proto is None:
+                self.loop._bump('v2_conns')
+            conn.proto = mod_protocol.PROTO_V2
+            if conn.inflight > 1:
+                self.loop._bump('frames_pipelined')
+            with conn.ids_lock:
+                duplicate = rid in conn.inflight_ids
+                if not duplicate:
+                    conn.inflight_ids.add(rid)
+            if duplicate:
+                # a client re-using an in-flight id is out of sync;
+                # answer retryably and close before responses can be
+                # misattributed
+                err = ('dn: bad request: duplicate request id %d\n'
+                       % rid).encode()
+                self.loop.send(
+                    conn, mod_protocol.encode_response(
+                        1, b'', err, {'retryable': True},
+                        proto=proto, rid=rid),
+                    close_after=True, completes=True)
+                return
+        else:
+            conn.proto = 1
+            # v1 contract: one request per connection — stop reading
+            self.loop.pause_reading(conn)
+        t = threading.Thread(target=self._handle_request,
+                             args=(conn, req, proto, rid, rx),
+                             daemon=True)
+        with self._workers_lock:
+            self._workers.add(t)
+        t.start()
+
+    # -- request handling (worker threads) --------------------------------
+
+    def _handle_request(self, conn, req, proto, rid, rx):
+        try:
+            try:
+                mod_faults.fire('serve.read')
+                # the stall seam: `delay` holds THIS request (a slow
+                # peer/stage), never the loop or other requests
+                mod_faults.fire('serve.stall')
+            except mod_faults.FaultInjected:
+                self.loop.close_conn(conn, completes=True)
+                return
+            tenant = req.get('tenant') or conn.peer or 'default'
+            deadline_ms = req.get('deadline_ms')
+            if deadline_ms is None:
+                deadline_ms = self.conf['deadline_ms']
+            deadline_at = rx + deadline_ms / 1000.0 \
+                if deadline_ms and deadline_ms > 0 else None
+            rc, out, err, extra = self.execute(
+                req, tenant=tenant, deadline_at=deadline_at)
+            self._send_response(conn, proto, rid, rc, out, err,
+                                extra)
+        except Exception as e:
+            # a request must ALWAYS resolve: respond or close, never
+            # strand the peer waiting on a frame that will not come
+            self.log.error('request handling failed', err=repr(e))
+            try:
+                msg = ('%s: internal error: %r\n'
+                       % (mod_cli.ARG0, e)).encode()
+                self._send_response(conn, proto, rid, 1, b'', msg,
+                                    {})
+            except Exception:
+                self.loop.close_conn(conn, completes=True)
+        finally:
+            if rid is not None:
+                with conn.ids_lock:
+                    conn.inflight_ids.discard(rid)
+            with self._workers_lock:
+                self._workers.discard(threading.current_thread())
+
+    def _send_response(self, conn, proto, rid, rc, out, err, extra):
+        data = mod_protocol.encode_response(rc, out, err, extra,
+                                            proto=proto, rid=rid)
+        try:
+            mod_faults.fire('serve.write')
+        except mod_faults.FaultInjected:
+            # injected write fault: drop the connection — the peer
+            # sees EOF before any header (pre-commit, retry-safe)
+            self.loop.close_conn(conn, completes=True)
+            return
+        if proto == mod_protocol.PROTO_V2:
+            try:
+                mod_faults.fire('serve.frame_torn')
+            except mod_faults.FaultInjected:
+                # a torn frame: half the response then EOF — the
+                # client must classify post-commit vs pre-commit by
+                # whether ITS header arrived, never hang
+                self.loop.send(conn, data[:max(1, len(data) // 2)],
+                               close_after=True, completes=True)
+                return
+        self.loop.send(conn, data, close_after=(proto == 1),
+                       completes=True)
+
+    # -- request handling (worker threads: execution) ----------------------
+
+    def execute(self, req, tenant=None, deadline_at=None):
+        """Execute one request dict; returns (rc, stdout_bytes,
+        stderr_bytes, header_stats).  `tenant` keys the fair-admission
+        queue; `deadline_at` (monotonic) is the propagated request
+        deadline load shedding enforces."""
+        op = req.get('op')
+        self._bump_op(op)
+        if op == 'ping':
+            return 0, b'', b'', {}
+        if op in UNPORTED_OPS:
+            self._bump('errors')
+            err = unported_error('request op "%s"' % op, UNPORTED_OPS[op])
+            return 1, b'', ('dn: %s\n' % err.message).encode(), {}
+        if op == 'health':
+            # the health probe (load balancers): tiny, never queued
+            # behind admission.  The fault seam lets a chaos run fail
+            # probes deterministically.
+            mod_faults.fire('member.health')
+            # a read-only member (disk critical) stays ok — queries
+            # keep serving byte-identically, the breaker must not
+            # churn — but reports degraded_ro so routers rank it
+            # down for write-shaped ops
+            degraded_ro = self.governor.is_read_only()
+            doc = {
+                'ok': not self.draining,
+                'draining': self.draining,
+                'degraded_ro': degraded_ro,
+                'pid': os.getpid(),
+                'uptime_s': round(time.monotonic() - self._t0, 3),
+                'inflight': self.admission.depth(),
+            }
+            if degraded_ro:
+                doc['health'] = 'degraded_ro'
+            body = json.dumps(doc, sort_keys=True) + '\n'
+            return 0, body.encode(), b'', {}
+        if op == 'stats':
+            body = json.dumps(self.stats_doc(), sort_keys=True,
+                              indent=2) + '\n'
+            return 0, body.encode(), b'', {}
+        if op == 'topology':
+            # the topology status op: a member outside any cluster,
+            # as the reference answers without --cluster
+            body = json.dumps(self.topology_doc(),
+                              sort_keys=True) + '\n'
+            return 0, body.encode(), b'', {}
+        if op == 'metrics':
+            # Prometheus text exposition of the typed registry (the
+            # scrape endpoint; `dn stats --remote S --prom` renders
+            # it).  Like stats/health: never queued behind admission.
+            body = obs_export.prometheus_text(
+                counters=mod_vpipe.global_counters())
+            return 0, body.encode(), b'', {}
+        if op == 'events':
+            # the event-journal tail (`dn events [--follow]`):
+            # entries with seq > `since`, newest
+            # `limit`.  Control plane: never queued behind admission.
+            j = obs_events.journal()
+            since = req.get('since') or 0
+            limit = req.get('limit')
+            if not isinstance(since, int) or isinstance(since, bool) \
+                    or (limit is not None and
+                        (not isinstance(limit, int) or
+                         isinstance(limit, bool) or limit < 1)):
+                self._bump('errors')
+                return (1, b'', b'dn: bad "since"/"limit" in events '
+                        b'request\n', {})
+            doc = {'member': None,
+                   'enabled': j is not None,
+                   'seq': j.seq if j is not None else 0,
+                   'events': j.tail(since=since, limit=limit)
+                   if j is not None else []}
+            body = json.dumps(doc, sort_keys=True) + '\n'
+            return 0, body.encode(), b'', {}
+        if op == 'build' and req.get('idempotency'):
+            return self._execute_idempotent(req['idempotency'], req,
+                                            tenant, deadline_at)
+        if op in ('scan', 'query', 'build') or \
+                (op == '_sleep' and
+                 os.environ.get('DN_SERVE_TEST_OPS') == '1'):
+            return self._execute_data(req, tenant=tenant,
+                                      deadline_at=deadline_at)
+        self._bump('errors')
+        return (1, b'',
+                ('dn: unsupported request op: "%s"\n' % op).encode(),
+                {})
+
+    def _execute_idempotent(self, key, req, tenant=None,
+                            deadline_at=None):
+        """Builds are NOT idempotent, so a retried build must not run
+        twice: the first request with a given client-generated key is
+        the leader and executes; duplicates (the client's retry after
+        a transport failure, which may have cut the RESPONSE, not the
+        request) wait for and replay the leader's recorded response.
+        Retryable rejections (busy/draining) are not recorded — the
+        build never ran, so a retry must execute."""
+        with self._idem_lock:
+            ent = self._idem.get(key)
+            leader = ent is None
+            if leader:
+                ent = {'done': threading.Event(), 'result': None}
+                self._idem[key] = ent
+        if not leader:
+            if not ent['done'].wait(3600.0):
+                self._bump('errors')
+                return (1, b'',
+                        b'dn: idempotent build never completed\n', {})
+            self._bump('build_idem_replays')
+            rc, out, err, extra = ent['result']
+            return rc, out, err, dict(extra, idempotent_replay=True)
+        try:
+            result = self._execute_data(req, tenant=tenant,
+                                        deadline_at=deadline_at)
+        except BaseException:
+            # the leader died without a recordable response: retire
+            # the key so a retry RE-EXECUTES (nothing committed), and
+            # wake any followers with a clean retryable rejection —
+            # a poisoned key must never strand its duplicates for the
+            # full follower wait
+            with self._idem_lock:
+                self._idem.pop(key, None)
+            ent['result'] = (1, b'',
+                             b'dn: build execution failed before a '
+                             b'response was recorded; retry\n',
+                             {'retryable': True})
+            ent['done'].set()
+            raise
+        ent['result'] = result
+        with self._idem_lock:
+            if result[3].get('retryable'):
+                self._idem.pop(key, None)
+            else:
+                # bound the table: drop oldest COMPLETED records
+                done = [k for k, e in self._idem.items()
+                        if e['done'].is_set()]
+                for k in done[:max(0, len(self._idem) - 128)]:
+                    self._idem.pop(k, None)
+        ent['done'].set()
+        return result
+
+    def _execute_data(self, req, tenant=None, deadline_at=None):
+        t0 = time.monotonic()
+        deadline_ms = req.get('deadline_ms')
+        if deadline_ms is None:
+            deadline_ms = self.conf['deadline_ms']
+        cap = _Capture()
+        flags = {'coalesced': False, 'busy': False, 'deadline': False,
+                 'draining': False, 'overloaded': False,
+                 'tenant': tenant, 'deadline_at': deadline_at}
+        scope_out = {}
+        failed = []
+        op = req.get('op')
+
+        # observability context: the scoped metrics registry is
+        # always on (merged into the global registry at request end);
+        # the span tree exists only when the client's trace header or
+        # this process's DN_TRACE / DN_SLOW_MS asked for one.  The
+        # client-generated trace id joins the server's tree to its
+        # client's.
+        treq = req.get('trace') or {}
+        want_trace = bool(treq.get('want')) or \
+            obs_trace.tracing_requested()
+        tctx = obs_trace.TraceContext('serve.' + str(op),
+                                      trace_id=treq.get('id')) \
+            if want_trace else None
+        obs_ctx = obs_trace.ObsContext(
+            trace=tctx, registry=obs_metrics.Registry())
+
+        def job():
+            # may run on the worker thread OR a deadline-armor
+            # thread: stdio binding and the counter scope are
+            # thread-local, so both bind in here
+            with bound_stdio(cap), mod_vpipe.request_scope() as sc:
+                sc.obs = obs_ctx
+                try:
+                    rc = self._run_data(req, flags)
+                except mod_admission.OverloadedError as e:
+                    # deadline-aware shed: retryable, with the retry
+                    # hint derived from observed service time
+                    flags['overloaded'] = True
+                    flags['retry_after_ms'] = e.retry_after_ms
+                    sys.stderr.write('%s: %s\n'
+                                     % (mod_cli.ARG0, e.message))
+                    rc = 1
+                except mod_admission.BusyError as e:
+                    flags['busy'] = True
+                    flags['retry_after_ms'] = \
+                        getattr(e, 'retry_after_ms', None)
+                    sys.stderr.write('%s: %s\n'
+                                     % (mod_cli.ARG0, e.message))
+                    rc = 1
+                except mod_admission.DrainingError as e:
+                    flags['draining'] = True
+                    sys.stderr.write('%s: %s\n'
+                                     % (mod_cli.ARG0, e.message))
+                    rc = 1
+                except mod_admission.DeadlineError as e:
+                    flags['deadline'] = True
+                    sys.stderr.write('%s: %s\n'
+                                     % (mod_cli.ARG0, e.message))
+                    rc = 1
+                except mod_cli.FatalError as e:
+                    sys.stderr.write('%s: %s\n'
+                                     % (mod_cli.ARG0, e.message))
+                    rc = 1
+                except DNError as e:
+                    iroot = getattr(e, 'integrity_root', None)
+                    if iroot is not None:
+                        # a verified read detected corruption (or a
+                        # catalogued shard is missing): the header
+                        # names it (no repair queue without replicas)
+                        flags['corrupt_shard'] = \
+                            getattr(e, 'corrupt_shard', None)
+                    if getattr(e, 'disk_full', False):
+                        # the read-only rejection (resources.py):
+                        # the header names it so clients/routers can
+                        # classify — and retry elsewhere or later
+                        flags['disk_full'] = True
+                    if getattr(e, 'retryable', False):
+                        flags['retryable_error'] = True
+                        # degraded-because-shedding: the members'
+                        # retry hints ride up to the client
+                        if getattr(e, 'retry_after_ms', None) \
+                                is not None:
+                            flags['retry_after_ms'] = \
+                                e.retry_after_ms
+                    sys.stderr.write('%s: %s\n'
+                                     % (mod_cli.ARG0, e.message))
+                    rc = 1
+                except Exception as e:
+                    # a device fault (CUDA, a kernel, a failed fold)
+                    # fails THIS request; the server keeps serving
+                    failed.append(e)
+                    sys.stderr.write('%s: internal error: %r\n'
+                                     % (mod_cli.ARG0, e))
+                    rc = 1
+                scope_out.update(sc)
+            # logged outside the request's captured stderr: operator
+            # telemetry, not response bytes
+            for e in failed:
+                self.log.error('request failed', err=repr(e),
+                               op=req.get('op'))
+            return rc
+
+        def finish_obs(rc, extra):
+            """Request-end accounting: merge the scoped registry,
+            record the per-op end-to-end latency, and emit/attach the
+            span tree.  The subtree travels in the response header
+            only when the CLIENT's trace header asked (its tracer
+            grafts it) — /stats and response bytes stay byte-identical
+            with tracing off."""
+            elapsed_ms = (time.monotonic() - t0) * 1000.0
+            reg = obs_metrics.global_registry()
+            reg.merge(obs_ctx.registry)
+            reg.observe('serve_op_latency_ms', elapsed_ms,
+                        op=str(op))
+            if rc != 0:
+                reg.inc('serve_errors_total', op=str(op))
+            if tctx is not None:
+                # never let telemetry replace a response: a
+                # deadline-abandoned job thread may still be mutating
+                # this tree while we serialize it
+                try:
+                    if rc != 0:
+                        tctx.root.add_event('error', {'rc': rc})
+                    if treq.get('want'):
+                        extra['trace'] = tctx.to_doc()
+                    obs_trace.emit_trace(tctx)
+                except Exception as e:
+                    extra.pop('trace', None)
+                    self.log.error('trace emit failed', err=repr(e))
+            return extra
+
+        if deadline_ms and deadline_ms > 0:
+            from ..device_scan import run_with_deadline
+            status, rv = run_with_deadline(job, deadline_ms / 1000.0,
+                                           'serve-request')
+            if status == 'timeout':
+                # the job thread is abandoned (there is no way to
+                # cancel a wedged op), but its resources must not
+                # degrade the server: free its admission slot now
+                # (Slot.release is idempotent — the abandoned thread
+                # releasing again later is a no-op) and retire its
+                # coalescer registration so identical new requests
+                # recompute instead of attaching to a dead execution.
+                # A TreeLock held by an abandoned BUILD stays held on
+                # purpose — the tree is mid-rewrite and must not be
+                # served until the write actually finishes.
+                slot = flags.get('slot')
+                if slot is not None:
+                    slot.release()
+                self.coalescer.abandon(flags.get('key'),
+                                       flags.get('ex'))
+                self._bump('deadline_expired')
+                self._bump('errors')
+                if tctx is not None:
+                    tctx.root.add_event('deadline_expired',
+                                        {'deadline_ms': deadline_ms})
+                msg = ('%s: request deadline (%d ms) exceeded\n'
+                       % (mod_cli.ARG0, deadline_ms))
+                return 1, b'', msg.encode(), finish_obs(
+                    1, {'deadline_expired': True})
+            rc = rv if status == 'ok' else 1
+        else:
+            rc = job()
+
+        out, err = cap.finish()
+        if rc != 0:
+            self._bump('errors')
+        elif op in ('scan', 'query', 'build'):
+            # feed the observed-service-time estimate (retry hints +
+            # early shed) and the per-tenant fairness accounting.
+            # The sample is EXECUTION time — measured from slot
+            # acquisition, not request arrival — queue wait folded in
+            # would double-count queueing and over-shed after bursts.
+            # (Coalesced followers never acquired a slot here: no
+            # sample, correctly.)
+            if flags.get('exec_t0') is not None:
+                self.admission.note_service_ms(
+                    (time.monotonic() - flags['exec_t0']) * 1000.0)
+            self.admission.note_completed(tenant)
+        if flags['overloaded']:
+            self._bump('shed_overloaded')
+        elif flags['busy']:
+            self._bump('busy_rejected')
+        if flags['deadline']:
+            self._bump('deadline_expired')
+        if flags['draining']:
+            self._bump('draining_rejected')
+        extra = {
+            'coalesced': flags['coalesced'],
+            'elapsed_ms': round((time.monotonic() - t0) * 1000, 3),
+            'counters': scope_out,
+        }
+        if flags.get('cached'):
+            extra['cached'] = True
+        if flags['busy'] or flags['overloaded'] or \
+                flags['draining'] or flags.get('retryable_error'):
+            # the request was never admitted (or failed degraded /
+            # pre-execution): nothing committed, a retry is always
+            # safe — the client's backoff loop keys off this
+            extra['retryable'] = True
+        if flags.get('retry_after_ms') is not None:
+            # the honest retry hint: roughly when a freed slot could
+            # take this work (serve/client.py honors it in place of
+            # blind exponential backoff)
+            extra['retry_after_ms'] = flags['retry_after_ms']
+        if flags.get('disk_full'):
+            # the read-only signal: this member is out of disk and
+            # rejecting write-shaped ops until space frees (queries
+            # still serve) — retry against another member or later
+            extra['disk_full'] = True
+        if flags.get('corrupt_shard') is not None:
+            # this member quarantined (or is missing) the named shard
+            extra['corrupt_shard'] = flags['corrupt_shard']
+        return rc, out, err, finish_obs(rc, extra)
+
+    def _tree_lock(self, ds, dsname):
+        # normalized, so '/data/idx' and '/data/idx/' (or a relative
+        # spelling via a different config file) share ONE lock — two
+        # locks for one tree would readmit the build/query race
+        key = getattr(ds, 'ds_indexpath', None)
+        key = os.path.abspath(key) if key else ('ds:' + str(dsname))
+        with self._tree_locks_lock:
+            return self._tree_locks.setdefault(
+                key, mod_admission.TreeLock())
+
+    def _run_data(self, req, flags):
+        """The data-command body, mirroring the CLI's post-parse
+        execution exactly (the client already did the parsing and
+        ships the parsed documents).  Raises FatalError/DNError for
+        the caller to frame as 'dn: <message>'."""
+        op = req['op']
+        if op == '_sleep':
+            flags['slot'] = self.admission.acquire(
+                tenant=flags.get('tenant'),
+                deadline_at=flags.get('deadline_at'))
+            flags['exec_t0'] = time.monotonic()
+            try:
+                time.sleep(float(req.get('ms', 0)) / 1000.0)
+            finally:
+                flags['slot'].release()
+            return 0
+
+        from .. import datasource_for_name, metrics_for_index
+        cfg_path = req.get('config') or None
+        backend = mod_config.ConfigBackendLocal(cfg_path)
+        err, config = backend.load()
+        if err is not None and not getattr(err, 'is_enoent', False):
+            mod_cli.fatal(err)
+        dsname = req.get('ds')
+        ds = datasource_for_name(config, dsname)
+        if isinstance(ds, DNError):
+            mod_cli.fatal(ds)
+        opts = _opts_shim(req)
+
+        if op == 'build':
+            return self._run_build(req, ds, config, dsname, opts,
+                                   metrics_for_index, flags)
+        query = mod_cli.dn_query_config(opts)
+        key = mod_admission.compute_key(
+            req, _config_ident(backend.cbl_path))
+
+        # result cache (serve/qcache.py): a valid hit skips the
+        # lease, the admission slot, and the tree read entirely.
+        # The epoch and validators are captured BEFORE the compute:
+        # a write racing the execution stamps the entry already-stale
+        # (a wasted put), never a stale hit.
+        use_cache = op == 'query' and not opts.dry_run and \
+            key is not None and self.qcache.enabled()
+        cache_epoch = mod_iqmt.cache_epoch() if use_cache else 0
+        if use_cache:
+            cached = self.qcache.get(key, cache_epoch)
+            if cached is not None:
+                # no exec_t0: like a coalesced follower, a hit never
+                # held a slot, so it must not feed the service-time
+                # estimate the shed/retry hints key off
+                flags['cached'] = True
+                obs_metrics.inc('serve_result_cache_hits_total')
+                mod_cli.dn_output(query, opts,
+                                  cached.clone_for_output(), dsname)
+                return 0
+            obs_metrics.inc('serve_result_cache_misses_total')
+        cache_validators = mod_qcache.tree_validators(
+            getattr(ds, 'ds_indexpath', None)) if use_cache else None
+
+        def compute():
+            lease = self._admit_resources(op, ds)
+            try:
+                slot = flags['slot'] = self.admission.acquire(
+                    tenant=flags.get('tenant'),
+                    deadline_at=flags.get('deadline_at'))
+            except BaseException:
+                # a busy/draining/shed rejection must hand the
+                # reserved footprint back — a leaked lease would
+                # ratchet the budget shut for the process lifetime
+                lease.release()
+                raise
+            flags['exec_t0'] = time.monotonic()
+            try:
+                with obs_trace.span('serve.execute', op=op):
+                    if op == 'scan':
+                        # raw-data scans never read the index tree,
+                        # so they run unlocked alongside builds
+                        return ds.scan(query, device=self.device,
+                                       engine=mod_cli._engine(),
+                                       dry_run=opts.dry_run,
+                                       warn_func=None)
+                    with self._tree_lock(ds, dsname).read():
+                        return ds.query(query,
+                                        req.get('interval') or 'day',
+                                        dry_run=opts.dry_run,
+                                        device=self.device,
+                                        engine=mod_cli._engine())
+            finally:
+                slot.release()
+                lease.release()
+
+        try:
+            result, shared = self.coalescer.run(key, compute,
+                                                lease=flags)
+        except (mod_admission.BusyError,
+                mod_admission.DrainingError,
+                mod_admission.DeadlineError):
+            raise
+        except DNError as e:
+            if getattr(e, 'retryable', False):
+                # integrity (and other retryable) rejections keep
+                # their attributes: the job() handler frames the
+                # message AND marks the header (retryable,
+                # corrupt_shard) — fatal() would strip both
+                raise
+            mod_cli.fatal(e)
+        flags['coalesced'] = shared
+        if use_cache and not shared:
+            # only the compute LEADER populates the cache: its epoch
+            # and validators predate its own tree read, so a write
+            # racing the execution stamps the entry already-stale.  A
+            # coalesced follower captured them AFTER the leader began
+            # computing — a write landing in between would let the
+            # follower stamp the leader's pre-write result with
+            # post-write validators, freezing a stale entry until the
+            # next in-process epoch bump (forever, for a tree only
+            # cross-process writers touch)
+            self.qcache.put(key, cache_epoch, cache_validators,
+                            result)
+        # coalesced requests demux through private clones: the output
+        # layer mutates the pipeline it formats
+        mod_cli.dn_output(query, opts, result.clone_for_output(),
+                          dsname)
+        return 0
+
+    def _run_build(self, req, ds, config, dsname, opts,
+                   metrics_for_index, flags):
+        before, after = req.get('before'), req.get('after')
+        if before is not None and after is not None and \
+                before < after:
+            mod_cli.fatal(DNError(
+                '"before" time cannot be before "after" time'))
+        interval = req.get('interval') or 'day'
+        if interval not in ('hour', 'day', 'all'):
+            mod_cli.fatal(DNError('interval not supported: "%s"'
+                                  % interval))
+        metrics = metrics_for_index(config, dsname,
+                                    index_config=req.get(
+                                        'index_config'))
+        if len(metrics) == 0:
+            mod_cli.fatal(DNError('no metrics defined for dataset '
+                                  '"%s"' % dsname))
+        # the read-only gate: a disk-critical member rejects builds
+        # up front with the clean retryable disk_full DNError (the
+        # job() handler marks the response header) — queries keep
+        # serving byte-identically throughout
+        if not opts.dry_run:
+            self.governor.check_writable('build')
+        lease = self._admit_resources('build', ds)
+        try:
+            slot = flags['slot'] = self.admission.acquire(
+                tenant=flags.get('tenant'),
+                deadline_at=flags.get('deadline_at'))
+        except BaseException:
+            lease.release()
+            raise
+        flags['exec_t0'] = time.monotonic()
+        try:
+            with self._tree_lock(ds, dsname).write(), \
+                    obs_trace.span('serve.execute', op='build'):
+                result = ds.build(metrics, interval,
+                                  time_after=after,
+                                  time_before=before,
+                                  dry_run=opts.dry_run,
+                                  device=self.device,
+                                  engine=mod_cli._engine(),
+                                  warn_func=None)
+        except DNError as e:
+            if getattr(e, 'retryable', False):
+                # a mid-build pressure failure keeps its disk_full /
+                # retryable attributes for the response header;
+                # fatal() would strip both
+                raise
+            mod_cli.fatal(e)
+        finally:
+            slot.release()
+            lease.release()
+        if opts.dry_run:
+            mod_cli.dn_output(None, opts, result, dsname)
+            return 0
+        sys.stderr.write('indexes for "%s" built\n' % dsname)
+        if getattr(opts, 'counters', None):
+            result.pipeline.dump_counters(sys.stderr)
+        return 0
+
+
+def _device_memory(device):
+    """torch.cuda.memory_allocated of `device`, or None on the CPU."""
+    if not str(device).startswith('cuda'):
+        return None
+    import torch
+    return torch.cuda.memory_allocated(device)
+
+
+# -- daemon entry (cmd_serve) -----------------------------------------------
+
+def sweep_configured_trees(warn=None):
+    """Crash-recovery sweep over every configured file datasource's
+    index tree — `dn serve` runs this at startup so a builder that
+    died while no server was resident is recovered before the first
+    request.  Returns {indexpath: sweep result} for trees that needed
+    work."""
+    from .. import index_journal as mod_journal
+    backend = mod_config.ConfigBackendLocal()
+    err, config = backend.load()
+    if err is not None:
+        return {}
+    acted = {}
+    for dsname, ds in config.datasource_list():
+        idx = (ds.get('ds_backend_config') or {}).get('indexPath')
+        if not idx:
+            continue
+        res = mod_journal.sweep_index_tree(idx)
+        if res['rollbacks'] or res['rollforwards'] or \
+                res['quarantined']:
+            acted[idx] = res
+            if warn is not None:
+                warn('recovered index tree "%s" (%d roll-forward(s), '
+                     '%d rollback(s), %d tmp(s) quarantined)'
+                     % (idx, res['rollforwards'], res['rollbacks'],
+                        res['quarantined']))
+    return acted
+
+
+def serve_main(socket_path=None, port=None, pidfile=None):
+    """Run the daemon until SIGTERM/SIGINT, then drain.  Returns the
+    process exit code.  The device (DN_TORCH_DEVICE, CUDA unless it
+    says cpu) is resolved before anything is swept, claimed or
+    bound."""
+    from ..ops import resolve_device
+    conf = mod_config.serve_config()
+    if isinstance(conf, DNError):
+        raise conf
+    resolve_device(os.environ.get('DN_TORCH_DEVICE') or 'cuda')
+    pidfile = mod_lifecycle.pidfile_for(socket_path, pidfile)
+
+    def warn(msg):
+        sys.stderr.write('dn serve: %s\n' % msg)
+
+    sweep_configured_trees(warn=warn)
+    mod_lifecycle.claim(socket_path=socket_path, port=port,
+                        pidfile=pidfile, warn=warn)
+    try:
+        server = DnServer(socket_path=socket_path, port=port,
+                          pidfile=pidfile, conf=conf)
+        server.bind()
+    except BaseException as e:
+        mod_residency.deconfigure()
+        mod_lifecycle.release(socket_path=None, pidfile=pidfile)
+        if isinstance(e, OSError):
+            raise DNError('cannot bind serve endpoint',
+                          cause=DNError(str(e)))
+        raise
+
+    def on_signal(signo, frame):
+        server.request_stop()
+
+    signal.signal(signal.SIGTERM, on_signal)
+    signal.signal(signal.SIGINT, on_signal)
+    where = socket_path if socket_path is not None \
+        else '%s:%d' % (server.host, server.bound_port)
+    sys.stderr.write('dn serve: listening on %s (pid %d, device %s)\n'
+                     % (where, os.getpid(), server.device))
+    server.serve_forever()
+    sys.stderr.write('dn serve: drained; exiting\n')
+    return 0

@@ -449,14 +449,15 @@ def test_port_cli_metric_build_index_scan(cli_env, monkeypatch):
                 if not tjournal.is_durable_metadata(p)]) == 3
 
 
-@pytest.mark.parametrize('bad', [['--raw'], ['--remote', 'x'],
+@pytest.mark.parametrize('bad', [['--raw'], ['--socket', 'x'],
                                  ['--iq-stack', '0'],
-                                 ['--iq-threads', '2'], ['--trace']])
+                                 ['--iq-threads', '2'], ['--prom']])
 def test_port_cli_build_unsupported_options(cli_env, monkeypatch, bad):
-    """Options the port cannot honour yet are usage errors (exit 2),
-    as are `scan` and `query` options given to `build`.  (`--warnings`
-    and `--parse`, once here, are build options of the port now:
-    tests/test_torch_record_engine.py and test_torch_byteparse.py.)"""
+    """Options `build` does not take are usage errors (exit 2): `scan`
+    and `query` options, and `serve`'s and `stats`'.  (`--warnings` and
+    `--parse`, once here, are build options of the port now:
+    tests/test_torch_record_engine.py and test_torch_byteparse.py; so
+    are `--remote` and `--trace`: tests/test_torch_serve.py.)"""
     env, tmp = cli_env
     got = _port_cli(monkeypatch, env, ['build'] + bad + ['muskie'])
     assert got.returncode == 2

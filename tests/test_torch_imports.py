@@ -213,3 +213,33 @@ def test_cli_auto_scan_without_cuda_fails(monkeypatch, tmp_path, capsys,
     monkeypatch.setenv('DN_TORCH_DEVICE', 'cpu')
     assert cli.main(['scan', '-b', 'host', 'd']) == 0
     assert 'a' in capsys.readouterr().out
+
+
+def test_serve_modules_import_neither_jax_nor_the_jax_package_lazily():
+    """The walk reaches serve/**, and no serve module imports jax or the
+    JAX package inside a function either (the reference's server
+    imports lazily at many sites)."""
+    sources = [p for p in _port_sources()
+               if os.sep + 'serve' + os.sep in p]
+    names = {os.path.basename(p) for p in sources}
+    assert {'server.py', 'residency.py', 'client.py', 'admission.py',
+            'protocol.py', 'ioloop.py', 'pool.py', 'qcache.py',
+            'lifecycle.py'} <= names
+    lazy = 0
+    for path in sources:
+        with open(path) as f:
+            tree = ast.parse(f.read(), filename=path)
+        for fn in ast.walk(tree):
+            if not isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                continue
+            for node in ast.walk(fn):
+                if isinstance(node, ast.Import):
+                    mods = [a.name for a in node.names]
+                elif isinstance(node, ast.ImportFrom):
+                    mods = [node.module or ''] if node.level == 0 else []
+                    lazy += 1
+                else:
+                    continue
+                for m in mods:
+                    assert m.split('.')[0] not in FORBIDDEN, (path, m)
+    assert lazy > 10          # the walk saw the lazy imports

@@ -419,7 +419,8 @@ def _reference_subset(conf, env):
 
 def test_device_config_defaults():
     conf = tconfig.device_config(env={})
-    assert conf == {'probe_timeout_s': 420, 'audition_ttl_s': 86400,
+    assert conf == {'residency_mb': 0, 'prewarm': True,
+                    'probe_timeout_s': 420, 'audition_ttl_s': 86400,
                     'pipeline_depth': 2, 'scan_partitions': 'auto'}
     assert conf == _reference_subset(conf, {})
 

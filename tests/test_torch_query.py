@@ -637,10 +637,13 @@ def test_port_cli_query_bad_flag_values(cli_env, bad):
     assert 'bad value for' in got.stderr
 
 
-@pytest.mark.parametrize('bad', [['--remote', 'x'], ['--trace'],
+@pytest.mark.parametrize('bad', [['--socket', 'x'], ['--prom'],
                                  ['--assetroot', '/x']])
 def test_port_cli_query_unsupported_options(cli_env, bad):
-    """Options the port cannot honour yet are usage errors (exit 2)."""
+    """Options `query` does not take (another command's, or one the port
+    cannot honour yet) are usage errors (exit 2).  `--remote` and
+    `--trace` are `query` options now: tests/test_torch_serve.py and
+    tests/test_torch_obs_serve.py."""
     got = _port_cli(['query'] + bad + ['-b', 'host', 'muskie'])
     assert got.returncode == 2
     assert 'unknown option' in got.stderr
