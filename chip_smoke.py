@@ -175,14 +175,35 @@ it happened; any failed check exits non-zero:
            worker threads printed); `build --remote` into the copy (the
            next query drops stale pins and still equals phase 7's); a
            fault planted in the K7 fold (that request rc 1 with "dn:
-           ...", the next one right); p50 and p99 of 50 repeats of query
-           (b) with residency, on a server without it, and (5 repeats)
+           ...", the next one right); p50 and p99 of 30 repeats of query
+           (b) with residency, on a server without it, and (3 repeats)
            in a cold `python -m dragnet_tpu_torch query` process; the
            drain (stop() returns, the pins dropped, device memory back
            within one batch's accumulators of its level before the
            server).  Then K7 on a dispatch the served path gave it and
            K7a at both pre-warm shapes against their plain versions,
            exactly, with their times and bounds; a `serve` JSON line.
+13. cluster the cluster backend (--backend=cluster) over phase 7's
+           records split into 30 day files under %Y/%m-%d, each output
+           held to a file datasource over the same files: (i) the two
+           kernel scans of phase 4 through the CLI on the card's own
+           mesh (--counters equal, every batch on the device, K1 once
+           per batch on host x latency, one K9 merge per batch); (ii)
+           the same through the library on a mesh of two shards on the
+           one card (K1 twice per batch); (iii) two processes sharing
+           the card over gloo (`chip_smoke.py --cluster-child`, killed
+           at a deadline): the scans, `build --interval=hour` of phase
+           6's metrics (the tree byte-equal to phase 7's), index-scan
+           of its first metric over every day (the same lines) and over
+           two days (the same bytes), queries (b) and (d) over the
+           cluster-built tree; process 0 prints the file backend's
+           stdout, process 1 nothing; (iv) the build with a write fault
+           planted on process 0: both exit 1 within the deadline.  Per
+           leg the walls against the file backend's, K1 launches per
+           process, the gloo exchanges' bytes and seconds, the host
+           stages, and K9's device ms (CUDA events) against its bound;
+           then K9 against its plain version on the largest partials;
+           a `cluster` JSON line.
 10. main   the kernel again, on the fused keys the main path gave it:
    keys    the largest batch of each kernel query at each segment count
            (the time window, and with it the accumulator, grows during
@@ -190,8 +211,9 @@ it happened; any failed check exits non-zero:
 11. result the card's name and power limit (nvidia-smi), a `kernels`
            JSON line (per kernel: launches on the main path, the build,
            the query phase, the eager auto runs, the follow rounds and
-           the served path, times, bound; K7 and K7a, torch ops that
-           replace the reference's jitted XLA programs, with theirs),
+           the served path and phase 13, times, bound; K7, K7a and K9,
+           torch ops that replace the reference's jitted XLA programs,
+           with theirs),
            and as the last line {"ok": true, "device": {...}}.
 
 Without CUDA, or without the rest of the repository beside it, the
@@ -362,8 +384,8 @@ LIFECYCLE_QUERIES = [
 # after the drain, device memory may stay above its level before the
 # server by at most one scan batch's accumulators (8,396,912 B for phase
 # 9b's flat metrics on an H100), rounded up
-LATENCY_REPEATS = 50
-COLD_REPEATS = 5
+LATENCY_REPEATS = 30
+COLD_REPEATS = 3
 CONCURRENT_CLIENTS = 8
 DRAIN_SLACK_BYTES = 16 << 20
 K7_REPLACES = 'dragnet_tpu/device_index.py:257'
@@ -3323,6 +3345,597 @@ def _k7a_entry(mod_iqs, launches, reps):
             'shape': {'pn': big['pn'], 'pu': big['pu']}, 'shapes': rows}
 
 
+# phase 13: the cluster backend.  Phase 7's records split into one file
+# a day under %Y/%m-%d, behind a file datasource and a --backend=cluster
+# one; phase 4's two kernel scans on (i) the process's own mesh (one
+# card: one shard) and (ii) a mesh of two shards on the one card
+# (make_mesh through the library); (iii) two processes sharing the card
+# over gloo (`chip_smoke.py --cluster-child`): the scans, the hour build
+# of phase 6's metrics, index-scan of its first metric and queries (b)
+# and (d) of phase 7 over the cluster-built tree; (iv) the same build
+# with a write fault planted on process 0 only.  Each pair runs under a
+# hard deadline and is killed at it.
+# phase 4's kernel scans, with their route over phase 7's 30 days: the
+# per-minute window of a month passes K1's 4,096 segments from the first
+# batch, so the timestamp scan aggregates with index_add_ here
+CLUSTER_SCANS = [(name, qargs, 'kernel' if name.startswith('host')
+                  else 'index_add')
+                 for name, qargs, route in QUERIES if route == 'kernel']
+CLUSTER_QUERY_CASES = ('b', 'd')
+# index-scan of the first metric over every day, and over the first two
+# (one file each, so process order is file order)
+CLUSTER_INDEX_SCANS = [
+    ('index-scan', []),
+    ('index-scan, 2 days', ['--after', '2014-05-01',
+                            '--before', '2014-05-03'])]
+CLUSTER_PAIR_TIMEOUT_S = 300
+CLUSTER_FAIL_TIMEOUT_S = 120
+CLUSTER_FAULT = 'sink.create:error:1.0'
+K9_SOURCE = 'dragnet_tpu_torch/parallel/mesh.py'
+K9_REPLACES = 'dragnet_tpu/device_scan.py:1906'
+
+
+def split_days(src, root):
+    """The records of `src` (sorted by time, one per line, each starting
+    with its "time") into root/%Y/%m-%d/muskie.log.  Returns the number
+    of files."""
+    nfiles = 0
+    cur = out = None
+    with open(src, 'rb') as f:
+        for line in f:
+            day = line[9:19]
+            if day != cur:
+                if out is not None:
+                    out.close()
+                cur = day
+                d = os.path.join(root, day[:4].decode(), day[5:].decode())
+                os.makedirs(d)
+                out = open(os.path.join(d, 'muskie.log'), 'wb')
+                nfiles += 1
+            out.write(line)
+    if out is not None:
+        out.close()
+    return nfiles
+
+
+class MergeTimer(object):
+    """CUDA events around each K9 merge (parallel/mesh.merge_partials),
+    the bytes it must move (every partial read once, the result written
+    once) and the largest call's partials, kept for the replay bench."""
+
+    def __init__(self, spy, mod_mesh, cuda=True):
+        import torch
+        self.events, self.nbytes = [], []
+        self.largest = None
+        self.cuda = cuda
+
+        def nb(ts):
+            return sum(t.numel() * t.element_size() for t in ts)
+
+        def wrap(orig):
+            def merge(parts, device):
+                if not self.cuda:
+                    # a CPU run of the child (debugging): host ms
+                    t0 = time.perf_counter()
+                    rv = orig(parts, device)
+                    self.events.append((t0, time.perf_counter()))
+                    self.nbytes.append(0)
+                    return rv
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                rv = orig(parts, device)
+                e1.record()
+                self.events.append((e0, e1))
+                self.nbytes.append(sum(nb(p) for p in parts) + nb(rv))
+                if self.largest is None or \
+                        nb(parts[0]) >= nb(self.largest[0]):
+                    self.largest = parts
+                return rv
+            return merge
+        spy.wrap(mod_mesh, 'merge_partials', wrap)
+
+    def take(self):
+        """(device ms per merge, bound ms per merge), and reset."""
+        import torch
+        if self.cuda:
+            torch.cuda.synchronize()
+            ms = [a.elapsed_time(b) for a, b in self.events]
+        else:
+            ms = [(b - a) * 1e3 for a, b in self.events]
+        bound = [n / HBM_BYTES_PER_S * 1e3 for n in self.nbytes]
+        self.events, self.nbytes = [], []
+        return ms, bound
+
+
+def batch_counter(spy, mod_ds):
+    """Counts DeviceScan._try_device calls: {'total', 'device'}."""
+    batches = {'total': 0, 'device': 0}
+
+    def wrap(orig):
+        def try_device(self, provider, weights, alive):
+            ok = orig(self, provider, weights, alive)
+            batches['total'] += 1
+            batches['device'] += int(ok)
+            return ok
+        return try_device
+    spy.wrap(mod_ds.DeviceScan, '_try_device', wrap)
+    return batches
+
+
+def fmt_merge(ms, bound):
+    if not ms:
+        return 'no merge'
+    return ('%d merges, device %.4f ms each (CUDA events; min %.4f, max '
+            '%.4f), bound %.6f ms' % (len(ms), sum(ms) / len(ms), min(ms),
+                                       max(ms), sum(bound) / len(bound)))
+
+
+def cluster_child(spec_path):
+    """One process of a phase-13 pair: the spec's CLI commands in order,
+    in-process, each one's stdout and stderr captured; per command its
+    rc, wall, device batches, K1 launches, K9 merges (CUDA events) and
+    the gloo exchanges, written to <out>.<pid>.json.  Stops at the first
+    failing command (its peer then fails in its next exchange) and
+    exits with its rc.  Never builds a kernel: the parent did."""
+    import torch
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    from dragnet_tpu_torch import cli
+    from dragnet_tpu_torch import device_scan as mod_ds
+    from dragnet_tpu_torch.ops import cuda_kernels as ck
+    from dragnet_tpu_torch.parallel import cluster as mod_cl
+    from dragnet_tpu_torch.parallel import mesh as mod_mesh
+    with open(spec_path) as f:
+        spec = json.load(f)
+    pid = int(os.environ['DN_PROCESS_ID'])
+    cuda = os.environ.get('DN_TORCH_DEVICE', DEVICE) != 'cpu'
+    if cuda and (not torch.cuda.is_available() or
+                 not all(ck._fresh(n) for n in ck.KERNELS)):
+        sys.stderr.write('cluster child: no CUDA, or a kernel library '
+                         'is not built\n')
+        return 1
+    from dragnet_tpu_torch import datasource_file as mod_dsf
+    from dragnet_tpu_torch.parallel import distributed as mod_dist
+    spy = Spy()
+    timer = MergeTimer(spy, mod_mesh, cuda=cuda)
+    batches = batch_counter(spy, mod_ds)
+    stages = Timers()
+    for owner, name, label in (
+            (mod_dsf.DatasourceFile, '_index_scan_impl', 'local scan'),
+            (mod_dsf.DatasourceFile, 'scan', 'local scan'),
+            (mod_dsf.DatasourceFile, 'query', 'local query'),
+            (mod_cl, '_allgather_bytes', 'allgather'),
+            (mod_cl, '_allgather_merge_tagged', 'json + merge'),
+            (mod_cl, '_allgather_merge_points', 'json + merge'),
+            (mod_dsf.DatasourceFile, '_index_write', 'write'),
+            (mod_dist, 'barrier', 'barrier')):
+        stages.wrap(spy, owner, name, label)
+    results = []
+    rc = 0
+    for argv in spec['commands']:
+        ck.reset_launches()
+        mod_mesh.reset_launches()
+        mod_cl.reset_allgather_stats()
+        b0 = dict(batches)
+        t0 = time.monotonic()
+        rc, out, err = run_cli(cli, argv)
+        if cuda:
+            torch.cuda.synchronize()
+        dt = time.monotonic() - t0
+        ms, bound = timer.take()
+        results.append({
+            'argv': argv, 'rc': rc, 'wall_s': dt, 'stdout': out,
+            'stderr': err, 'stages': stages.take(dt),
+            'batches': batches['total'] - b0['total'],
+            'device_batches': batches['device'] - b0['device'],
+            'k1': ck.launches['onehot_dense'],
+            'merges': mod_mesh.launches['scan_merge'],
+            'merge_ms': ms, 'merge_bound_ms': bound,
+            'allgather': dict(mod_cl.allgather_stats)})
+        if rc != 0:
+            break
+    spy.restore()
+    with open('%s.%d.json' % (spec['out'], pid), 'w') as f:
+        json.dump(results, f)
+    return rc
+
+
+def run_pair(tmp, tag, commands, timeout, env0=None):
+    """The spec's commands on processes 0 and 1 of a two-process gloo
+    group (`chip_smoke.py --cluster-child`), both on this card.  Both
+    are killed at `timeout`.  Returns (wall s, [(rc, stdout, stderr)],
+    [per-command results or None] per process)."""
+    import socket
+    spec = os.path.join(tmp, 'pair_%s.json' % tag)
+    out = os.path.join(tmp, 'pair_%s' % tag)
+    with open(spec, 'w') as f:
+        json.dump({'commands': commands, 'out': out}, f)
+    s = socket.socket()
+    s.bind(('127.0.0.1', 0))
+    port = s.getsockname()[1]
+    s.close()
+    env = dict(os.environ, DN_COORDINATOR='127.0.0.1:%d' % port,
+               DN_NUM_PROCESSES='2')
+    procs = []
+    t0 = time.monotonic()
+    try:
+        for pid in range(2):
+            e = dict(env, DN_PROCESS_ID=str(pid))
+            if pid == 0 and env0:
+                e.update(env0)
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__),
+                 '--cluster-child', spec], env=e, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True))
+        outs = []
+        for p in procs:
+            left = max(1.0, t0 + timeout - time.monotonic())
+            try:
+                o, e = p.communicate(timeout=left)
+            except subprocess.TimeoutExpired:
+                check(False, 'cluster %s: the pair did not end within %d '
+                      's (both killed)' % (tag, timeout))
+            outs.append((p.returncode, o, e))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    wall = time.monotonic() - t0
+    results = []
+    for pid in range(2):
+        path = '%s.%d.json' % (out, pid)
+        if os.path.exists(path):
+            with open(path) as f:
+                results.append(json.load(f))
+        else:
+            results.append(None)
+    return wall, outs, results
+
+
+def shard_bytes(root):
+    """{shard name: bytes} of an index tree's by_hour shards."""
+    d = os.path.join(root, 'by_hour')
+    out = {}
+    for name in sorted(os.listdir(d)):
+        if name.endswith('.sqlite'):
+            with open(os.path.join(d, name), 'rb') as f:
+                out[name] = f.read()
+    return out
+
+
+def k9_entry(mod_mesh, parts, launches, child_launches, reps):
+    """K9's merge on the largest partials the two-shard leg gave it,
+    against its plain version (a stack and a sum or min per output),
+    exactly; CUDA-graph times, L2-cold (the calls rotate over copies
+    larger than the L2 cache, as a scan's batches do), and the bound
+    (every partial read once, the result written once)."""
+    import itertools
+    import torch
+    dev = parts[0][0].device
+
+    def nb(ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    def plain(ps):
+        return (torch.stack([p[0] for p in ps]).sum(0),
+                torch.stack([p[1] for p in ps]).amin(0),
+                torch.stack([p[2] for p in ps]).sum(0))
+
+    def fresh():
+        # the merge consumes its partials (it adds into the first)
+        return [tuple(t.clone() for t in p) for p in parts]
+    want = plain(parts)
+    got = mod_mesh.merge_partials(fresh(), dev)
+    err = max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+              if a.numel() else 0 for a, b in zip(got, want))
+    check(err == 0, 'K9 merge differs from its plain version by %d' % err)
+    copies = 2 + L2_BYTES // max(1, sum(nb(p) for p in parts))
+    sets = [fresh() for _ in range(copies)]
+    n0 = dict(mod_mesh.launches)
+    cycle = itertools.cycle(sets)
+    ms, eager = cuda_time_ms(
+        lambda: mod_mesh.merge_partials(next(cycle), dev), reps)
+    cycle = itertools.cycle(sets)
+    plain_ms, _ = cuda_time_ms(lambda: plain(next(cycle)), reps)
+    mod_mesh.launches.update(n0)
+    del sets
+    nbytes = sum(nb(p) for p in parts) + nb(got)
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    log('K9 merge of %d partials of %d segments: exact, %.4f ms (eager '
+        '%.4f), plain (stack + sum/amin) %.4f ms, L2-cold over %d copies; '
+        'bound %.6f ms (%d bytes), %.1f %% of it'
+        % (len(parts), parts[0][0].numel(), ms, eager, plain_ms, copies,
+           bound, nbytes, 100 * bound / ms))
+    return {'name': 'mesh_merge', 'route': 'cuda',
+            'impl': 'torch ops (in-place adds and minimum into the '
+                    'first shard\'s partials, on the accumulator\'s '
+                    'device): the psum/pmin merge of the reference\'s '
+                    'shard_map programs; not a Pallas kernel',
+            'source': K9_SOURCE, 'replaces': K9_REPLACES,
+            'launches': launches, 'cluster_process_launches':
+            child_launches, 'max_abs_err': err, 'ms': ms,
+            'plain_ms': plain_ms, 'bound_ms': bound, 'bound_by': 'bytes',
+            'library_ms': None,
+            'library_note': 'no single torch call sums and takes the min '
+                            'of the partials (torch.distributed '
+                            'all_reduce needs a process per shard)',
+            'eager_ms': eager,
+            'shape': {'shards': len(parts), 'ns': parts[0][0].numel(),
+                      'ncounters': parts[0][2].numel(), 'l2_cold': True}}
+
+
+def cluster_phase(cli, mod_ds, ck, tmp, records, build_s, reps):
+    """Phase 13: the cluster backend, legs (i)-(iv) (see the constants
+    above).  Every output is held to the file backend's, byte for
+    byte: scans with their --counters in one process, stdout across two
+    (counters are each process's own, as in the reference); the
+    cluster-built tree to phase 7's file-backend tree."""
+    import torch
+    from dragnet_tpu_torch.parallel import cluster as mod_cl
+    from dragnet_tpu_torch.parallel import mesh as mod_mesh
+    from dragnet_tpu_torch.config import ConfigBackendLocal
+    t_phase = time.monotonic()
+    doc = {'legs': {}}
+    days = os.path.join(tmp, 'days')
+    t0 = time.monotonic()
+    nfiles = split_days(os.path.join(tmp, 'month.log'), days)
+    check(nfiles == QUERY_DAYS, 'cluster: %d day files' % nfiles)
+    log('cluster data: phase 7\'s %d records in %d day files under '
+        '%%Y/%%m-%%d (%.2f s)' % (records, nfiles, time.monotonic() - t0))
+    common = ['--path=' + days, '--time-format=%Y/%m-%d',
+              '--time-field=time']
+    for name, extra in (
+            ('days_file', []),
+            ('days', ['--backend=cluster',
+                      '--index-path=' + os.path.join(tmp, 'idx_days')]),
+            ('days_fail', ['--backend=cluster', '--index-path=' +
+                           os.path.join(tmp, 'idx_days_fail')])):
+        rc, _, err = run_cli(cli, ['datasource-add', name] + extra + common)
+        check(rc == 0, 'datasource-add %s failed: %s' % (name, err))
+    for ds, metrics in (('days', BUILD_METRICS), ('days_fail',
+                                                  BUILD_METRICS[:1])):
+        for metric, breakdowns, _route in metrics:
+            rc, _, err = run_cli(cli, ['metric-add', '-b', breakdowns, ds,
+                                       metric])
+            check(rc == 0, 'metric-add %s failed: %s' % (metric, err))
+    rc, icfg, err = run_cli(cli, ['index-config', 'days'])
+    check(rc == 0, 'index-config failed: %s' % err)
+    icfg = json.loads(icfg)
+    icfg['metrics'] = icfg['metrics'][:1]
+    icfg_path = os.path.join(tmp, 'index_config_byhour.json')
+    with open(icfg_path, 'w') as f:
+        json.dump(icfg, f)
+
+    # the file backend's outputs and walls
+    ref = {}
+    for name, qargs, _ in CLUSTER_SCANS:
+        t0 = time.monotonic()
+        rc, out, err = run_cli(cli, ['scan', '--counters'] + qargs +
+                               ['days_file'])
+        torch.cuda.synchronize()
+        dt = time.monotonic() - t0
+        check(rc == 0 and out, 'cluster: file scan %s failed: %s'
+              % (name, err))
+        ref[name] = (out, err, dt)
+        log('cluster file backend %-36s %.2f s  %11.0f records/s'
+            % (name, dt, records / dt))
+    qcases = [(c[0][0], c[1]) for c in QUERY_CASES
+              if c[0][0] in CLUSTER_QUERY_CASES]
+    for key, qargs in qcases:
+        t0 = time.monotonic()
+        rc, out, err = run_cli(cli, ['query'] + qargs + ['month'])
+        dt = time.monotonic() - t0
+        check(rc == 0 and out, 'cluster: file query %s failed: %s'
+              % (key, err))
+        ref['query ' + key] = (out, err, dt)
+    iscan = ['index-scan', '--interval=hour', '--index-config', icfg_path]
+    for label, extra in CLUSTER_INDEX_SCANS:
+        rc, out, err = run_cli(cli, iscan + extra + ['days_file'])
+        check(rc == 0 and out, 'cluster: file %s failed: %s' % (label, err))
+        ref[label] = (out, err, None)
+
+    spy = Spy()
+    timer = MergeTimer(spy, mod_mesh)
+    batches = batch_counter(spy, mod_ds)
+    captured = []
+
+    def wrap_scan(orig):
+        def scan(self, *a, **k):
+            rv = orig(self, *a, **k)
+            captured.append(rv)
+            return rv
+        return scan
+    spy.wrap(mod_cl.DatasourceCluster, 'scan', wrap_scan)
+    cluster_k1 = 0
+    mesh_merges = 0
+    try:
+        # (i) the process's own mesh through the CLI, and (ii) two shards
+        # on the one card through the library, rendered by the CLI
+        _, config = ConfigBackendLocal().load()
+        dev0 = mod_mesh.make_mesh(device=DEVICE).devices[0]
+        mesh2 = mod_mesh.make_mesh(devices=[dev0, dev0])
+        ds2 = mod_cl.DatasourceCluster(config.datasource_get('days'),
+                                       mesh=mesh2)
+        for leg, shards in (('i', None), ('ii', 2)):
+            rows = []
+            for name, qargs, route in CLUSTER_SCANS:
+                argv = ['scan', '--counters'] + qargs + ['days']
+                ck.reset_launches()
+                mod_mesh.reset_launches()
+                b0 = dict(batches)
+                t0 = time.monotonic()
+                if shards is None:
+                    rc, out, err = run_cli(cli, argv)
+                else:
+                    opts = cli.dn_parse_args(argv[1:], [
+                        'before', 'after', 'filter', 'breakdowns', 'raw',
+                        'points', 'counters', 'gnuplot'])
+                    query = cli.dn_query_config(opts)
+                    res = ds2.scan(query, device=DEVICE, engine='device')
+                    o, e = io.StringIO(), io.StringIO()
+                    with contextlib.redirect_stdout(o), \
+                            contextlib.redirect_stderr(e):
+                        cli.dn_output(query, opts, res, 'days')
+                    rc, out, err = 0, o.getvalue(), e.getvalue()
+                torch.cuda.synchronize()
+                dt = time.monotonic() - t0
+                check(rc == 0, 'cluster (%s) %s failed: %s'
+                      % (leg, name, err))
+                nb = batches['total'] - b0['total']
+                nd = batches['device'] - b0['device']
+                k1 = ck.launches['onehot_dense']
+                merges = mod_mesh.launches['scan_merge']
+                cluster_k1 += k1
+                mesh_merges += merges
+                hidden = [s for s in captured[-1].pipeline.stages
+                          if s.name == 'Aggregator'][0].counters
+                ms, bound = timer.take()
+                fout, ferr, fdt = ref[name]
+                check(out == fout and err == ferr,
+                      'cluster (%s) %s: output or --counters differ from '
+                      'the file backend\'s' % (leg, name))
+                per = (shards or 1) if route == 'kernel' else 0
+                check(nb > 0 and nd == nb and
+                      hidden.get('ndevicebatches') == nd,
+                      'cluster (%s) %s: %d of %d batches on the device, '
+                      'ndevicebatches %r' % (leg, name, nd, nb,
+                                             hidden.get('ndevicebatches')))
+                check(k1 == per * nd and merges == nd,
+                      'cluster (%s) %s: K1 launched %d times and K9 merged '
+                      '%d times for %d batches (%s route, %d shards)'
+                      % (leg, name, k1, merges, nd, route, shards or 1))
+                log('cluster (%s) %-36s %.2f s (file %.2f s)  %11.0f '
+                    'records/s | = file backend, --counters too | %d '
+                    'batches, K1 %d, %s'
+                    % (leg, name, dt, fdt, records / dt, nd, k1,
+                       fmt_merge(ms, bound)))
+                rows.append({'name': name, 'wall_s': dt, 'file_s': fdt,
+                             'batches': nd, 'k1': k1, 'merges': merges,
+                             'merge_ms': ms, 'merge_bound_ms': bound})
+            doc['legs'][leg] = rows
+    finally:
+        spy.restore()
+    parts = timer.largest
+
+    # (iii) two processes sharing the card
+    commands = [['scan'] + qargs + ['days']
+                for _, qargs, _ in CLUSTER_SCANS]
+    commands.append(['build', '--interval=hour', 'days'])
+    commands += [iscan + extra + ['days']
+                 for _, extra in CLUSTER_INDEX_SCANS]
+    commands += [['query'] + qargs + ['days'] for _, qargs in qcases]
+    labels = [n for n, _, _ in CLUSTER_SCANS] + ['build'] + \
+        [n for n, _ in CLUSTER_INDEX_SCANS] + \
+        ['query ' + k for k, _ in qcases]
+    wall, outs, results = run_pair(tmp, 'main', commands,
+                                   CLUSTER_PAIR_TIMEOUT_S)
+    for pid, (rc, o, e) in enumerate(outs):
+        check(rc == 0 and results[pid] is not None and
+              len(results[pid]) == len(commands),
+              'cluster (iii): process %d exited %r: %s' % (pid, rc, e[-800:]))
+        check(o == '', 'cluster (iii): process %d printed %r outside its '
+              'commands' % (pid, o[:200]))
+    rows = []
+    routes = {name: route for name, _, route in CLUSTER_SCANS}
+    child_k1 = [0, 0]
+    child_merges = [0, 0]
+    for i, label in enumerate(labels):
+        r0, r1 = results[0][i], results[1][i]
+        check(r1['stdout'] == '', 'cluster (iii) %s: process 1 printed '
+              '%d bytes' % (label, len(r1['stdout'])))
+        if label == 'build':
+            check('built' in r0['stderr'] and 'built' not in r1['stderr'],
+                  'cluster (iii) build: %r | %r' % (r0['stderr'][-200:],
+                                                    r1['stderr'][-200:]))
+            fdt = build_s
+        elif label == CLUSTER_INDEX_SCANS[0][0]:
+            # every day: process 0 holds the even days, process 1 the
+            # odd ones, and the merge keeps process order (the
+            # reference's), so the points are the file backend's in
+            # another order
+            fout, _, fdt = ref[label]
+            check(sorted(r0['stdout'].splitlines()) ==
+                  sorted(fout.splitlines()),
+                  'cluster (iii) %s: process 0\'s points differ from the '
+                  'file backend\'s' % label)
+        else:
+            fout, _, fdt = ref[label]
+            check(r0['stdout'] == fout, 'cluster (iii) %s: process 0\'s '
+                  'output differs from the file backend\'s' % label)
+        for pid, r in enumerate((r0, r1)):
+            child_k1[pid] += r['k1']
+            child_merges[pid] += r['merges']
+            if label in routes:
+                want = r['merges'] if routes[label] == 'kernel' else 0
+                check(r['k1'] == want and
+                      r['device_batches'] == r['batches'] == r['merges'] > 0,
+                      'cluster (iii) %s, process %d: %d of %d batches on '
+                      'the device, K1 %d, K9 %d'
+                      % (label, pid, r['device_batches'], r['batches'],
+                         r['k1'], r['merges']))
+        w = max(r0['wall_s'], r1['wall_s'])
+        ag = [r['allgather'] for r in (r0, r1)]
+        log('cluster (iii) %-36s %.2f s (%s)%s | process 0: %d batches, '
+            'K1 %d; process 1: %d batches, K1 %d | gloo allgather %d + %d '
+            'bytes, %.3f + %.3f s | %s | %s'
+            % (label, w, 'file %.2f s' % fdt if fdt else 'no file time',
+               '  %.0f records/s' % (records / w)
+               if not label.startswith(('query', 'index')) else '',
+               r0['device_batches'], r0['k1'], r1['device_batches'],
+               r1['k1'], ag[0]['bytes'], ag[1]['bytes'], ag[0]['seconds'],
+               ag[1]['seconds'], fmt_merge(r0['merge_ms'],
+                                           r0['merge_bound_ms']),
+               fmt_merge(r1['merge_ms'], r1['merge_bound_ms'])))
+        log('    host s, process 0: %s | process 1: %s'
+            % (fmt_times(r0['stages'], 3), fmt_times(r1['stages'], 3)))
+        rows.append({'name': label, 'wall_s': [r0['wall_s'], r1['wall_s']],
+                     'stages': [r0['stages'], r1['stages']],
+                     'file_s': fdt,
+                     'batches': [r0['device_batches'], r1['device_batches']],
+                     'k1': [r0['k1'], r1['k1']],
+                     'merges': [r0['merges'], r1['merges']],
+                     'allgather': ag,
+                     'merge_ms': [r0['merge_ms'], r1['merge_ms']]})
+    tree = shard_bytes(os.path.join(tmp, 'idx_days'))
+    month_tree = shard_bytes(os.path.join(tmp, 'idx_month'))
+    check(len(tree) == 24 * QUERY_DAYS and tree == month_tree,
+          'cluster (iii): the two-process tree (%d shards) differs from '
+          'phase 7\'s file-backend tree (%d shards)'
+          % (len(tree), len(month_tree)))
+    log('cluster (iii) pair: %.2f s in all (two processes starting on the '
+        'card included) | tree byte-equal to phase 7\'s (%d shards) | '
+        'process 1 printed nothing' % (wall, len(tree)))
+    doc['legs']['iii'] = {'commands': rows, 'wall_s': wall,
+                          'shards': len(tree)}
+
+    # (iv) the write fails on process 0 only
+    wall, outs, results = run_pair(
+        tmp, 'fail', [['build', '--interval=hour', 'days_fail']],
+        CLUSTER_FAIL_TIMEOUT_S, env0={'DN_FAULTS': CLUSTER_FAULT})
+    rcs = [rc for rc, _, _ in outs]
+    errs = [r[0]['stderr'] if r else e for r, (_, _, e) in
+            zip(results, outs)]
+    check(all(rc != 0 for rc in rcs),
+          'cluster (iv): exit codes %r (both must fail)' % rcs)
+    check('injected' in errs[0] and
+          'index write failed on process 0' in errs[1],
+          'cluster (iv): %r | %r' % (errs[0][-300:], errs[1][-300:]))
+    log('cluster (iv) planted write fault on process 0: exit codes %r '
+        'within %.2f s (deadline %d s) | %s | %s'
+        % (rcs, wall, CLUSTER_FAIL_TIMEOUT_S, errs[0].strip()[-120:],
+           errs[1].strip()[-120:]))
+    doc['legs']['iv'] = {'rcs': rcs, 'wall_s': wall}
+
+    k9 = k9_entry(mod_mesh, parts, mesh_merges, child_merges, reps)
+    doc['wall_s'] = time.monotonic() - t_phase
+    doc['cluster_launches'] = cluster_k1
+    doc['cluster_process_launches'] = child_k1
+    log('cluster phase: %.1f s' % doc['wall_s'])
+    return doc, k9
+
+
 def main_path_keys(ck, captured, reps):
     """Phase 5: the kernel on the fused keys the main path gave it, the
     largest batch of each query at each segment count."""
@@ -3343,7 +3956,11 @@ def main():
     ap.add_argument('--reps', type=int, default=100)
     ap.add_argument('--json', help='also write every kernel shape\'s '
                     'result to this file')
+    ap.add_argument('--cluster-child', metavar='SPEC',
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.cluster_child:
+        return cluster_child(args.cluster_child)
 
     t_smoke = time.monotonic()
     import torch
@@ -3443,6 +4060,8 @@ def main():
         serve, k7, k7a = serve_phase(cli, ck, tmp, args.records,
                                      query_outputs, forced, main_launches,
                                      args.reps)
+        cluster, k9 = cluster_phase(cli, mod_ds, ck, tmp, args.records,
+                                    queries['builds_s']['hour'], args.reps)
     torch.cuda.synchronize()
 
     # 10. the kernel on the main path's own keys, and on uniform keys at
@@ -3484,7 +4103,8 @@ def main():
                        'pipeline': pipeline,
                        'query': queries, 'auto': auto, 'parse': parse,
                        'lifecycle': lifecycle, 'serve': serve,
-                       'index_kernels': [k7, k7a]}, f, indent=1)
+                       'cluster': cluster,
+                       'index_kernels': [k7, k7a, k9]}, f, indent=1)
     print(json.dumps({'query': [
         {k: q[k] for k in ('name', 'route', 'points', 'device_s',
                            'host_s', 'dispatches', 'rows', 'h2d_bytes',
@@ -3501,6 +4121,7 @@ def main():
     print(json.dumps({'serve': {k: serve[k] for k in (
         'prewarm', 'passes', 'scans', 'concurrency', 'write', 'fault',
         'latency_s', 'memory', 'launches', 'wall_s')}}), flush=True)
+    print(json.dumps({'cluster': cluster}), flush=True)
     block = parse['shapes'][0]
     log('smoke: %.1f s' % (time.monotonic() - t_smoke))
     log('gpu: %s' % card)
@@ -3514,6 +4135,8 @@ def main():
         'serve_launches': serve['launches']['onehot_dense'],
         'serve_worker_launches':
         serve['launches']['onehot_dense_from_workers'],
+        'cluster_launches': cluster['cluster_launches'],
+        'cluster_process_launches': cluster['cluster_process_launches'],
         'max_abs_err': max(r['max_abs_err'] for r in results),
         'ms': main['ms'], 'plain_ms': main['plain_ms'],
         'bound_ms': main['bound_ms'], 'bound_by': main['bound_by'],
@@ -3537,7 +4160,7 @@ def main():
          'shape': {'n': block['n']}, 'shapes': parse['shapes']}),
         dict(k7, query_launches=sum(q['dispatches'] for q in
                                     queries['queries'])),
-        k7a]}), flush=True)
+        k7a, k9]}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,
         'count': torch.cuda.device_count()}}), flush=True)

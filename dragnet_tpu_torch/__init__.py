@@ -1,5 +1,7 @@
 """dragnet-tpu on PyTorch and CUDA: `dn scan`, `dn build`,
-`dn index-scan` and `dn query` with the device lane on an NVIDIA GPU.
+`dn index-scan` and `dn query` with the device lane on an NVIDIA GPU,
+over the file backend or the cluster backend (a device mesh and
+torch.distributed processes).
 
 The port of the dragnet_tpu package (the JAX reference, which stays
 beside it) to torch.  It imports neither jax nor dragnet_tpu: the
@@ -27,9 +29,12 @@ def datasource_for_name(config, dsname):
 
 def datasource_for_config(dsconfig):
     bename = dsconfig['ds_backend']
+    if bename in ('cluster', 'manta'):
+        from . import datasource_cluster
+        return datasource_cluster.create_datasource(dsconfig)
     if bename == 'file':
         return datasource_file.create_datasource(dsconfig)
-    return DNError('datasource backend "%s" is not ported' % bename)
+    return DNError('unknown datasource backend: "%s"' % bename)
 
 
 def metrics_for_index(config, dsname, index_config=None):

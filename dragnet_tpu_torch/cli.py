@@ -42,11 +42,11 @@ ARG0 = 'dn'
 
 USAGE_TEXT = """usage: python -m dragnet_tpu_torch SUBCOMMAND [OPTIONS] ARGS
 
-dn datasource-add    [--backend=file] --path=DATA_PATH
+dn datasource-add    [--backend=file|cluster] --path=DATA_PATH
                      [--index-path=INDEX_PATH] [--filter=FILTER]
                      [--time-field=FIELD] [--time-format=TIME_FORMAT]
                      [--data-format=json|json-skinner] DATASOURCE
-dn datasource-update [--backend=file] [--path=DATA_PATH]
+dn datasource-update [--backend=file|cluster] [--path=DATA_PATH]
                      [--index-path=INDEX_PATH] [--filter=FILTER]
                      [--time-field=FIELD] [--time-format=TIME_FORMAT]
                      [--data-format=json|json-skinner] DATASOURCE
@@ -553,7 +553,27 @@ def dn_query_config(opts):
 
 def dn_output(query, opts, result, dsname):
     """(reference: bin/dn:924-967)"""
+    # multi-process runs: every process computes the whole result (the
+    # allgather), but only process 0 prints it.  Dry-run plans print
+    # everywhere: each process's plan shows ITS partition.
+    if result.dry_run_files is None:
+        from .parallel import distributed as mod_dist
+        if not mod_dist.is_output_process():
+            return
+
     if result.dry_run_files is not None:
+        plan = getattr(result, 'dry_run_plan', None)
+        if plan is not None:
+            # cluster backend: the execution plan, then the inputs (the
+            # reference printed its Manta job JSON the same way)
+            import json as mod_json
+            partition = plan.get('partition', [])
+            head = {k: v for k, v in plan.items() if k != 'partition'}
+            sys.stderr.write(mod_json.dumps(head, indent=4) + '\n')
+            sys.stderr.write('\nInputs:\n')
+            for path in partition:
+                sys.stderr.write('%s\n' % path)
+            return
         sys.stderr.write('would scan files:\n')
         for path in result.dry_run_files:
             sys.stderr.write('    %s\n' % path)
@@ -844,9 +864,11 @@ def _build_local(opts, ds, metrics, dsname):
     if opts.dry_run:
         dn_output(None, opts, result, dsname)
         return
-    sys.stderr.write('indexes for "%s" built\n' % dsname)
-    if getattr(opts, 'counters', None):
-        result.pipeline.dump_counters(sys.stderr)
+    from .parallel import distributed as mod_dist
+    if mod_dist.is_output_process():
+        sys.stderr.write('indexes for "%s" built\n' % dsname)
+        if getattr(opts, 'counters', None):
+            result.pipeline.dump_counters(sys.stderr)
 
 
 def cmd_index_config(ctx, argv):

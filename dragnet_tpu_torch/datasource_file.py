@@ -58,6 +58,7 @@ class ScanResult(object):
         self.points = points
         self.dry_run_files = dry_run_files
         self.parse_plan = None      # scan dry run: DN_PARSE lane info
+        self.dry_run_plan = None    # cluster backend: execution plan
 
     def clone_for_output(self):
         """An output-formatting view of this result with a PRIVATE
@@ -76,6 +77,7 @@ class ScanResult(object):
         rv = ScanResult(pl, points=self.points,
                         dry_run_files=self.dry_run_files)
         rv.parse_plan = self.parse_plan
+        rv.dry_run_plan = self.dry_run_plan
         return rv
 
 
@@ -227,7 +229,8 @@ class DatasourceFile(object):
 
     def _scan_cls(self, engine, device):
         """The scan class for `engine` on `device`
-        (device_scan.scan_class); tests pin it to a subclass."""
+        (device_scan.scan_class); tests pin it to a subclass, and the
+        cluster backend to its mesh scan."""
         from .device_scan import scan_class
         return scan_class(engine, device)
 

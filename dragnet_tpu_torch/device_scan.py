@@ -669,6 +669,7 @@ class DeviceScan(VectorScan):
                       'cached_verdict': None, 'audition': None,
                       'probation': None}
         self._sticky = None       # upload-profile state (_stage_device)
+        self._mesh_rows = None    # per-record input keys (_run_staged)
         self._sparse_cap = SPARSE_CAP0
         self._sparse_ub = 0       # unique-count upper bound this epoch
         self._plans = None        # built from the query
@@ -1430,10 +1431,12 @@ class DeviceScan(VectorScan):
         if ns > MAX_DENSE_SEGMENTS:
             # high-cardinality: no dense accumulator fits, so run the
             # SPARSE program (fused i64 keys sort-merged into a
-            # device-resident compacted set).  Per-column codes are i32
-            # on device, so a fused key beyond 2^62 or a cap beyond
+            # device-resident compacted set).  Excluded under a mesh (a
+            # sparse set has no sum/min merge).  Per-column codes are
+            # i32 on device, so a fused key beyond 2^62 or a cap beyond
             # 2^31 can never run there: host path instead.
-            if ns > (1 << 62) or max(new_caps) > (1 << 31):
+            if self._device_mesh() is not None or ns > (1 << 62) or \
+                    max(new_caps) > (1 << 31):
                 self._disabled = True
                 return None
             sparse = True
@@ -1471,6 +1474,19 @@ class DeviceScan(VectorScan):
                 ctab[mn.TAG_OBJECT] = leaf.outcome({})
                 self._ctabs[i] = self._upload(ctab)
             inputs[pfx + 'ctab_%d' % i] = self._ctabs[i]
+
+        # under a mesh, pad the per-record arrays with dead rows to a
+        # multiple of the shard count, so every shard gets an equal
+        # slice (the single-device path copies only the batch's rows)
+        mesh_info = self._device_mesh()
+        if mesh_info is not None:
+            pad = (-n) % mesh_info[0].size
+            if pad:
+                for k, v in list(inputs.items()):
+                    if isinstance(v, np.ndarray) and v.ndim == 1 and \
+                            len(v) == n:
+                        inputs[k] = np.concatenate(
+                            [v, np.zeros(pad, dtype=v.dtype)])
 
         profile = (w1, gen_alive,
                    {f: (hs, hn, an) for f, hs, hn, an in filter_profile},
@@ -1547,6 +1563,12 @@ class DeviceScan(VectorScan):
                           self._compute_stream())
 
     def _run_staged(self, staged, inputs):
+        if self._device_mesh() is not None:
+            # the per-record inputs, which a mesh splits across its
+            # shards (every other input is a table each shard reads
+            # whole)
+            self._mesh_rows = frozenset(k for k, v in inputs.items()
+                                        if isinstance(v, np.ndarray))
         args, nbytes, slot = self._upload_inputs(inputs)
         self._fold_staged(staged, args)
         _note_h2d(nbytes)
@@ -1558,7 +1580,8 @@ class DeviceScan(VectorScan):
     def _fold_staged(self, staged, args):
         """Fold one staged batch (inputs already on the device) into
         this scan's resident accumulator: the sparse fold, or the dense
-        body through the one-hot kernel or index_add_."""
+        body through the one-hot kernel or index_add_, on one device or
+        sharded across the mesh."""
         n, profile, caps, ns, total_w = staged
         sparse_cap = profile[-1]
         self._compute_stream()
@@ -1572,21 +1595,30 @@ class DeviceScan(VectorScan):
         else:
             use_kernel = bool(caps) and cuda_kernels.should_use(ns,
                                                                 total_w)
-            self._fold(args, n, profile, caps, ns, use_kernel, base)
+            mesh_info = self._device_mesh()
+            if mesh_info is None:
+                self._fold(args, n, profile, caps, ns, use_kernel, base)
+            else:
+                self._fold_mesh(mesh_info[0], args, self._mesh_rows, n,
+                                profile, caps, ns, use_kernel, base)
         self._acc_batch += 1
 
     # -- the device program -------------------------------------------------
 
-    def _body(self, args, n, profile, caps, ns, use_kernel, acc_dense):
+    def _body(self, args, n, profile, caps, ns, use_kernel, acc_dense,
+              row0=0, nvalid=None, device=None):
         """One batch on the device -> (dense i64[ns], first i32[ns],
         cvec i32[ncounters]).  On the kernel route the weights go
         straight into `acc_dense` and dense is None.  In sparse mode
         -> (cvec, fused i64[n] with dead rows at I64MAX, weights
-        i64[n])."""
+        i64[n]).  A mesh shard runs it on its `n` rows of the padded
+        batch on its `device`: `row0` makes its row indices global (so
+        the cross-shard min is the batch's first occurrence) and rows
+        from `nvalid` on are padding (dead when alive is synthesized)."""
         w1, gen_alive, fprof, kvalid_skip, use_dstats, sparse_cap = \
             profile
         pfx = self._pfx
-        dev = self.device
+        dev = self.device if device is None else device
         i32 = torch.int32
         i8 = torch.int8
 
@@ -1658,8 +1690,15 @@ class DeviceScan(VectorScan):
             bl = bl + (x >= 1).to(i32)
             return torch.where(v < 1, 0, bl).to(i32)
 
-        alive = torch.ones(n, dtype=torch.bool, device=dev) if gen_alive \
-            else args['alive']
+        # global row index: first occurrence, and under a mesh the
+        # synthesized alive mask (rows past nvalid are padding)
+        gidx = torch.arange(row0, row0 + n, dtype=i32, device=dev)
+        if not gen_alive:
+            alive = args['alive']
+        elif nvalid is None:
+            alive = torch.ones(n, dtype=torch.bool, device=dev)
+        else:
+            alive = gidx < nvalid
         weights = None if w1 else args['weights']
         counters = []
 
@@ -1770,7 +1809,6 @@ class DeviceScan(VectorScan):
             fused = fused * cap + c
         fused32 = torch.where(alive, fused, ns)
         fused = fused32.to(torch.int64)
-        gidx = torch.arange(n, dtype=i32, device=dev)
         first = torch.full((ns + 1,), I32MAX, dtype=i32, device=dev)
         first.scatter_reduce_(0, fused, gidx, 'amin', include_self=True)
         first = first[:ns]
@@ -1792,15 +1830,51 @@ class DeviceScan(VectorScan):
         place: dense weights and counters add; the first-occurrence key
         takes a running min over (batch_base | row), which orders keys
         exactly as the host engine inserts them."""
-        acc_dense, acc_first, acc_cvec = self._acc
         dense, first, cvec = self._body(args, n, profile, caps, ns,
-                                        use_kernel, acc_dense)
+                                        use_kernel, self._acc[0])
+        self._accumulate(dense, first, cvec, base)
+
+    def _fold_mesh(self, mesh, args, rows, n, profile, caps, ns,
+                   use_kernel, base):
+        """_fold for a batch run sharded across the mesh (_mesh_body)."""
+        dense, first, cvec = self._mesh_body(mesh, args, rows, n, profile,
+                                             caps, ns, use_kernel)
+        self._accumulate(dense, first, cvec, base)
+
+    def _accumulate(self, dense, first, cvec, base):
+        acc_dense, acc_first, acc_cvec = self._acc
         bfirst = torch.where(first < I32MAX, first.to(torch.int64) + base,
                              I64MAX)
         if dense is not None:
             acc_dense += dense
         torch.minimum(acc_first, bfirst, out=acc_first)
         acc_cvec += cvec.to(torch.int64)
+
+    def _mesh_body(self, mesh, args, rows, n, profile, caps, ns,
+                   use_kernel):
+        """One batch across the mesh (K9): shard s runs the body on rows
+        [s*bn, (s+1)*bn) of the padded batch on its device, with global
+        row indices; on the kernel route its K1 launch adds into a
+        zeroed partial of its own.  The partials merge on the
+        accumulator's device (mesh.merge_partials: dense and counters by
+        sum, first by min)."""
+        from .parallel import mesh as mod_mesh
+        bn = -(-n // mesh.size)
+        parts = []
+        for s, dev in enumerate(mesh.devices):
+            sargs = {}
+            for k, v in args.items():
+                if k in rows:
+                    v = v[s * bn:(s + 1) * bn]
+                sargs[k] = v.to(dev)
+            partial = torch.zeros(ns, dtype=torch.int64, device=dev) \
+                if use_kernel else None
+            dense, first, cvec = self._body(
+                sargs, bn, profile, caps, ns, use_kernel, partial,
+                row0=s * bn, nvalid=n, device=dev)
+            parts.append((partial if dense is None else dense, first,
+                          cvec))
+        return mod_mesh.merge_partials(parts, self.device)
 
     def _fold_sparse(self, args, n, profile, caps, occupied, base):
         """One batch sort-merged into the resident sparse set: its row
@@ -1814,6 +1888,20 @@ class DeviceScan(VectorScan):
             I64MAX)
         self._acc = fold_sparse(self._acc, cvec, fused, wb, first_b,
                                 occupied)
+
+    # -- mesh hooks (no-ops on the single-device path; the cluster
+    # backend's MeshDeviceScan overrides them) ----------------------------
+
+    def _device_mesh(self):
+        """(Mesh, axis_name) to shard the per-record axis over, or None
+        for single-device execution."""
+        return None
+
+    def _mesh_key(self):
+        m = self._device_mesh()
+        if m is None:
+            return None
+        return m[0].key()
 
     # -- flush: fetch + ordered merge ---------------------------------------
 
