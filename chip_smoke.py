@@ -204,14 +204,38 @@ it happened; any failed check exits non-zero:
            stages, and K9's device ms (CUDA events) against its bound;
            then K9 against its plain version on the largest partials;
            a `cluster` JSON line.
+14. sub    standing queries and the fleet view (serve/subscribe.py,
+           fleet.py, top.py, obs/history.py): phase 13's day files and a
+           copy of phase 7's trees behind a datasource, served on the
+           card as in phase 12 (plus DN_METRICS_HISTORY_S=1); 8
+           subscribers on query (b), 1 on (d) and a `watch: fleet`
+           group, each seed frame equal to a `query --remote` poll;
+           500,000 records of the two hours after the month in a new
+           day file, built through `build --remote --interval=hour`
+           bounded to those hours (two new hour shards; K1 once per
+           stacked batch; the write hook fires), then 200,000 more
+           built by a separate `python -m dragnet_tpu_torch build`
+           (caught by the revalidation tick); after each, every
+           subscriber's frame equal to a served poll (K7), one
+           recompute per group, 2 shards folded and the rest reused,
+           the push latency from the publish (the write hook; the
+           catalog's mtime for the other process) to receipt; the
+           pusher thread never on a device entry (K1, K7's fold, the
+           residency pins); `dn subscribe --frames 2`, `dn top --once`
+           (members 1/1 up, the residency row), `stats --cluster
+           --prom` (dn_fleet_*), the `history` section's qps series;
+           the drain's `end` frame on every stream and device memory
+           back within 16 MiB of its level before the server; a
+           `subscribe` JSON line.
 10. main   the kernel again, on the fused keys the main path gave it:
    keys    the largest batch of each kernel query at each segment count
            (the time window, and with it the accumulator, grows during
            the timestamp query), captured in phase 4.
 11. result the card's name and power limit (nvidia-smi), a `kernels`
            JSON line (per kernel: launches on the main path, the build,
-           the query phase, the eager auto runs, the follow rounds and
-           the served path and phase 13, times, bound; K7, K7a and K9,
+           the query phase, the eager auto runs, the follow rounds,
+           the served path, phase 13 and phase 14, times, bound; K7,
+           K7a and K9,
            torch ops that replace the reference's jitted XLA programs,
            with theirs),
            and as the last line {"ok": true, "device": {...}}.
@@ -256,8 +280,9 @@ LARGE_SEGMENTS = 4096
 L2_BYTES = 50 << 20
 # phase 6b: device work added after each fold of the K1 query to make
 # the device the slower side (torch.cuda._sleep, SM clock cycles: about
-# 20 ms at 1.98 GHz, beside ~20 ms of host work a batch)
-BUSY_CYCLES = 40 * 1000 * 1000
+# 60 ms at 1.98 GHz, three times the ~20-30 ms of host work a batch; at
+# 20 ms the device was the slower side on some hosts and not on others)
+BUSY_CYCLES = 120 * 1000 * 1000
 
 # (name, scan arguments, expected route): the large-scan query of the
 # repository's benchmark, its small-accumulator query, and the synthetic
@@ -3936,6 +3961,530 @@ def cluster_phase(cli, mod_ds, ck, tmp, records, build_s, reps):
     return doc, k9
 
 
+# phase 14: standing queries and the fleet view.  Phase 13's day files
+# (linked) and a copy of phase 7's trees behind a datasource, served on
+# the card (as phase 12); SUB_CLIENTS subscribers on query (b), one on
+# (d) and one `watch: fleet` group through the port's client.  The
+# in-process publish: SUB_APPEND_RECORDS records of the first SUB_HOURS
+# hours after the month, in a new day file, built through `build
+# --remote` bounded to those hours — two new hour shards at the head of
+# the tree, as `dn follow` publishes the latest hours (a whole day's
+# window would not launch K1: the byhour metric's hour x hour x host
+# caps over a day, 32 x 32 x 8, pass its 4,096 segments).  The
+# cross-process publish: SUB_XPROC_RECORDS more in the same hours,
+# built by a separate `python -m dragnet_tpu_torch build` at
+# DN_ENGINE=jax and caught by the revalidation tick.  Every frame after
+# each equals a `query --remote` poll.  SUB_WAIT_S bounds every wait on
+# a frame.  Between the two, the day rebuild: SUB_DAY_RECORDS records
+# appended to the month's last day file, rebuilt through `build
+# --remote --interval=hour` bounded to that day — its 24 hour shards
+# fold again, the rest are reused.  It launches K1 0 times (those caps
+# again: the device scan sizes them from the batch's time range before
+# the window mask, ROADMAP §2), and the phase prints that count.
+SUB_CLIENTS = 8
+SUB_CASES = ('b', 'd')
+SUB_APPEND_RECORDS = 500000
+SUB_XPROC_RECORDS = 200000
+SUB_HOURS = 2
+SUB_AFTER, SUB_BEFORE = '2014-05-31T00:00:00Z', '2014-05-31T02:00:00Z'
+SUB_DAY_RECORDS = 500000
+SUB_DAY_AFTER, SUB_DAY_BEFORE = '2014-05-30T00:00:00Z', '2014-05-31T00:00:00Z'
+SUB_DAY_SHARDS = 24
+SUB_FLEET_INTERVAL_MS = 1000
+SUB_WAIT_S = 120.0
+SUB_DS = 'subd'
+
+
+class FrameReader(object):
+    """One subscription's frames, read on a thread of its own: each
+    pushed frame with its receipt wall time.  `ended` is 'end' once the
+    server's end frame closed the stream, else the error that cut it."""
+
+    def __init__(self, tclient, sock, req, label):
+        import threading
+        self.label = label
+        self.frames = []
+        self.ended = None
+        self.cond = threading.Condition()
+        self._stream = tclient.subscribe_stream(sock, req)
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name='smoke-sub-' + label)
+        self._thread.start()
+
+    def _run(self):
+        ended = 'end'
+        try:
+            for fr in self._stream:
+                with self.cond:
+                    self.frames.append((time.time(), fr))
+                    self.cond.notify_all()
+        except Exception as e:
+            ended = repr(e)
+        with self.cond:
+            self.ended = ended
+            self.cond.notify_all()
+
+    def mark(self):
+        """The number of frames received so far."""
+        with self.cond:
+            return len(self.frames)
+
+    def wait(self, pred, what, since=0):
+        """The first frame from index `since` on that `pred` accepts,
+        waiting up to SUB_WAIT_S."""
+        deadline = time.monotonic() + SUB_WAIT_S
+        with self.cond:
+            while True:
+                for t, fr in self.frames[since:]:
+                    if pred(fr):
+                        return t, fr
+                left = deadline - time.monotonic()
+                check(left > 0 and self.ended is None,
+                      'subscribe: %s never got %s (ended %r)'
+                      % (self.label, what, self.ended))
+                self.cond.wait(min(left, 1.0))
+
+    def join(self):
+        self._thread.join(SUB_WAIT_S)
+        check(not self._thread.is_alive(), 'subscribe: %s did not end'
+              % self.label)
+
+
+def sub_request(cli, qargs, dsname):
+    """The standing query `dn subscribe` ships for these query
+    arguments (its own parse, and no output options)."""
+    from dragnet_tpu_torch.config import ConfigBackendLocal
+    opts = cli.dn_parse_args(list(qargs) + [dsname], [
+        'before', 'after', 'filter', 'breakdowns', 'raw', 'points',
+        'interval', 'remote', 'frames'])
+    cli.dn_query_config(opts)
+    return {'op': 'subscribe', 'ds': dsname, 'interval': opts.interval,
+            'queryconfig': cli.dn_query_doc(opts),
+            'opts': {'raw': False, 'points': False},
+            'config': ConfigBackendLocal().cbl_path}
+
+
+def append_records(path, n, seed, after=SUB_AFTER, before=SUB_BEFORE):
+    """n generated records of the publish window (`after` to `before`)
+    appended to `path`; the seconds it took."""
+    import calendar
+    from dragnet_tpu_torch import native as mod_native
+    t0 = time.monotonic()
+    lo, hi = (calendar.timegm(time.strptime(t, '%Y-%m-%dT%H:%M:%SZ'))
+              * 1000 for t in (after, before))
+    extra = path + '.gen'
+    mod_native.gen_to_file(n, extra, mindate_ms=lo, maxdate_ms=hi - 1,
+                           seed=seed)
+    with open(extra, 'rb') as src, open(path, 'ab') as dst:
+        while True:
+            chunk = src.read(16 << 20)
+            if not chunk:
+                break
+            dst.write(chunk)
+    os.unlink(extra)
+    return time.monotonic() - t0
+
+
+def subscribe_phase(cli, ck, tmp, seed, serve_memory):
+    """Phase 14 (see the constants above).  Returns the `subscribe`
+    doc; its `launches` are the counts of this phase's path (zeroed
+    just before the server starts, read after its drain)."""
+    import gc
+    import shutil
+    import threading
+    import torch
+    from dragnet_tpu_torch import device_index as mod_di
+    from dragnet_tpu_torch import index_build_mt as mod_build
+    from dragnet_tpu_torch import index_query_stack as mod_iqs
+    from dragnet_tpu_torch import integrity as mod_integrity
+    from dragnet_tpu_torch.serve import client as tclient
+    from dragnet_tpu_torch.serve import residency as mod_res
+    from dragnet_tpu_torch.serve import server as tserver
+    t_phase = time.monotonic()
+    doc = {}
+    days = os.path.join(tmp, 'days_sub')
+    src_days = os.path.join(tmp, 'days')
+    for root, dirs, files in os.walk(src_days):
+        rel = os.path.relpath(root, src_days)
+        os.makedirs(os.path.join(days, rel), exist_ok=True)
+        for fn in files:
+            os.link(os.path.join(root, fn), os.path.join(days, rel, fn))
+    head = os.path.join(days, SUB_AFTER[:4], SUB_AFTER[5:10], 'muskie.log')
+    check(not os.path.exists(head), 'subscribe: %s exists' % head)
+    os.makedirs(os.path.dirname(head))
+    # the day rebuild appends to the last day's file: a copy of its own,
+    # not a link to phase 13's
+    last_day = os.path.join(days, SUB_DAY_AFTER[:4], SUB_DAY_AFTER[5:10],
+                            'muskie.log')
+    check(os.path.exists(last_day), 'subscribe: no %s' % last_day)
+    shutil.copyfile(last_day, last_day + '.copy')
+    os.replace(last_day + '.copy', last_day)
+    idx = os.path.join(tmp, 'idx_sub')
+    shutil.copytree(os.path.join(tmp, 'idx_month'), idx)
+    rc, _, err = run_cli(cli, ['datasource-add', SUB_DS, '--path=' + days,
+                               '--time-format=%Y/%m-%d',
+                               '--time-field=time', '--index-path=' + idx])
+    check(rc == 0, 'datasource-add %s failed: %s' % (SUB_DS, err))
+    for metric, breakdowns, _route in BUILD_METRICS:
+        rc, _, err = run_cli(cli, ['metric-add', '-b', breakdowns, SUB_DS,
+                                   metric])
+        check(rc == 0, 'metric-add %s failed: %s' % (metric, err))
+    cases = {c[0][0]: c[1] for c in QUERY_CASES if c[0][0] in SUB_CASES}
+    sock = os.path.join(tmp, 'dn_sub.sock')
+
+    # the pusher thread must stay off the card: every device entry of
+    # the path records the threads that reached it
+    spy = Spy()
+    device_threads = set()
+
+    def on_thread(orig):
+        def wrapped(*a, **k):
+            device_threads.add(threading.current_thread().name)
+            return orig(*a, **k)
+        return wrapped
+    spy.wrap(ck, 'onehot_dense_into', on_thread)
+    spy.wrap(mod_di, '_device_fold', on_thread)
+    for name in ('get', 'put', 'get_device', 'put_device'):
+        spy.wrap(mod_res.DeviceResidency, name, on_thread)
+    publish_t = []
+
+    def on_publish(indexroot, paths):
+        if os.path.abspath(indexroot) == os.path.abspath(idx):
+            publish_t.append(time.time())
+    mod_build.register_index_write_hook(on_publish)
+    knobs = {'DN_ENGINE': 'jax', 'DN_DEVICE_RESIDENCY_MB': '4096',
+             'DN_DEVICE_PREWARM': '1', 'DN_METRICS_HISTORY_S': '1',
+             'DN_SUB_COALESCE_MS': None, 'DN_SUB_DELTA_PCT': None}
+    readers = []
+    try:
+        with env_scope(**knobs):
+            gc.collect()
+            torch.cuda.synchronize()
+            mem_before = torch.cuda.memory_allocated()
+            # the counts: zeroed just before this phase's path, read
+            # just after the drain
+            ck.reset_launches()
+            mod_di._reset_engagement()
+            mod_iqs.launches['sums'] = 0
+            srv = tserver.DnServer(socket_path=sock,
+                                   conf={'max_inflight': 4}).start()
+            try:
+                doc.update(_subscribe_checks(
+                    cli, ck, tserver, tclient, srv, cases, head, last_day,
+                    idx, seed, readers, publish_t, mod_integrity))
+            finally:
+                srv.stop()
+            for r in readers:
+                r.join()
+            torch.cuda.synchronize()
+            launches = {'onehot_dense': ck.launches['onehot_dense'],
+                        'fold': mod_di.stats_doc()['dispatches'],
+                        'sums': mod_iqs.launches['sums']}
+            gc.collect()
+            mem_after = torch.cuda.memory_allocated()
+    finally:
+        mod_build.unregister_index_write_hook(on_publish)
+        spy.restore()
+    ends = {r.label: r.ended for r in readers}
+    check(all(e == 'end' for e in ends.values()),
+          'subscribe: streams not ended by an end frame: %r' % ends)
+    check(mod_res.active() is None, 'subscribe: residency survived the '
+          'drain')
+    check(mem_after - mem_before <= DRAIN_SLACK_BYTES,
+          'subscribe: device memory after the drain %d B, before the '
+          'server %d B' % (mem_after, mem_before))
+    check('dn-subscribe' not in device_threads,
+          'subscribe: the pusher thread reached the card (%r)'
+          % sorted(device_threads))
+    check(launches['onehot_dense'] > 0 and launches['fold'] > 0,
+          'subscribe: K1 %d and K7 %d launches'
+          % (launches['onehot_dense'], launches['fold']))
+    doc['memory'] = {'before_server': mem_before, 'after_drain': mem_after,
+                     'phase_12_after_drain': serve_memory['after_drain']}
+    doc['device_threads'] = sorted(device_threads)
+    doc['launches'] = launches
+    doc['ends'] = len(ends)
+    doc['wall_s'] = time.monotonic() - t_phase
+    log('subscribe drain: %d end frames; device memory %d B before the '
+        'server, %d B after its drain (phase 12: %d B after its drain); '
+        'device entries reached from threads %s'
+        % (len(ends), mem_before, mem_after, serve_memory['after_drain'],
+           ', '.join(sorted(device_threads))))
+    log('subscribe: launches K1 %d, K7 %d, K7a %d; phase %.1f s'
+        % (launches['onehot_dense'], launches['fold'], launches['sums'],
+           doc['wall_s']))
+    return doc
+
+
+def _sub_counters(tclient, sock):
+    """The /stats `subscriptions` counters and the whole section."""
+    st = tclient.stats(sock)['subscriptions']
+    return st['counters'], st
+
+
+def _publish_round(label, tserver, cli, tclient, srv, cases, readers,
+                   marks, t_publish, sub_before):
+    """After one publish: every query subscriber's first frame since
+    `marks` (the frame counts before the publish), the push latencies
+    from `t_publish`, and a poll that the subscribers' frames reach;
+    the group counters' deltas."""
+    sock = srv.socket_path
+    lat, out = [], {}
+    for r in readers:
+        if r.label == 'fleet':
+            continue
+        t, fr = r.wait(lambda fr: True, 'a frame after the %s publish'
+                       % label, since=marks[r.label])
+        lat.append(t - t_publish)
+        out.setdefault(r.label.split('#')[0], []).append(fr)
+    polls = {}
+    for case, qargs in cases.items():
+        rc, text, err, dt = served(tserver, cli, ['query', '--remote',
+                                                  sock] + qargs + [SUB_DS])
+        check(rc == 0, 'subscribe: poll (%s) failed: %s' % (case, err))
+        polls[case] = (text.encode(), dt)
+        # the latest frame of every subscriber: a tick may have pushed
+        # an intermediate state before the publish settled
+        for r in readers:
+            if r.label.split('#')[0] != case:
+                continue
+            r.wait(lambda fr: fr['payload'] == polls[case][0],
+                   'the polled bytes of (%s)' % case,
+                   since=marks[r.label])
+    counters, st = _sub_counters(tclient, sock)
+    delta = {k: counters[k] - sub_before[k] for k in counters}
+    groups = [g for g in st['groups'] if g['watch'] == 'query']
+    frames = [fr for frs in out.values() for fr in frs]
+    return {'latency_s': lat, 'polls': polls, 'delta': delta,
+            'groups': groups, 'frames': frames}
+
+
+def _subscribe_checks(cli, ck, tserver, tclient, srv, cases, head,
+                      last_day, idx, seed, readers, publish_t,
+                      mod_integrity):
+    import threading
+    import torch
+    doc = {}
+    sock = srv.socket_path
+    check(srv.wait_prewarm(SUB_WAIT_S) is not None,
+          'subscribe: the pre-warm did not report')
+    t0 = time.monotonic()
+    reqs = {c: sub_request(cli, qargs, SUB_DS) for c, qargs in cases.items()}
+    for i in range(SUB_CLIENTS):
+        readers.append(FrameReader(tclient, sock, dict(reqs['b']),
+                                   'b#%d' % i))
+    readers.append(FrameReader(tclient, sock, dict(reqs['d']), 'd#0'))
+    readers.append(FrameReader(
+        tclient, sock, {'op': 'subscribe', 'watch': 'fleet',
+                        'interval_ms': SUB_FLEET_INTERVAL_MS}, 'fleet'))
+    seed_payload = {}
+    for r in readers:
+        t, fr = r.wait(lambda fr: fr['seq'] == 1, 'its seed frame')
+        seed_payload[r.label] = fr['payload']
+    seed_s = time.monotonic() - t0
+    for case, qargs in cases.items():
+        rc, text, err, _ = served(tserver, cli, ['query', '--remote',
+                                                 sock] + qargs + [SUB_DS])
+        check(rc == 0, 'subscribe: poll (%s) failed: %s' % (case, err))
+        seeds = {seed_payload[r.label] for r in readers
+                 if r.label.split('#')[0] == case}
+        check(seeds == {text.encode()}, 'subscribe: the seed frames of '
+              '(%s) differ from the poll' % case)
+    log('subscribe seed: %d subscribers on (b), 1 on (d), 1 fleet watch; '
+        'seed frames in %.2f s, each = a query --remote poll'
+        % (SUB_CLIENTS, seed_s))
+    doc['seed_s'] = seed_s
+
+    # the in-process publish: two new hour shards built through the
+    # server (DeviceScanStack on the card: K1 once per batch)
+    before, _ = _sub_counters(tclient, sock)
+    gen_s = append_records(head, SUB_APPEND_RECORDS, seed + 14)
+    del publish_t[:]
+    marks = {r.label: r.mark() for r in readers}
+    rc, out, err, build_s = served(tserver, cli, [
+        'build', '--remote', sock, '--interval=hour',
+        '--after', SUB_AFTER, '--before', SUB_BEFORE, SUB_DS])
+    check(rc == 0 and err == 'indexes for "%s" built\n' % SUB_DS,
+          'subscribe: build --remote failed: %s' % err[-300:])
+    check(publish_t, 'subscribe: the build fired no write hook')
+    rnd = _publish_round('in-process', tserver, cli, tclient, srv, cases,
+                         readers, marks, publish_t[-1], before)
+    recomputes = [g['recomputes'] for g in rnd['groups']]
+    check(rnd['delta']['recomputes'] == len(cases) and
+          recomputes == [2] * len(cases),
+          'subscribe: the in-process publish cost %d recomputes (groups '
+          '%r), not one per group' % (rnd['delta']['recomputes'],
+                                      recomputes))
+    check(rnd['delta']['shards_folded'] == SUB_HOURS * len(cases),
+          'subscribe: %d shards folded, not the %d hours\' per group'
+          % (rnd['delta']['shards_folded'], SUB_HOURS))
+    doc['in_process'] = _round_doc(rnd, build_s, gen_s)
+    _log_round('in-process (build --remote, %d records appended)'
+               % SUB_APPEND_RECORDS, doc['in_process'])
+
+    # the day rebuild: the month's last day, in process as well
+    before, _ = _sub_counters(tclient, sock)
+    gen_s = append_records(last_day, SUB_DAY_RECORDS, seed + 16,
+                           SUB_DAY_AFTER, SUB_DAY_BEFORE)
+    del publish_t[:]
+    marks = {r.label: r.mark() for r in readers}
+    k1_before = ck.launches['onehot_dense']
+    rc, out, err, build_s = served(tserver, cli, [
+        'build', '--remote', sock, '--interval=hour',
+        '--after', SUB_DAY_AFTER, '--before', SUB_DAY_BEFORE, SUB_DS])
+    check(rc == 0 and err == 'indexes for "%s" built\n' % SUB_DS,
+          'subscribe: the day rebuild failed: %s' % err[-300:])
+    day_k1 = ck.launches['onehot_dense'] - k1_before
+    check(publish_t, 'subscribe: the day rebuild fired no write hook')
+    rnd = _publish_round('day rebuild', tserver, cli, tclient, srv, cases,
+                         readers, marks, publish_t[-1], before)
+    check(rnd['delta']['recomputes'] == len(cases),
+          'subscribe: the day rebuild cost %d recomputes, not one per '
+          'group' % rnd['delta']['recomputes'])
+    check(0 < rnd['delta']['shards_folded'] <= SUB_DAY_SHARDS * len(cases),
+          'subscribe: the day rebuild folded %d shards, past the day\'s '
+          '%d per group' % (rnd['delta']['shards_folded'], SUB_DAY_SHARDS))
+    doc['day_rebuild'] = _round_doc(rnd, build_s, gen_s)
+    doc['day_rebuild']['k1_launches'] = day_k1
+    _log_round('day rebuild (build --remote of %s, %d records appended)'
+               % (SUB_DAY_AFTER[:10], SUB_DAY_RECORDS), doc['day_rebuild'])
+    log('subscribe day rebuild: K1 %d launches (the caps of a day\'s '
+        'window pass 4,096 segments)' % day_k1)
+    b_after = rnd['polls']['b'][0]
+
+    # `dn subscribe --frames 2` across the cross-process publish (its
+    # seed, then that push), `dn top --once`, `stats --cluster --prom`
+    sub_cli = {}
+
+    def run_sub_cli():
+        sub_cli['r'] = served(tserver, cli, [
+            'subscribe', '--remote', sock, '--frames', '2'] +
+            cases['b'] + [SUB_DS])
+    cli_thread = threading.Thread(target=run_sub_cli, daemon=True)
+    cli_thread.start()
+    before, _ = _sub_counters(tclient, sock)
+    deadline = time.monotonic() + SUB_WAIT_S
+    while _sub_counters(tclient, sock)[0]['pushes'] == before['pushes']:
+        # its seed frame is the push that follows its registration
+        check(time.monotonic() < deadline,
+              'subscribe: dn subscribe got no seed frame')
+        time.sleep(0.05)
+    before, _ = _sub_counters(tclient, sock)
+    marks = {r.label: r.mark() for r in readers}
+    gen_s = append_records(head, SUB_XPROC_RECORDS, seed + 15)
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, '-m', 'dragnet_tpu_torch', 'build',
+         '--interval=hour', '--after', SUB_AFTER,
+         '--before', SUB_BEFORE, SUB_DS], cwd=here,
+        env=dict(os.environ, DN_ENGINE='jax'),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        timeout=600)
+    xbuild_s = time.monotonic() - t0
+    check(proc.returncode == 0, 'subscribe: the cross-process build '
+          'failed: %s' % proc.stderr[-300:])
+    t_pub = os.stat(mod_integrity.catalog_path(idx)).st_mtime
+    rnd = _publish_round('cross-process', tserver, cli, tclient, srv,
+                         cases, readers, marks, t_pub, before)
+    check(rnd['delta']['recomputes'] == len(cases),
+          'subscribe: the cross-process publish cost %d recomputes, not '
+          'one per group (0: the revalidation tick missed it)'
+          % rnd['delta']['recomputes'])
+    doc['cross_process'] = _round_doc(rnd, xbuild_s, gen_s)
+    _log_round('cross-process (a build by another process, %d records '
+               'appended)' % SUB_XPROC_RECORDS, doc['cross_process'])
+    cli_thread.join(SUB_WAIT_S)
+    check('r' in sub_cli, 'subscribe: dn subscribe --frames 2 never ended')
+    rc, text, err, dt = sub_cli['r']
+    lines = [json.loads(ln) for ln in text.splitlines()]
+    # its seed, then a frame the (b) subscribers were pushed too
+    pushed_b = {fr['payload'] for t, fr in
+                readers[0].frames[marks[readers[0].label]:]}
+    check(rc == 0 and len(lines) == 2 and
+          lines[0]['payload'].encode() == b_after and
+          lines[1]['payload'].encode() in pushed_b,
+          'subscribe: dn subscribe --frames 2 gave rc %d, %d lines: %s'
+          % (rc, len(lines), err[-300:]))
+    rc, top, err, _ = served(tserver, cli, ['top', '--remote', sock,
+                                            '--once'])
+    check(rc == 0 and 'members 1/1 up' in top and
+          'device resid hit' in top,
+          'subscribe: dn top --once: rc %d\n%s%s' % (rc, top, err))
+    rc, prom, err, _ = served(tserver, cli, ['stats', '--cluster',
+                                             '--prom', '--remote', sock])
+    check(rc == 0 and 'dn_fleet_members_up 1' in prom and
+          'dn_fleet_subscriptions ' in prom,
+          'subscribe: stats --cluster --prom: rc %d: %s' % (rc, err))
+    hist = tclient.stats(sock)['history']
+    qps = [k for k in hist['series'] if k.startswith(
+        'serve_op_latency_ms') and k.endswith(':count')]
+    check(hist['enabled'] and qps and 'serve.requests' in hist['series'],
+          'subscribe: /stats history has no qps series: %r'
+          % sorted(hist['series'])[:20])
+    fleet = [r for r in readers if r.label == 'fleet'][0]
+    nfleet = len(fleet.frames)
+    check(nfleet >= 2, 'subscribe: %d fleet frames' % nfleet)
+    log('subscribe front ends: dn subscribe --frames 2 (%d JSONL lines, '
+        'the second = the poll); dn top --once:\n%s'
+        % (len(lines), '\n'.join('    ' + ln for ln in
+                                 top.rstrip('\n').splitlines()[:6])))
+    log('subscribe fleet: %d fleet-watch frames; stats --cluster --prom '
+        '%d dn_fleet_* lines; history: %d samples, %d series, qps %s'
+        % (nfleet, sum(1 for ln in prom.splitlines()
+                       if ln.startswith('dn_fleet_')),
+           hist['samples'], hist['nseries'],
+           ', '.join('%s rate_1m %s' % (k, hist['series'][k]['rate_1m'])
+                     for k in qps)))
+    doc['front_ends'] = {'subscribe_lines': len(lines),
+                         'top_lines': len(top.splitlines()),
+                         'fleet_frames': nfleet,
+                         'prom_fleet_lines': sum(
+                             1 for ln in prom.splitlines()
+                             if ln.startswith('dn_fleet_')),
+                         'history_samples': hist['samples']}
+    doc['counters'] = _sub_counters(tclient, sock)[0]
+    torch.cuda.synchronize()
+    return doc
+
+
+def _round_doc(rnd, build_s, gen_s):
+    lat = rnd['latency_s']
+    frames = rnd['frames']
+    return {'build_s': build_s, 'append_s': gen_s,
+            'push_latency_s': {'p50': percentile(lat, 0.5),
+                               'max': max(lat), 'n': len(lat)},
+            'frames': {'full': sum(1 for f in frames
+                                   if f['kind'] == 'full'),
+                       'delta': sum(1 for f in frames
+                                    if f['kind'] == 'delta'),
+                       'payload_bytes': sorted({len(f['payload'])
+                                                for f in frames})},
+            'poll_s': {c: p[1] for c, p in rnd['polls'].items()},
+            'recomputes': rnd['delta']['recomputes'],
+            'shards_folded': rnd['delta']['shards_folded'],
+            'shards_reused': rnd['delta']['shards_reused'],
+            'pushes': rnd['delta']['pushes'],
+            'push_bytes': rnd['delta']['push_bytes'],
+            'frames_full': rnd['delta']['frames_full'],
+            'frames_delta': rnd['delta']['frames_delta']}
+
+
+def _log_round(label, d):
+    log('subscribe %s: build %.2f s (append %.2f s); push latency p50 '
+        '%.4f s max %.4f s over %d subscribers; frames %d full + %d delta '
+        '(payload bytes %s, %d B pushed); recomputes %d, shards folded %d, '
+        'reused %d; polls %s; every frame = the poll'
+        % (label, d['build_s'], d['append_s'],
+           d['push_latency_s']['p50'], d['push_latency_s']['max'],
+           d['push_latency_s']['n'], d['frames']['full'],
+           d['frames']['delta'], d['frames']['payload_bytes'],
+           d['push_bytes'], d['recomputes'], d['shards_folded'],
+           d['shards_reused'],
+           ', '.join('(%s) %.3f s' % kv for kv in sorted(
+               d['poll_s'].items()))))
+
+
 def main_path_keys(ck, captured, reps):
     """Phase 5: the kernel on the fused keys the main path gave it, the
     largest batch of each query at each segment count."""
@@ -4062,6 +4611,8 @@ def main():
                                      args.reps)
         cluster, k9 = cluster_phase(cli, mod_ds, ck, tmp, args.records,
                                     queries['builds_s']['hour'], args.reps)
+        subscribe = subscribe_phase(cli, ck, tmp, args.seed,
+                                    serve['memory'])
     torch.cuda.synchronize()
 
     # 10. the kernel on the main path's own keys, and on uniform keys at
@@ -4103,7 +4654,7 @@ def main():
                        'pipeline': pipeline,
                        'query': queries, 'auto': auto, 'parse': parse,
                        'lifecycle': lifecycle, 'serve': serve,
-                       'cluster': cluster,
+                       'cluster': cluster, 'subscribe': subscribe,
                        'index_kernels': [k7, k7a, k9]}, f, indent=1)
     print(json.dumps({'query': [
         {k: q[k] for k in ('name', 'route', 'points', 'device_s',
@@ -4122,6 +4673,7 @@ def main():
         'prewarm', 'passes', 'scans', 'concurrency', 'write', 'fault',
         'latency_s', 'memory', 'launches', 'wall_s')}}), flush=True)
     print(json.dumps({'cluster': cluster}), flush=True)
+    print(json.dumps({'subscribe': subscribe}), flush=True)
     block = parse['shapes'][0]
     log('smoke: %.1f s' % (time.monotonic() - t_smoke))
     log('gpu: %s' % card)
@@ -4137,6 +4689,7 @@ def main():
         serve['launches']['onehot_dense_from_workers'],
         'cluster_launches': cluster['cluster_launches'],
         'cluster_process_launches': cluster['cluster_process_launches'],
+        'subscribe_launches': subscribe['launches']['onehot_dense'],
         'max_abs_err': max(r['max_abs_err'] for r in results),
         'ms': main['ms'], 'plain_ms': main['plain_ms'],
         'bound_ms': main['bound_ms'], 'bound_by': main['bound_by'],
@@ -4159,8 +4712,10 @@ def main():
          'numpy_ms': block['numpy_ms'],
          'shape': {'n': block['n']}, 'shapes': parse['shapes']}),
         dict(k7, query_launches=sum(q['dispatches'] for q in
-                                    queries['queries'])),
-        k7a, k9]}), flush=True)
+                                    queries['queries']),
+             subscribe_launches=subscribe['launches']['fold']),
+        dict(k7a, subscribe_launches=subscribe['launches']['sums']),
+        k9]}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,
         'count': torch.cuda.device_count()}}), flush=True)

@@ -11,13 +11,15 @@ or device), the host-side index commands `index-read`, `rollup` and
 `datasource-update`, `datasource-remove`, `datasource-list`,
 `datasource-show`, `metric-add`, `metric-list`, `metric-remove` and
 `index-config`; and the resident server: `serve` (serve/server.py, on
-DN_TORCH_DEVICE), `stats` and `events`, with `--remote` and `--trace`
-on `scan`, `query` and `build`.  Option parsing, breakdown expansion,
-warnings (`--warnings`), output and the `-t` timing flag are the
-reference CLI's, so the port prints byte-identical results and writes
-byte-identical index trees, locally and over `--remote`.  `--assetroot`
-on `query`, the cluster options of `serve` and `stats --cluster` are
-not ported: the first is an unknown option (a usage error), the others
+DN_TORCH_DEVICE), `stats` (with `--cluster`, the fleet view of
+serve/fleet.py), `events`, `subscribe` (standing queries,
+serve/subscribe.py) and `top` (serve/top.py), with `--remote` and
+`--trace` on `scan`, `query` and `build`.  Option parsing, breakdown
+expansion, warnings (`--warnings`), output and the `-t` timing flag
+are the reference CLI's, so the port prints byte-identical results and
+writes byte-identical index trees, locally and over `--remote`.
+`--assetroot` on `query` and the cluster options of `serve` are not
+ported: the first is an unknown option (a usage error), the others
 fail naming what is missing.  The configuration is the same file as
 bin/dn's ($DRAGNET_CONFIG or ~/.dragnetrc).
 
@@ -89,8 +91,13 @@ dn rollup            [--tree=INDEX_PATH] [--interval=hour|day]
 dn compact           [--tree=INDEX_PATH] [--interval=hour|day]
                      [--min-gens=N]
 dn serve             --socket=PATH | --port=N [--pidfile=PATH] [--validate]
-dn stats             [--remote=SOCKET|HOST:PORT] [--prom]
+dn stats             [--remote=SOCKET|HOST:PORT] [--prom] [--cluster]
 dn events            [--remote=SOCKET|HOST:PORT] [--follow]
+dn subscribe         --remote=SOCKET|HOST:PORT [--before=START_TIME]
+                     [--after=END_TIME] [--filter=FILTER]
+                     [--breakdowns=BREAKDOWN[,...]] [--raw] [--points]
+                     [--interval=hour|day|all] [--frames=N] DATASOURCE
+dn top               --remote=SOCKET|HOST:PORT [--once] [--subscribe]
 
 scan, build, index-scan, query and follow run on DN_TORCH_DEVICE
 (default: cuda) with the engine DN_ENGINE names: auto (the default: the
@@ -120,6 +127,9 @@ DN_OPTIONS = [
     (['data-format'], 'string', 'json'),
     (['dry-run', 'n'], 'bool', False),
     (['filter', 'f'], 'string', None),
+    # `dn subscribe --frames=N`: exit 0 after N pushed frames (0 =
+    # run until interrupted)
+    (['frames'], 'string', None),
     # `dn events --follow`: keep polling the remote journal
     (['follow'], 'bool', None),
     (['gnuplot'], 'bool', None),
@@ -149,6 +159,9 @@ DN_OPTIONS = [
     (['raw'], 'bool', None),
     (['remote'], 'string', None),
     (['socket'], 'string', None),
+    # `dn top --subscribe`: ride the server's push path (a `watch:
+    # fleet` subscription) instead of polling fleet_stats
+    (['subscribe'], 'bool', None),
     (['time-field'], 'string', None),
     (['time-format'], 'string', None),
     # `dn rollup` / `dn compact`: limit the walk to one index root
@@ -1157,18 +1170,41 @@ def _remote_bytes(remote, req, timeout_s):
 
 
 def cmd_stats(ctx, argv):
-    """`dn stats [--remote SOCK|HOST:PORT] [--prom]`: a resident
-    server's /stats document (or its Prometheus exposition with
-    --prom); without --remote, this process's own metrics registry.
-    `--cluster` (the merged fleet document) needs serve/fleet.py, which
-    is not ported: it fails saying so."""
+    """`dn stats [--remote SOCK|HOST:PORT] [--prom] [--cluster]`: a
+    resident server's /stats document (or its Prometheus exposition
+    with --prom); without --remote, this process's own metrics
+    registry.  `--cluster` (a bare flag here, unlike `dn serve
+    --cluster=FILE`) asks the server for the merged fleet document
+    (serve/fleet.py: the one-member fleet of a single server); with
+    --prom its headline numbers render as a dn_fleet_* exposition."""
     import json as mod_json
+    # --cluster is a bare flag for THIS command but a string option
+    # (topology path) for `dn serve`; the shared option table keys
+    # type by name, so strip it before the parse
     argv = list(argv)
-    if '--cluster' in argv:
-        fatal(DNError('"stats --cluster" is not ported to '
-                      'dragnet_tpu_torch (it needs serve/fleet.py)'))
+    fleet = False
+    while '--cluster' in argv:
+        argv.remove('--cluster')
+        fleet = True
     opts = dn_parse_args(argv, ['remote', 'prom'])
     check_arg_count(opts, 0)
+    if fleet:
+        if not opts.remote:
+            fatal(DNError('"--cluster" requires "--remote" naming '
+                          'any cluster member'))
+        from .serve import fleet as mod_fleet
+        rc, header, out, err = _remote_bytes(opts.remote,
+                                             {'op': 'fleet_stats'},
+                                             60.0)
+        sys.stderr.write(err.decode('utf-8', 'replace'))
+        if rc != 0:
+            return rc
+        if getattr(opts, 'prom', None):
+            doc = mod_json.loads(out.decode('utf-8'))
+            sys.stdout.write(mod_fleet.fleet_prometheus_text(doc))
+        else:
+            sys.stdout.write(out.decode('utf-8', 'replace'))
+        return 0
     if opts.remote:
         op = 'metrics' if getattr(opts, 'prom', None) else 'stats'
         rc, header, out, err = _remote_bytes(opts.remote, {'op': op},
@@ -1244,6 +1280,125 @@ def cmd_events(ctx, argv):
             return 0
 
 
+def cmd_top(ctx, argv):
+    """`dn top --remote SOCK|HOST:PORT [--once]`: the live fleet
+    console (serve/top.py) — polls `fleet_stats` at
+    DN_TOP_INTERVAL_MS and redraws the fleet header, per-member
+    table, and event tail in place.  Degrades to single-process mode
+    against a non-cluster server.  --once prints one frame with no
+    ANSI codes and exits; --subscribe rides the push path (a
+    `watch: fleet` subscription) and falls back to polling against a
+    server that cannot push."""
+    opts = dn_parse_args(argv, ['remote', 'once', 'subscribe'])
+    check_arg_count(opts, 0)
+    if not opts.remote:
+        raise UsageError('"--remote" is required for "top"')
+    obs_conf = mod_config.obs_config()
+    if isinstance(obs_conf, DNError):
+        fatal(obs_conf)
+    from .serve import top as mod_top
+    try:
+        return mod_top.top_main(opts.remote,
+                                obs_conf['top_interval_ms'],
+                                once=bool(getattr(opts, 'once',
+                                                  None)),
+                                subscribe=bool(getattr(opts,
+                                                       'subscribe',
+                                                       None)))
+    except KeyboardInterrupt:
+        return 0
+
+
+def cmd_subscribe(ctx, argv):
+    """`dn subscribe --remote SOCK|HOST:PORT [QUERY OPTIONS]
+    [--frames=N] DATASOURCE`: register a standing query on the server
+    (serve/subscribe.py) and stream pushed result frames as JSONL —
+    one JSON object per frame with kind/seq/epoch/payload/token.  The
+    payload at epoch E is byte-identical to `dn query --remote` at
+    epoch E; the token in each frame resumes the stream after a
+    disconnect without a reseed when the result is unchanged.
+    --frames=N exits 0 after N pushed frames (the seed counts)."""
+    opts = dn_parse_args(argv, ['before', 'after', 'filter',
+                                'breakdowns', 'raw', 'points',
+                                'interval', 'remote', 'frames'])
+    check_arg_count(opts, 1)
+    dsname = opts._args[0]
+    if not opts.remote:
+        raise UsageError('"--remote" is required for "subscribe"')
+    nframes = 0
+    if getattr(opts, 'frames', None) is not None:
+        try:
+            nframes = int(opts.frames)
+        except ValueError:
+            nframes = -1
+        if nframes < 0:
+            fatal(DNError('"--frames" expects a non-negative '
+                          'integer, got "%s"' % opts.frames))
+    # validates the query flags locally (same contract as cmd_query)
+    # before shipping the doc
+    dn_query_config(opts)
+    req = {
+        'op': 'subscribe', 'ds': dsname,
+        'interval': opts.interval,
+        'queryconfig': dn_query_doc(opts),
+        'opts': {'raw': bool(getattr(opts, 'raw', None)),
+                 'points': bool(getattr(opts, 'points', None))},
+        'config': ctx['backend'].cbl_path,
+    }
+    import json as mod_json
+    import time as mod_time
+    from .serve import client as mod_serve_client
+    from .serve.client import (SubscribeUnsupported,
+                               RemoteTransportError)
+
+    def emit(frame):
+        line = mod_json.dumps({
+            'kind': frame['kind'],
+            'seq': frame['seq'],
+            'epoch': frame['epoch'],
+            'payload': frame['payload'].decode('utf-8',
+                                               'replace'),
+            'token': frame['token'],
+        }, sort_keys=True)
+        sys.stdout.write(line + '\n')
+        sys.stdout.flush()
+
+    resume = None
+    emitted = 0
+    failures = 0
+    while True:
+        stream = mod_serve_client.subscribe_stream(
+            opts.remote, dict(req), resume=resume)
+        try:
+            for frame in stream:
+                failures = 0
+                resume = (frame['token'], frame['payload'])
+                # a resume-matched 'current' frame repeats bytes the
+                # consumer already has — refresh the token, skip the
+                # line (and the --frames budget)
+                if frame['kind'] != 'current':
+                    emit(frame)
+                    emitted += 1
+                if nframes and emitted >= nframes:
+                    return 0
+            return 0  # server sent a clean 'end' frame
+        except SubscribeUnsupported as e:
+            sys.stderr.write('dn: %s\n' % e.message)
+            return 1
+        except RemoteTransportError:
+            failures += 1
+            if failures > 5 or resume is None:
+                raise FatalError('subscription stream lost and '
+                                 'reconnect failed')
+            mod_time.sleep(min(2.0, 0.1 * (2 ** failures)))
+        except DNError as e:
+            fatal(e)
+        except KeyboardInterrupt:
+            return 0
+        finally:
+            stream.close()
+
+
 def _serve_configs():
     """Every knob `dn serve` reads, validated (a malformed value is
     fatal), and the unported ones refused."""
@@ -1256,13 +1411,13 @@ def _serve_configs():
                      ('integrity', mod_config.integrity_config),
                      ('resources', mod_config.resources_config),
                      ('device', mod_config.device_config),
-                     ('index_device', mod_config.index_device_config)):
+                     ('index_device', mod_config.index_device_config),
+                     ('subscribe', mod_config.subscribe_config)):
         conf = fn()
         if isinstance(conf, DNError):
             fatal(conf)
         confs[name] = conf
-    err = mod_server.check_unported_knobs(confs['integrity'],
-                                          confs['obs'])
+    err = mod_server.check_unported_knobs(confs['integrity'])
     if err is not None:
         fatal(err)
     return confs
@@ -1335,6 +1490,11 @@ def cmd_serve(ctx, argv):
              else 'off', len(obs_conf['buckets'])))
         w('events ok: events=%d events_file=%s\n'
           % (obs_conf['events'], obs_conf['events_file'] or 'off'))
+        sub_conf = confs['subscribe']
+        w('subscribe config ok: max=%d coalesce_ms=%d queue_depth=%d '
+          'delta_pct=%d\n'
+          % (sub_conf['max'], sub_conf['coalesce_ms'],
+             sub_conf['queue_depth'], sub_conf['delta_pct']))
         w('integrity config ok: verify=%s\n' % integ_conf['verify'])
         w('resources config ok: disk_low_pct=%g disk_critical_pct=%g '
           'poll_ms=%d mem_budget_mb=%d fd_headroom=%d '
@@ -1396,6 +1556,8 @@ COMMANDS = {
     'serve': cmd_serve,
     'stats': cmd_stats,
     'events': cmd_events,
+    'subscribe': cmd_subscribe,
+    'top': cmd_top,
 }
 
 
@@ -1418,6 +1580,7 @@ def main(argv=None, startup=None):
         t0, require_s = startup[0], startup[1]
 
     rv = None
+    ok = False
     try:
         if len(argv) < 1:
             raise UsageError('no command specified')
@@ -1431,6 +1594,7 @@ def main(argv=None, startup=None):
             fatal(err)
         ctx = {'backend': backend, 'config': config}
         rv = COMMANDS[cmdname](ctx, argv[1:])
+        ok = True
     except UsageError as e:
         if e.message:
             sys.stderr.write('%s: %s\n' % (ARG0, e.message))
@@ -1441,6 +1605,13 @@ def main(argv=None, startup=None):
         return 1
     except BrokenPipeError:
         return 0
+    finally:
+        # a cluster command's process group ends here, in order, on
+        # success and on an error exit alike (a no-op without one); a
+        # failed command waits only briefly for its peers, which may
+        # sit in a collective it never reached
+        from .parallel import distributed as mod_dist
+        mod_dist.shutdown(orderly=ok)
 
     if track_time:
         sys.stderr.write('timing stats:\n')

@@ -8,8 +8,8 @@ validates: DN_FOLLOW_* (follow_config) and the observability knobs
 (obs_config), and the knobs `dn serve` validates: DN_SERVE_*
 (serve_config), DN_REMOTE_* (remote_config), DN_VERIFY/DN_SCRUB_*
 (integrity_config) and the index query's device lane
-(index_device_config).  The cluster, topology and subscription knobs
-are not ported.
+(index_device_config), and the standing-query knobs DN_SUB_*
+(subscribe_config).  The cluster and topology knobs are not ported.
 Re-implements lib/config-common.js (clone-on-write
 DragnetConfig, versioned vmaj/vmin 0.0, schema-validated load) and
 lib/config-local.js (JSON file at $DRAGNET_CONFIG or
@@ -351,6 +351,10 @@ _SERVE_KNOBS = [
     # fair-dequeue weight for tenants not named in
     # DN_SERVE_TENANT_WEIGHTS
     ('DN_SERVE_TENANT_DEFAULT_WEIGHT', 'int', 1, 1),
+    # per-member fetch bound for the fleet_stats scatter
+    # (serve/fleet.py): a dead member costs the fleet view at most
+    # this long and shows up as unreachable, never a hang
+    ('DN_SERVE_FLEET_TIMEOUT_S', 'int', 5, 1),
     # query-result cache byte budget (MB; serve/qcache.py): repeated
     # identical queries answer from memory, invalidated on any index
     # write and bounded against the SAME budget
@@ -389,7 +393,7 @@ def serve_config(env=None):
     """The resolved DN_SERVE_* knob dict (keys: max_inflight,
     queue_depth, deadline_ms, coalesce, drain_s, read_deadline_ms,
     write_deadline_ms, idle_ms, tenant_quota, tenant_default_weight,
-    tenant_weights, cache_mb), or DNError on the
+    tenant_weights, fleet_timeout_s, cache_mb), or DNError on the
     first malformed value — 'DN_SERVE_X: expected ..., got "v"'."""
     if env is None:
         env = os.environ
@@ -423,6 +427,59 @@ def serve_config(env=None):
         if isinstance(weights, DNError):
             return weights
         rv['tenant_weights'] = weights
+    return rv
+
+
+# --- standing-query subscription knobs (DN_SUB_*) ---------------------
+#
+# Same contract as the serve knobs: parsed and validated in one place
+# (serve/subscribe.py consumes them; `dn serve --validate` checks them
+# up front).  Each entry: (env name, kind, default, min).
+
+_SUB_KNOBS = [
+    # registered subscriptions across the process; 0 disables the
+    # subsystem (subscribe requests answer a clean error)
+    ('DN_SUB_MAX', 'int', 64, 0),
+    # the push-coalesce latency: how long a dirty standing query
+    # waits for more publishes before recomputing and pushing (the
+    # target publish-to-push bound), and the cadence at which
+    # cross-process writes are detected via the tree validators
+    ('DN_SUB_COALESCE_MS', 'int', 250, 10),
+    # unacked frames a subscriber may have outstanding before the
+    # manager stops pushing to IT (degrading to one coalesced full
+    # frame when its acks catch up) — the backpressure bound that
+    # keeps one stalled dashboard from queueing unbounded frames
+    ('DN_SUB_QUEUE_DEPTH', 'int', 4, 1),
+    # deltas are only worth the patch bookkeeping when they shrink
+    # the frame: send a delta only if the inserted span is at most
+    # this percentage of the full payload (0 disables deltas —
+    # every push is a full frame)
+    ('DN_SUB_DELTA_PCT', 'int', 50, 0),
+]
+
+
+def subscribe_config(env=None):
+    """The resolved DN_SUB_* knob dict (keys: max, coalesce_ms,
+    queue_depth, delta_pct), or DNError on the first malformed value
+    — 'DN_SUB_X: expected ..., got "v"'."""
+    if env is None:
+        env = os.environ
+    rv = {}
+    for name, kind, default, minimum in _SUB_KNOBS:
+        key = name[len('DN_SUB_'):].lower()
+        raw = env.get(name)
+        if raw is None or raw == '':
+            rv[key] = default
+            continue
+        try:
+            value = int(raw)
+        except ValueError:
+            return DNError('%s: expected an integer >= %d, got "%s"'
+                           % (name, minimum, raw))
+        if value < minimum:
+            return DNError('%s: expected an integer >= %d, got "%s"'
+                           % (name, minimum, raw))
+        rv[key] = value
     return rv
 
 

@@ -427,6 +427,47 @@ def sweep_index_tree(indexroot):
     return result
 
 
+def publish_in_flight(indexroot, stale_s, ignore_pid=None):
+    """Whether another live process is part way through a publish
+    under `indexroot`: one of its tmps (written from the prepare phase
+    on) or its commit journal (retired after the renames and the
+    catalog) is on disk and was written within the last `stale_s`
+    seconds.  A reader that watches the tree's stat identities
+    (serve/subscribe.py's revalidation tick) waits for such a publish
+    to land instead of walking a tree that is still changing.  Residue
+    of `ignore_pid`, and residue older than `stale_s` (what a publish
+    whose renames failed leaves in place, until its process publishes
+    again or dies), holds nothing: a process's own publishes signal
+    themselves, and a wait on a publish that never lands would have no
+    end."""
+    indexroot = os.path.abspath(indexroot)
+    oldest = time.time() - stale_s
+    for sub in ('', 'by_day', 'by_hour', FOLLOW_DIR) + ROLLUP_SUBDIRS:
+        d = os.path.join(indexroot, sub) if sub else indexroot
+        try:
+            names = os.listdir(d)
+        except OSError:
+            continue
+        for name in names:
+            if name.startswith(JOURNAL_PREFIX):
+                # .dn_build.<pid>.<seq>.json (or its .tmp)
+                parts = name.split('.')
+                pid = int(parts[2]) if len(parts) > 2 and \
+                    parts[2].isdigit() else None
+            elif _TMP_RE.match(name) is not None:
+                pid = _tmp_owner_pid(name)
+            else:
+                continue
+            if pid is None or pid == ignore_pid or not _pid_alive(pid):
+                continue
+            try:
+                if os.stat(os.path.join(d, name)).st_mtime >= oldest:
+                    return True
+            except OSError:
+                continue        # renamed or retired since the listing
+    return False
+
+
 def cleanup_own_stale(indexroot):
     """Retire THIS process's leftover commit journals under
     `indexroot` — the residue of an earlier publish whose rename

@@ -433,6 +433,15 @@ def _stat_ttl():
     return ttl
 
 
+def stat_ttl_s():
+    """The handle-cache stat TTL in seconds — the bound on how stale
+    a process that did NOT observe a write (no in-process hook) can
+    read the tree.  Consumers that must outwait another process's
+    staleness window (serve/subscribe.py's confirm delay) schedule
+    past this."""
+    return _stat_ttl()
+
+
 def _statkey(path):
     try:
         st = os.stat(path)

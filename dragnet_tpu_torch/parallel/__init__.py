@@ -12,8 +12,8 @@ jax.sharding.Mesh; the port keeps its shape on torch:
   partials merge by sum or min on the first device (K9's merge, torch
   ops),
 * distributed.py: DN_COORDINATOR / DN_NUM_PROCESSES / DN_PROCESS_ID
-  start a gloo process group; each process scans its slice of the found
-  files,
+  start a gloo process group, and shutdown() ends it in order; each
+  process scans its slice of the found files,
 * cluster.py: the cluster datasource, whose processes exchange
   serialized points (host data, so gloo carries them) and merge them
   in process order.

@@ -288,13 +288,19 @@ def _allgather_bytes(payload):
         if payload else torch.zeros(0, dtype=torch.uint8)
     mylen = torch.tensor([data.numel()], dtype=torch.int64)
     lens = [torch.zeros(1, dtype=torch.int64) for _ in range(nprocs)]
-    dist.all_gather(lens, mylen)
-    maxlen = max(int(x[0]) for x in lens)
-    padded = torch.zeros(maxlen, dtype=torch.uint8)
-    padded[:data.numel()] = data
-    gathered = [torch.zeros(maxlen, dtype=torch.uint8)
-                for _ in range(nprocs)]
-    dist.all_gather(gathered, padded)
+    try:
+        dist.all_gather(lens, mylen)
+        maxlen = max(int(x[0]) for x in lens)
+        padded = torch.zeros(maxlen, dtype=torch.uint8)
+        padded[:data.numel()] = data
+        gathered = [torch.zeros(maxlen, dtype=torch.uint8)
+                    for _ in range(nprocs)]
+        dist.all_gather(gathered, padded)
+    except RuntimeError as e:
+        # a peer that failed on its own side ends the group under
+        # this process: report it as the command's error
+        raise DNError('cross-process merge failed (did another '
+                      'process fail?): %s' % (e,))
     allgather_stats['calls'] += 1
     allgather_stats['bytes'] += 8 + maxlen
     allgather_stats['seconds'] += time.perf_counter() - t0

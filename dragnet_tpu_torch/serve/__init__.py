@@ -16,9 +16,11 @@ protocol with byte-identical output framing.  Modules:
 * protocol.py  — wire framing (v1 and multiplexed v2)
 * ioloop.py    — the selector connection front end
 * pool.py      — pooled persistent multiplexed client connections
+* subscribe.py — standing queries: pushed result frames per publish
+* fleet.py     — the fleet document (here the one-member fleet)
+* top.py       — `dn top`, the terminal console over the fleet view
 
-The cluster modules (topology, router, coordinator, rebalance), the
-standing queries (subscribe), the fleet view (fleet, top) and the
+The cluster modules (topology, router, coordinator, rebalance) and the
 scrub and maintenance threads (scrub) are not ported; the server
 refuses every knob and op that would reach them.
 

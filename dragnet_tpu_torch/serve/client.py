@@ -404,6 +404,127 @@ def stats(remote, timeout_s=5.0):
     return json.loads(out.decode('utf-8'))
 
 
+class SubscribeUnsupported(DNError):
+    """The endpoint cannot serve a standing query (a v1 server, a
+    pre-push v2 server, or DN_SUB_MAX=0): the caller's correct move
+    is falling back to polling."""
+
+
+def subscribe_stream(remote, req, timeout_s=None, resume=None):
+    """Register the standing query `req` on a DEDICATED v2 connection
+    and yield one dict per pushed frame: ``{'kind', 'sub', 'seq',
+    'epoch', 'payload', 'token'}`` with ``payload`` always the FULL
+    reconstructed result bytes (delta frames are spliced here, against
+    the previous frame's payload — protocol.apply_delta).  Each data
+    frame is acked before the next is read, which is the backpressure
+    contract: a consumer that stops iterating stops acking, and the
+    server degrades it without wedging anyone else.
+
+    The connection is deliberately NOT the shared pool: push frames
+    are server-initiated and the pool's demux treats unsolicited
+    frames as protocol noise.  `resume` is (token, last_payload) from
+    a previous stream's final frame; a server holding byte-identical
+    state answers 'current' and resumes deltas against it with no
+    re-seed.  Raises SubscribeUnsupported against a pre-push or v1
+    endpoint (fallback is safe), DNError on a rejected registration,
+    and RemoteTransportError when the stream dies mid-push (reconnect
+    with the resume token)."""
+    from . import protocol as mod_protocol
+    conf = retry_conf()
+    if timeout_s is None:
+        timeout_s = _default_timeout_s()
+    req = dict(_annotate(req), op='subscribe')
+    token = payload = None
+    if resume is not None:
+        token, payload = resume
+        req['resume'] = token
+    sock = _connect(remote, timeout_s, conf['connect_timeout_s'])
+    try:
+        sock.sendall(mod_protocol.encode_request(req, 1))
+        f = sock.makefile('rb')
+        line = f.readline()
+        if not line:
+            raise OSError('server closed the connection before '
+                          'responding')
+        header = json.loads(line.decode('utf-8'))
+        out = b''.join(_read_exact(f, header.get('nout', 0)))
+        err = b''.join(_read_exact(f, header.get('nerr', 0)))
+        if header.get('id') is None:
+            # a v1 server answered (and closed): it can never push
+            raise SubscribeUnsupported(
+                'endpoint speaks protocol 1; subscriptions need a '
+                'persistent v2 connection')
+        if int(header.get('rc', 1)) != 0:
+            msg = err.decode('utf-8', 'replace').strip()
+            if 'unsupported request op' in msg or \
+                    'subscriptions disabled' in msg:
+                raise SubscribeUnsupported(msg or 'subscriptions '
+                                           'unsupported')
+            e = DNError(msg or 'subscribe rejected')
+            e.retryable = bool(header.get('retryable'))
+            raise e
+        reg = json.loads(out.decode('utf-8'))
+        sid = reg['sub']
+        resumed = bool(reg.get('resumed'))
+        if resumed and payload is not None:
+            yield {'kind': 'current', 'sub': sid,
+                   'seq': reg.get('seq', 0), 'epoch': reg['epoch'],
+                   'payload': payload, 'token': reg.get('token')}
+        else:
+            payload = None        # a full seed frame is on its way
+        rid = 1
+        while True:
+            line = f.readline()
+            if not line:
+                raise RemoteTransportError(
+                    'subscription stream interrupted (reconnect '
+                    'with the resume token)')
+            header = json.loads(line.decode('utf-8'))
+            body = b''.join(_read_exact(f, header.get('nout', 0)))
+            b''.join(_read_exact(f, header.get('nerr', 0)))
+            if mod_protocol.classify_frame(header) == 'response':
+                # an ack's answer; a failed ack means the server no
+                # longer knows us — resync by reconnecting
+                if int(header.get('rc', 1)) != 0:
+                    raise RemoteTransportError(
+                        'subscription ack rejected: %s'
+                        % body.decode('utf-8', 'replace').strip())
+                continue
+            kind = header.get('kind')
+            stats = header.get('stats') or {}
+            if kind == 'end':
+                return
+            if kind == 'delta':
+                patch = stats.get('delta') or {}
+                if payload is None:
+                    raise RemoteTransportError(
+                        'delta frame without a base payload')
+                payload = mod_protocol.apply_delta(
+                    payload, patch.get('off'), patch.get('keep'),
+                    body)
+            else:
+                payload = body
+            seq = header.get('seq')
+            yield {'kind': kind, 'sub': sid, 'seq': seq,
+                   'epoch': header.get('epoch'), 'payload': payload,
+                   'token': stats.get('token')}
+            rid += 1
+            try:
+                sock.sendall(mod_protocol.encode_request(
+                    {'op': 'sub_ack', 'sub': sid, 'seq': seq}, rid))
+            except OSError:
+                # the server may be gone with frames still buffered
+                # (a drain pushes 'end' THEN closes): the ack is
+                # advisory — keep reading; the 'end' frame or EOF
+                # resolves the stream
+                pass
+    except (OSError, ValueError) as e:
+        raise RemoteTransportError(
+            'subscription stream failed: %s' % e)
+    finally:
+        sock.close()
+
+
 def health(remote, timeout_s=5.0):
     """A health probe: the parsed health document, or {'ok': False,
     'error': ...} — what a scatter-gather router polls to pick live

@@ -103,12 +103,16 @@ class IOLoop(object):
     by returning False (fault injection)."""
 
     def __init__(self, listener, conf, on_request, on_overflow=None,
-                 on_accept=None, log=None):
+                 on_accept=None, on_close=None, log=None):
         self.listener = listener
         self.conf = conf
         self.on_request = on_request
         self.on_overflow = on_overflow
         self.on_accept = on_accept
+        # on_close(conn) fires on the loop thread for every closed
+        # connection — how a SubscriptionManager learns its peer died
+        # (serve/subscribe.py).  Must be quick and must not raise.
+        self.on_close = on_close
         self.log = log
         self._sel = selectors.DefaultSelector()
         listener.setblocking(False)
@@ -474,3 +478,8 @@ class IOLoop(object):
             conn.sock.close()
         except OSError:
             pass
+        if self.on_close is not None:
+            try:
+                self.on_close(conn)
+            except Exception:
+                pass

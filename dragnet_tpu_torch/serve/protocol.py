@@ -31,8 +31,9 @@ dial-per-request.  A v2 server serves requests WITHOUT ``proto``
 exactly as v1 did, byte-identically, so old clients keep working.
 
 This module holds the frame encode/decode helpers and the incremental
-line splitter both sides share (the reference's server-initiated push
-frames and their delta codec go with `dn subscribe`, not ported yet); the server's readiness loop lives in
+line splitter both sides share, and the server-initiated push frames
+of `dn subscribe` (serve/subscribe.py) with their byte-delta codec;
+the server's readiness loop lives in
 ioloop.py and the client's connection pool in pool.py.
 """
 
@@ -76,6 +77,41 @@ def encode_request(req, rid):
                       sort_keys=True).encode('utf-8') + b'\n'
 
 
+def encode_push(sub, seq, epoch, kind, payload=b'', extra=None):
+    """One SERVER-INITIATED push frame (bytes) for subscription `sub`
+    (`dn subscribe`, serve/subscribe.py).  Same newline-JSON header +
+    byte-counted payload shape as a response, but carrying ``sub``
+    (the subscription id) INSTEAD of a request ``id`` — that absence
+    is the discriminator: a client frame with ``id`` answers a
+    request it sent, a frame with ``sub`` is the server talking
+    first.  ``kind`` is 'full' (payload = the complete rendered
+    result bytes), 'delta' (payload = the inserted span; `extra`
+    carries the patch doc), 'current' (resume matched — no payload),
+    or 'end' (the server is dropping the subscription; `extra`
+    carries the reason).  v1 connections can never receive one:
+    registration itself requires a v2 frame (server.py rejects a v1
+    subscribe before a subscription exists)."""
+    header = {'proto': PROTO_V2, 'sub': sub, 'seq': seq,
+              'epoch': epoch, 'kind': kind, 'ok': True, 'rc': 0,
+              'nout': len(payload), 'nerr': 0,
+              'stats': extra or {}}
+    return (json.dumps(header, sort_keys=True).encode('utf-8') +
+            b'\n' + payload)
+
+
+def classify_frame(header):
+    """Client-side demux of one received header dict: 'push' for a
+    server-initiated subscription frame (``sub`` present, no request
+    ``id``), 'response' for an answer to a request this side sent.
+    A frame carrying BOTH is malformed — the connection is out of
+    sync."""
+    has_id = header.get('id') is not None
+    has_sub = header.get('sub') is not None
+    if has_id and has_sub:
+        raise FrameError('frame carries both "id" and "sub"')
+    return 'push' if has_sub else 'response'
+
+
 def encode_response(rc, out, err, extra, proto=1, rid=None):
     """One response frame: the JSON header line plus the stdout and
     stderr payload bytes.  `extra` rides as the header's `stats`
@@ -91,6 +127,96 @@ def encode_response(rc, out, err, extra, proto=1, rid=None):
         header['id'] = rid
     return (json.dumps(header, sort_keys=True).encode('utf-8') +
             b'\n' + out + err)
+
+
+class LineBuffer(object):
+    """Incremental newline-frame splitter: feed() raw chunks, take()
+    complete lines.  Raises FrameError when a line exceeds
+    MAX_FRAME_BYTES without terminating — the only honest move left
+    is closing the connection."""
+
+    __slots__ = ('_buf', 'max_bytes')
+
+    def __init__(self, max_bytes=MAX_FRAME_BYTES):
+        self._buf = bytearray()
+        self.max_bytes = max_bytes
+
+    def feed(self, data):
+        self._buf.extend(data)
+
+    def take(self):
+        """Every complete line currently buffered (without the
+        trailing newline), leaving any partial tail in place."""
+        lines = []
+        while True:
+            nl = self._buf.find(b'\n')
+            if nl < 0:
+                break
+            lines.append(bytes(self._buf[:nl]))
+            del self._buf[:nl + 1]
+        if len(self._buf) > self.max_bytes:
+            raise FrameError('frame exceeds %d bytes without a '
+                             'newline' % self.max_bytes)
+        return lines
+
+    def pending(self):
+        """Bytes of the partial line waiting for its newline."""
+        return len(self._buf)
+
+
+# -- push-frame delta codec --------------------------------------------------
+#
+# A standing query's payload usually changes at the tail (new time
+# buckets) or in a few counter digits, so a push can often ship just
+# the edited span: a delta frame carries {"off": O, "keep": K} plus
+# the inserted bytes, meaning
+#
+#     new = old[:O] + inserted + old[len(old)-K:]
+#
+# Reconstruction is pure byte splicing — trivially byte-identical, no
+# structural diff to trust.  The prefix/suffix scan runs as O(log n)
+# slice comparisons (C memcmp speed), not a per-byte Python loop.
+
+def _common_prefix_len(a, b):
+    n = min(len(a), len(b))
+    lo, hi = 0, n
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if a[:mid] == b[:mid]:
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
+
+
+def byte_delta(old, new):
+    """(off, keep, inserted) such that
+    ``new == old[:off] + inserted + old[len(old)-keep:]``."""
+    off = _common_prefix_len(old, new)
+    ta, tb = old[off:], new[off:]
+    n = min(len(ta), len(tb))
+    lo, hi = 0, n
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if ta[len(ta) - mid:] == tb[len(tb) - mid:]:
+            lo = mid
+        else:
+            hi = mid - 1
+    keep = lo
+    return off, keep, new[off:len(new) - keep]
+
+
+def apply_delta(old, off, keep, inserted):
+    """Reconstruct the new payload from `old` and a delta frame's
+    patch; raises FrameError on an inconsistent patch (the client's
+    base diverged — reconnect and re-seed)."""
+    if not isinstance(off, int) or not isinstance(keep, int) or \
+            isinstance(off, bool) or isinstance(keep, bool) or \
+            off < 0 or keep < 0 or off + keep > len(old):
+        raise FrameError('delta patch inconsistent with base payload '
+                         '(off=%r keep=%r base=%d)'
+                         % (off, keep, len(old)))
+    return old[:off] + inserted + old[len(old) - keep:]
 
 
 class LineBuffer(object):

@@ -33,12 +33,15 @@ Overload posture (admission.py): per-tenant weighted-fair admission,
 deadline propagation and early load shedding, as in the reference.
 
 Ops: scan, query, build, stats, metrics, health, events, topology,
-ping (+ `_sleep` when DN_SERVE_TEST_OPS=1).  The cluster, standing-query,
-fleet and scrub ops, and the knobs that would start the reference's
-scrub, maintenance and history threads, are not ported: each fails
-loudly with a message that names what is missing.  A device fault in
-a request fails that request (rc 1, "dn: ..."); the server keeps
-serving, and nothing answers from the host where the device was
+ping, the standing queries of serve/subscribe.py (`subscribe` on a v2
+connection, `sub_ack`, `unsubscribe`) and the one-member fleet view of
+serve/fleet.py (`fleet_stats`), plus `_sleep` when
+DN_SERVE_TEST_OPS=1.  DN_METRICS_HISTORY_S > 0 arms the metric history
+(obs/history.py).  The cluster and scrub ops, and the knobs that would
+start the reference's scrub and maintenance threads, are not ported:
+each fails loudly with a message that names what is missing.  A device
+fault in a request fails that request (rc 1, "dn: ..."); the server
+keeps serving, and nothing answers from the host where the device was
 asked for.
 """
 
@@ -65,6 +68,7 @@ from .. import log as mod_log
 from ..errors import DNError
 from ..obs import events as obs_events
 from ..obs import export as obs_export
+from ..obs import history as obs_history
 from ..obs import metrics as obs_metrics
 from ..obs import trace as obs_trace
 from ..watchdog import LeakCheck
@@ -74,6 +78,7 @@ from . import lifecycle as mod_lifecycle
 from . import protocol as mod_protocol
 from . import qcache as mod_qcache
 from . import residency as mod_residency
+from . import subscribe as mod_subscribe
 
 
 MAX_REQUEST_BYTES = mod_protocol.MAX_FRAME_BYTES
@@ -238,14 +243,9 @@ def device_engaged(counters):
 
 # -- what a single-member server does not carry ----------------------------
 
-# ops that reach the reference's cluster, standing-query, fleet and
-# scrub modules (serve/router.py, subscribe.py, fleet.py, scrub.py,
-# rebalance.py), and the module each needs
+# ops that reach the reference's cluster and scrub modules
+# (serve/router.py, scrub.py, rebalance.py), and the module each needs
 UNPORTED_OPS = {
-    'subscribe': 'serve/subscribe.py',
-    'sub_ack': 'serve/subscribe.py',
-    'unsubscribe': 'serve/subscribe.py',
-    'fleet_stats': 'serve/fleet.py',
     'scrub': 'serve/scrub.py',
     'query_partial': 'the cluster router (serve/router.py)',
     'shard_manifest': 'the shard handoff (serve/rebalance.py)',
@@ -258,7 +258,7 @@ def unported_error(what, missing):
                    % (what, missing))
 
 
-def check_unported_knobs(integ_conf, obs_conf):
+def check_unported_knobs(integ_conf):
     """DNError for the first knob that would start a reference thread
     this server does not carry, else None."""
     for key, name, missing in (
@@ -270,9 +270,6 @@ def check_unported_knobs(integ_conf, obs_conf):
              'the maintenance thread (serve/scrub.py)')):
         if integ_conf[key] > 0:
             return unported_error('%s > 0' % name, missing)
-    if obs_conf['history_s'] > 0:
-        return unported_error('DN_METRICS_HISTORY_S > 0',
-                              'the metric history (obs/history.py)')
     return None
 
 
@@ -309,7 +306,7 @@ class DnServer(object):
         obs_conf = mod_config.obs_config()
         if isinstance(obs_conf, DNError):
             raise obs_conf
-        err = check_unported_knobs(integ_conf, obs_conf)
+        err = check_unported_knobs(integ_conf)
         if err is not None:
             raise err
         self.integrity_conf = integ_conf
@@ -350,7 +347,21 @@ class DnServer(object):
         mod_residency.configure(dev_conf['residency_mb'] << 20)
         self._prewarm_doc = None
         self._prewarm_thread = None
+        # a single member: no cluster topology, no member name and no
+        # router (serve/topology.py and router.py are not ported), so
+        # the fleet view is the one-member fleet of this server
+        self.cluster = None
+        self.member = None
+        self.router = None
+        # the metric-history snapshotter (obs/history.py), armed at
+        # bind from DN_METRICS_HISTORY_S; off by default
+        self.history = None
         self.log = mod_log.get('serve')
+        # standing queries (serve/subscribe.py): registered v2
+        # subscribers get delta/full result frames PUSHED on publish
+        # — one incremental merge per publish batch serves all of
+        # them.  DN_SUB_MAX=0 disables (requests answer cleanly).
+        self.subman = mod_subscribe.SubscriptionManager(self)
         self.running = False
         self.draining = False
         self._listener = None
@@ -406,7 +417,9 @@ class DnServer(object):
             on_request=self._on_frame,
             on_overflow=self._on_overflow,
             on_accept=self._on_accept,
+            on_close=self.subman.on_conn_close,
             log=self.log)
+        self.subman.start()
         self.running = True
         _SERVER_LEAKS.track(self)
         self._hook = mod_lifecycle.install_writer_invalidation()
@@ -424,6 +437,11 @@ class DnServer(object):
                 target=self._run_prewarm, name='dn-prewarm',
                 daemon=True)
             self._prewarm_thread.start()
+        hist_s = obs_history.history_interval_s()
+        if hist_s > 0:
+            self.history = obs_history.HistorySnapshotter(
+                hist_s, provider=self._history_provider,
+                log=self.log).start()
         self.log.info('listening',
                       socket=self.socket_path, port=self.bound_port,
                       device=self.device,
@@ -484,9 +502,14 @@ class DnServer(object):
         leftover = sum(1 for t in workers if t.is_alive())
         if leftover:
             self.log.warn('drain grace expired', abandoned=leftover)
+        # standing queries end cleanly: each subscriber gets an 'end'
+        # frame queued before the loop flushes and closes below
+        self.subman.stop()
         # flush queued response bytes (the draining rejections the
         # workers just framed included), then close every connection
         self.loop.shutdown(max(1.0, deadline - time.monotonic() + 1))
+        if self.history is not None:
+            self.history.stop()
         self.governor.stop()
         # flush warm state cleanly: cached shard handles hold open
         # mmaps / sqlite connections; the result cache hands its
@@ -624,6 +647,32 @@ class DnServer(object):
             self._counters['requests'] += 1
             self._by_op[op] = self._by_op.get(op, 0) + 1
 
+    def _history_provider(self):
+        """Named operational series for the history snapshotter:
+        request/shed/error totals (the admission counters predate the
+        typed registry), live inflight depth and follow ingest lag —
+        the qps / shed-rate / ingest-lag trends by their headline
+        names.  (The reference's `repair.completed` series belongs to
+        the repair manager, not ported.)"""
+        with self._stats_lock:
+            requests = self._counters['requests']
+            errors = self._counters['errors']
+            shed = (self._counters['shed_overloaded'] +
+                    self._counters['busy_rejected'])
+        out = {
+            'serve.requests': (obs_history.COUNTER_KIND, requests),
+            'serve.errors': (obs_history.COUNTER_KIND, errors),
+            'serve.shed': (obs_history.COUNTER_KIND, shed),
+            'serve.inflight': (obs_history.GAUGE_KIND,
+                               self.admission.depth()['active']),
+        }
+        from ..follow import stats_doc as follow_stats
+        fs = follow_stats()
+        if fs is not None:
+            out['follow.ingest_lag_ms'] = (
+                obs_history.GAUGE_KIND, fs.get('ingest_lag_ms'))
+        return out
+
     def _index_query_doc(self):
         """The index query's device-lane engagement (device_index):
         dispatches, shards, rows, pinned shard hits, upload bytes and
@@ -663,6 +712,10 @@ class DnServer(object):
             'tenants': self.admission.tenants_doc(),
             'protocol': self.loop.stats()
             if self.loop is not None else {},
+            # standing-query subscriptions (serve/subscribe.py):
+            # active/group gauges, push/shed/recompute counters,
+            # per-group and per-subscriber detail
+            'subscriptions': self.subman.stats_doc(),
             'caches': {
                 'shard_handles': mod_iqmt.shard_cache_stats(),
                 'find_memo': mod_iqmt.find_cache_stats(),
@@ -724,6 +777,12 @@ class DnServer(object):
                 if counters.get('index shards queried', 0) else 0.0,
             },
             'metrics': obs_export.stats_section(counters=counters),
+            # metric-history rings (obs/history.py): windowed
+            # qps/shed/lag trends when DN_METRICS_HISTORY_S arms the
+            # snapshotter; a shape-stable disabled stub otherwise
+            'history': self.history.history.doc()
+            if self.history is not None
+            else obs_history.disabled_doc(),
             'events': obs_events.journal().doc()
             if obs_events.journal() is not None
             else obs_events.disabled_doc(),
@@ -805,9 +864,13 @@ class DnServer(object):
         t = threading.Thread(target=self._handle_request,
                              args=(conn, req, proto, rid, rx),
                              daemon=True)
+        # started under the lock: the drain's snapshot of the workers
+        # (taken under it) must never hold a thread not yet started —
+        # joining one raises, and the drain would die half done.  A
+        # subscriber's sub_ack can land just as the drain begins
         with self._workers_lock:
             self._workers.add(t)
-        t.start()
+            t.start()
 
     # -- request handling (worker threads) --------------------------------
 
@@ -827,6 +890,19 @@ class DnServer(object):
                 deadline_ms = self.conf['deadline_ms']
             deadline_at = rx + deadline_ms / 1000.0 \
                 if deadline_ms and deadline_ms > 0 else None
+            if req.get('op') == 'subscribe':
+                # needs the CONNECTION (execute() is transport-
+                # blind): register, answer, THEN queue the seed
+                # frame — the loop's FIFO write queue guarantees the
+                # registration ack reaches the peer first
+                self._bump_op('subscribe')
+                rc, out, err, extra, sub = self.subman.subscribe(
+                    conn, req, proto)
+                self._send_response(conn, proto, rid, rc, out, err,
+                                    extra)
+                if sub is not None:
+                    self.subman.activate(sub)
+                return
             rc, out, err, extra = self.execute(
                 req, tenant=tenant, deadline_at=deadline_at)
             self._send_response(conn, proto, rid, rc, out, err,
@@ -883,6 +959,13 @@ class DnServer(object):
         self._bump_op(op)
         if op == 'ping':
             return 0, b'', b'', {}
+        if op == 'sub_ack':
+            # subscription flow control (serve/subscribe.py): tiny,
+            # never queued — a throttled ack path would BE the
+            # backpressure bug it exists to prevent
+            return self.subman.ack(req)
+        if op == 'unsubscribe':
+            return self.subman.unsubscribe(req)
         if op in UNPORTED_OPS:
             self._bump('errors')
             err = unported_error('request op "%s"' % op, UNPORTED_OPS[op])
@@ -946,6 +1029,23 @@ class DnServer(object):
                    'events': j.tail(since=since, limit=limit)
                    if j is not None else []}
             body = json.dumps(doc, sort_keys=True) + '\n'
+            return 0, body.encode(), b'', {}
+        if op == 'fleet_stats':
+            # the fleet view (serve/fleet.py): on a single member the
+            # one-member fleet of this server.  Control plane: no
+            # admission slot (the fleet view must render DURING the
+            # flood it describes).
+            from . import fleet as mod_fleet
+            limit = req.get('events')
+            if limit is not None and \
+                    (not isinstance(limit, int) or
+                     isinstance(limit, bool) or limit < 0):
+                self._bump('errors')
+                return (1, b'', b'dn: bad "events" in fleet_stats '
+                        b'request\n', {})
+            doc = mod_fleet.fleet_doc(
+                self, events_limit=50 if limit is None else limit)
+            body = json.dumps(doc, sort_keys=True, indent=2) + '\n'
             return 0, body.encode(), b'', {}
         if op == 'build' and req.get('idempotency'):
             return self._execute_idempotent(req['idempotency'], req,

@@ -14,6 +14,13 @@ Modes, as tests/helpers/cluster_worker.py has them:
                                  waits in the barrier
     query DATADIR INDEXDIR       distributed index query
     index_scan DATADIR           distributed index-scan (merged)
+
+and one of the port's own:
+
+    cli_fail FAILPID ARGS...     the port's CLI on ARGS, whose local
+                                 index-scan fails on process FAILPID
+                                 alone, while its peer goes on into
+                                 the cross-process merge
 """
 
 import json
@@ -49,8 +56,23 @@ def _ds(datadir, indexdir=None):
     }, mesh=mesh.make_mesh(devices=['cpu'] * SHARDS))
 
 
+def _cli_fail(failpid, args):
+    from dragnet_tpu_torch import cli, datasource_file
+    from dragnet_tpu_torch.errors import DNError
+    from dragnet_tpu_torch.parallel import distributed
+
+    _, pid = distributed.maybe_initialize()
+    if pid == failpid:
+        def index_scan(*args, **kwargs):
+            raise DNError('planted scan failure on process %d' % pid)
+        datasource_file.DatasourceFile.index_scan = index_scan
+    return cli.main(args)
+
+
 def main():
     mode = sys.argv[1]
+    if mode == 'cli_fail':
+        sys.exit(_cli_fail(int(sys.argv[2]), sys.argv[3:]))
     datadir = sys.argv[2]
     from dragnet_tpu_torch import query as mod_query
     from dragnet_tpu_torch.parallel import distributed
@@ -109,6 +131,8 @@ def main():
         raise SystemExit('unknown mode %r' % mode)
 
     print(json.dumps(out))
+    sys.stdout.flush()
+    distributed.shutdown()
 
 
 if __name__ == '__main__':

@@ -679,7 +679,8 @@ def _write_mp_data(datadir):
 
 def _spawn_pair(cmd, env, timeout=120):
     """Run `cmd` as processes 0 and 1 of a 2-process gloo group; a hang
-    kills both and FAILS (the barrier contract)."""
+    kills both and FAILS (the barrier contract).  Returns (rc, stdout,
+    stderr, OS pid) per process, in process order."""
     env = dict(env, DN_COORDINATOR='127.0.0.1:%d' % _free_port(),
                DN_NUM_PROCESSES='2')
     procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -695,17 +696,28 @@ def _spawn_pair(cmd, env, timeout=120):
                 q.kill()
                 q.communicate()
             pytest.fail('worker hung (barrier not released?)')
-        outs.append((p.returncode, out, err))
+        outs.append((p.returncode, out, err, p.pid))
     return outs
+
+
+def _assert_pair_ok(outs):
+    """Both processes exited 0; else the message names each failing
+    process (DN_PROCESS_ID, OS pid, rc) with both stderr tails."""
+    failed = [(pid, os_pid, rc) for pid, (rc, out, err, os_pid)
+              in enumerate(outs) if rc != 0]
+    assert not failed, '\n'.join(
+        ['non-zero exits (DN_PROCESS_ID, pid, rc): %r' % (failed,)] +
+        ['-- DN_PROCESS_ID=%d (pid %d) rc %d stderr tail:\n%s'
+         % (pid, os_pid, rc, err.decode(errors='replace')[-2000:])
+         for pid, (rc, out, err, os_pid) in enumerate(outs)])
 
 
 def _run_workers(args, worker=WORKER, env=None, timeout=120):
     outs = _spawn_pair([sys.executable, worker] + args,
                        dict(os.environ, **(env or {})), timeout=timeout)
-    for rc, out, err in outs:
-        assert rc == 0, err.decode()[-2000:]
+    _assert_pair_ok(outs)
     return [json.loads(out.decode().strip().splitlines()[-1])
-            for rc, out, err in outs]
+            for rc, out, err, os_pid in outs]
 
 
 def _run_jax_workers(args):
@@ -866,7 +878,6 @@ def test_two_process_cli_scan(tmp_path):
     single = subprocess.run(cmd + scan, check=True, env=env,
                             capture_output=True, cwd=ROOT)
     outs = _spawn_pair(cmd + scan, dict(env, PYTHONPATH=ROOT))
-    for rc, out, err in outs:
-        assert rc == 0, err.decode()[-2000:]
+    _assert_pair_ok(outs)
     assert outs[0][1] == single.stdout
     assert outs[1][1] == b''

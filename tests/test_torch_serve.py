@@ -399,8 +399,8 @@ def test_unsupported_op(server):
 
 @pytest.mark.parametrize('op', sorted(tserver.UNPORTED_OPS))
 def test_unported_op_fails_loudly(server, op):
-    """The cluster, standing-query, fleet and scrub ops answer rc 1 with
-    a message naming the missing module, never a silent success."""
+    """The cluster and scrub ops answer rc 1 with a message naming the
+    missing module, never a silent success."""
     rc, hd, out, err = tclient.request_bytes(server.socket_path,
                                              {'op': op})
     assert rc == 1 and out == b''
@@ -411,8 +411,7 @@ def test_unported_op_fails_loudly(server, op):
 
 UNPORTED_KNOBS = [('DN_SCRUB_INTERVAL_S', '60', 'serve/scrub.py'),
                   ('DN_ROLLUP_INTERVAL_S', '60', 'serve/scrub.py'),
-                  ('DN_COMPACT_INTERVAL_S', '60', 'serve/scrub.py'),
-                  ('DN_METRICS_HISTORY_S', '10', 'obs/history.py')]
+                  ('DN_COMPACT_INTERVAL_S', '60', 'serve/scrub.py')]
 
 
 @pytest.mark.parametrize('knob,value,missing', UNPORTED_KNOBS)
@@ -438,7 +437,7 @@ def test_unported_knob_fails_loudly(tmp_path, monkeypatch, knob, value,
       '--member', 'a'], {}),
     (['serve', '--socket', '/tmp/never.sock'],
      {'DN_SERVE_TOPOLOGY': 't.json'}),
-    (['stats', '--remote', '/tmp/never.sock', '--cluster'], {})])
+    (['serve', '--socket', '/tmp/never.sock', '--member', 'a'], {})])
 def test_cluster_options_fail_loudly(monkeypatch, args, env):
     for k, v in env.items():
         monkeypatch.setenv(k, v)
@@ -858,7 +857,9 @@ def test_serve_validate_ok(monkeypatch):
     monkeypatch.setenv('DN_DEVICE_RESIDENCY_MB', '4096')
     monkeypatch.setenv('DN_INDEX_RESIDENCY_SHARE', '0.25')
     for k in ('DN_FAULTS', 'DN_ENGINE', 'DN_DEVICE_PIPELINE_DEPTH',
-              'DN_INDEX_DEVICE', 'DN_INDEX_DEVICE_BATCH_ROWS'):
+              'DN_INDEX_DEVICE', 'DN_INDEX_DEVICE_BATCH_ROWS',
+              'DN_SUB_MAX', 'DN_SUB_COALESCE_MS', 'DN_SUB_QUEUE_DEPTH',
+              'DN_SUB_DELTA_PCT'):
         monkeypatch.delenv(k, raising=False)
     monkeypatch.setenv('DN_AUDITION_CACHE', '0')
     monkeypatch.setenv('DN_SCAN_PARTITIONS', '4')
@@ -876,6 +877,8 @@ def test_serve_validate_ok(monkeypatch):
                    b'connect_timeout_s=5 deadline_ms=0\n'
                    b'obs config ok: trace=off slow_ms=off buckets=14\n'
                    b'events ok: events=0 events_file=off\n'
+                   b'subscribe config ok: max=64 coalesce_ms=250 '
+                   b'queue_depth=4 delta_pct=50\n'
                    b'integrity config ok: verify=off\n'
                    b'resources config ok: disk_low_pct=10 '
                    b'disk_critical_pct=5 poll_ms=2000 mem_budget_mb=0 '
