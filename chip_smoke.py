@@ -2,9 +2,12 @@
 """Chip smoke for the PyTorch/CUDA port (dragnet_tpu_torch) on one GPU.
 
     python3 chip_smoke.py [--records N] [--seed S] [--reps R] [--json F]
+                          [--only-scl]
 
 Phases, each ending in torch.cuda.synchronize() so a fault shows where
-it happened; any failed check exits non-zero:
+it happened and printing its wall (`phase ...: N s`); any failed check
+exits non-zero.  `--only-scl` runs phases 1-4, 7 and 15 alone and
+prints no result line:
 
 1. build   the kernels (ops/csrc/onehot_agg.cu, the one-hot aggregation;
            ops/csrc/quote_parity.cu, the byte lane's quote parity) from
@@ -58,7 +61,8 @@ it happened; any failed check exits non-zero:
            through the stack (DeviceScanStack), one metric on each fold
            route (one-hot kernel, index_add_, sparse), the kernel
            launching once per stacked batch; then `index-scan` on both
-           engines, identical.  Prints wall s and records/s of both
+           engines over the data's first 20 minutes (the whole file
+           scanned), identical.  Prints wall s and records/s of both
            builds, the index writer's share, shards and bytes, and
            whether libdnindex.so was loaded.
 6b. pipe   the pipelined dispatch: the K1 query (host x latency) and
@@ -227,6 +231,38 @@ it happened; any failed check exits non-zero:
            the drain's `end` frame on every stream and device memory
            back within 16 MiB of its level before the server; a
            `subscribe` JSON line.
+15. scl    the serve cluster (serve/topology.py, router.py,
+           coordinator.py, rebalance.py, scrub.py): members a, b, c in
+           this process on the card (DN_ENGINE=jax, the pre-warm on,
+           residency off), each over a private copy of phase 7's trees
+           through its topology entry's dragnetrc, partitions [a,b],
+           [b,c], [c,a], the disk reading pinned (DN_DISK_SIM_FILE, the
+           governor's mode printed).  (i) phase 7's queries (a)-(e)
+           through each member as router: stdout = phase 7's, and
+           --counters phase 7's from `Index List` on (the walk runs on
+           the members); the routed p50 of (b) and (d) beside phase
+           12's served p50; (ii) each member's pre-warm (K7a at both
+           shapes), the K1 scan of phase 4 through each (= phase 4, K1
+           once per device batch), and 300,000 records of a shared
+           datasource built through `b` (`build --remote`, K1 counted);
+           (iii) b stopped: (a)-(e) through a still equal (failovers
+           counted); c stopped too: DN_ROUTER_PARTIAL=error answers rc 1
+           naming partition 1, and a restarted with =allow answers rc 0
+           flagged partial; (iv) d joins with an empty tree and takes
+           partition 2 (`begin_transition`, its pull, `wait_ready`,
+           `commit`): its shards byte-equal to the donors', the shards
+           and bytes pulled and their time printed, epoch 2 on all
+           four, (a)-(e) through d equal; (v) under DN_VERIFY=open a
+           byte of one of a's hour shards flipped: (b) through a still
+           equal (a corrupt failover), the repair lands a shard
+           byte-equal to b's, `dn scrub --remote` finds 0 corrupt and 0
+           missing, `dn quarantine list` shows the forensics; (vi) a
+           standing query (b) on the shared datasource through a: its
+           seed = a routed poll, and 100,000 records published through
+           a give 1 recompute and 1 frame = the routed poll; (vii) `dn
+           top --once` shows members 4/4 up, `stats --cluster` every
+           member; (viii) the drain: the stream's `end` frame, device
+           memory back within 16 MiB; a `serve_cluster` JSON line.
 10. main   the kernel again, on the fused keys the main path gave it:
    keys    the largest batch of each kernel query at each segment count
            (the time window, and with it the accumulator, grows during
@@ -234,7 +270,7 @@ it happened; any failed check exits non-zero:
 11. result the card's name and power limit (nvidia-smi), a `kernels`
            JSON line (per kernel: launches on the main path, the build,
            the query phase, the eager auto runs, the follow rounds,
-           the served path, phase 13 and phase 14, times, bound; K7,
+           the served path, phases 13, 14 and 15, times, bound; K7,
            K7a and K9,
            torch ops that replace the reference's jitted XLA programs,
            with theirs),
@@ -245,10 +281,12 @@ script exits non-zero and prints no result.
 """
 
 import argparse
+import calendar
 import contextlib
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -324,6 +362,9 @@ SPARSE_BENCH_CAPS = [1 << 20, 1 << 22]
 
 # phase 6: (metric, breakdowns, fold route at --interval=hour, where
 # the hourly __dn_ts key is prepended)
+# phase 6's index-scan window (all 180 minutes until phase 15 needed
+# the time)
+INDEX_SCAN_MINUTES = 20
 BUILD_METRICS = [
     ('byhour', 'timestamp[field=time,date,aggr=lquantize,step=3600],host',
      'kernel'),
@@ -405,12 +446,13 @@ LIFECYCLE_QUERIES = [
 # phase 12: the served path.  Query (b) is timed LATENCY_REPEATS times
 # on a server with residency and on one without, and COLD_REPEATS times
 # in a fresh process (each pays the interpreter, torch and CUDA start-up,
-# so fewer); CONCURRENT_CLIENTS threads each send two requests;
+# so fewer; 30 and 3 until phase 15 needed the time);
+# CONCURRENT_CLIENTS threads each send two requests;
 # after the drain, device memory may stay above its level before the
 # server by at most one scan batch's accumulators (8,396,912 B for phase
 # 9b's flat metrics on an H100), rounded up
-LATENCY_REPEATS = 30
-COLD_REPEATS = 3
+LATENCY_REPEATS = 5
+COLD_REPEATS = 1
 CONCURRENT_CLIENTS = 8
 DRAIN_SLACK_BYTES = 16 << 20
 K7_REPLACES = 'dragnet_tpu/device_index.py:257'
@@ -1276,15 +1318,28 @@ def build_phase(cli, mod_ds, ck, tmp, data, records):
     log('    build host s, device: %s | host engine: %s'
         % (fmt_times(dev_times), fmt_times(host_times)))
 
-    # index-scan on both engines
+    # index-scan on both engines, over the first INDEX_SCAN_MINUTES of
+    # the three hours (the whole file is scanned; the window keeps the
+    # printed points, 1.4M over the three hours, to its share)
+    first = sorted(k for k in shards if k.startswith('by_hour'))[0]
+    t0 = calendar.timegm(time.strptime(os.path.basename(first)[:13],
+                                       '%Y-%m-%d-%H'))
+    window = ['--after', time.strftime('%Y-%m-%dT%H:%M:%SZ',
+                                       time.gmtime(t0)),
+              '--before', time.strftime(
+                  '%Y-%m-%dT%H:%M:%SZ',
+                  time.gmtime(t0 + 60 * INDEX_SCAN_MINUTES))]
     t0 = time.monotonic()
-    rc, sout, serr = run_cli(cli, ['index-scan', '--interval=hour', 'idx'])
+    rc, sout, serr = run_cli(cli, ['index-scan', '--interval=hour'] +
+                             window + ['idx'])
     torch.cuda.synchronize()
     st = time.monotonic() - t0
     check(rc == 0, 'index-scan failed: %s' % serr)
     ds = datasource_for_name(config, 'idx')
     t0 = time.monotonic()
-    res = ds.index_scan(metrics, 'hour', engine='vector')
+    wopts = cli.dn_parse_args(window + ['idx'], ['after', 'before'])
+    res = ds.index_scan(metrics, 'hour', time_after=wopts.after,
+                        time_before=wopts.before, engine='vector')
     opts = cli.dn_parse_args(['idx'], ['counters'])
     opts.points = True
     hout, herr = io.StringIO(), io.StringIO()
@@ -1293,8 +1348,9 @@ def build_phase(cli, mod_ds, ck, tmp, data, records):
     hst = time.monotonic() - t0
     check(sout == hout.getvalue() and sout.count('\n') > 0,
           'index-scan differs from the host engine')
-    log('index-scan device %.2f s | host %.2f s (each with its output) | '
-        'identical (%d points)' % (st, hst, sout.count('\n')))
+    log('index-scan %s device %.2f s | host %.2f s (each with its output) '
+        '| identical (%d points)' % (' '.join(window), st, hst,
+                                     sout.count('\n')))
     return {'device_s': dt, 'host_s': ht, 'device_times': dev_times,
             'host_times': host_times, 'device_write_s': dev_write,
             'host_write_s': host_write, 'batches': nb, 'stacked': ns_,
@@ -4485,6 +4541,507 @@ def _log_round(label, d):
                d['poll_s'].items()))))
 
 
+# phase 15: the serve cluster on the card.  Three members `a`, `b`, `c`
+# in this process (one CUDA context), each over a private copy of phase
+# 7's month tree through its topology entry's `config` (a dragnetrc of
+# its own: that tree, phase 4's `muskie` file and the shared SCL_DS),
+# partitions [a,b], [b,c], [c,a]; the disk reading pinned through
+# DN_DISK_SIM_FILE (a shared host's disk below DN_DISK_LOW_PCT would
+# hold the handoff and the repairs); residency off (a process-wide pin
+# set that the first member's drain would take from the others).  In
+# order: (i) phase 7's queries through each member as router; (ii) each
+# member's device work: its pre-warm (K7a), one served K1 scan, and a
+# stacked build of SCL_DS through `b`; (iii) failover with `b` stopped,
+# then `c` too under DN_ROUTER_PARTIAL=error and =allow; (iv) member
+# `d` joins with an empty tree and takes partition 2 from `c` through
+# the coordinator; (v) a flipped byte on `a` under DN_VERIFY=open, the
+# failover and the repair from `b`, `dn scrub --remote`, `dn quarantine
+# list`; (vi) a routed standing query on SCL_DS through `a` across a
+# publish through `a`; (vii) the fleet view; (viii) the drain.
+SCL_PARTITIONS = [['a', 'b'], ['b', 'c'], ['c', 'a']]
+SCL_JOIN_PARTITIONS = [['a', 'b'], ['b', 'c'], ['d', 'a']]
+SCL_DS = 'sclsub'
+SCL_SUB_RECORDS = 300000
+SCL_SUB_AFTER, SCL_SUB_BEFORE = '2014-06-01T00:00:00Z', '2014-06-03T00:00:00Z'
+SCL_PUB_RECORDS = 100000
+SCL_PUB_AFTER, SCL_PUB_BEFORE = '2014-06-03T00:00:00Z', '2014-06-03T02:00:00Z'
+SCL_WAIT_S = 180.0
+SCL_KNOBS = {'DN_ENGINE': 'jax', 'DN_DEVICE_RESIDENCY_MB': '0',
+             'DN_DEVICE_PREWARM': '1', 'DN_TOPO_POLL_MS': '500',
+             'DN_REMOTE_RETRIES': '0', 'DN_REMOTE_CONNECT_TIMEOUT_S': '2',
+             'DN_SCRUB_RATE_MB_S': '0', 'DN_ROUTER_PARTIAL': None,
+             'DN_VERIFY': None, 'DN_SUB_COALESCE_MS': None}
+
+
+def without_walk(err):
+    """A local query's --counters without the walk's stages (Find* or
+    PathEnumerator, before `Index List`): a routed query walks on the
+    members, and its router's pipeline has the merge's stages only (the
+    reference's router too)."""
+    at = err.find('Index List ')
+    return err[at:] if at >= 0 else err
+
+
+def member_rc(tmp, name, month_idx):
+    """A member's dragnetrc: the process's configuration cut to the
+    datasources this phase serves, with `month` on the member's own
+    tree."""
+    from dragnet_tpu_torch.config import ConfigBackendLocal
+    with open(ConfigBackendLocal().cbl_path) as f:
+        doc = json.load(f)
+    keep = ('month', 'muskie', SCL_DS)
+    doc['datasources'] = [d for d in doc['datasources']
+                          if d['name'] in keep]
+    doc['metrics'] = [m for m in doc.get('metrics', [])
+                      if m.get('datasource') in keep]
+    for d in doc['datasources']:
+        if d['name'] == 'month':
+            d['backend_config']['indexPath'] = month_idx
+    path = os.path.join(tmp, 'rc_scl_%s.json' % name)
+    with open(path, 'w') as f:
+        json.dump(doc, f)
+    return path
+
+
+def scl_phase(cli, mod_ds, ck, tmp, query_outputs, forced, serve_p50):
+    """Phase 15 (see the constants above).  Returns the `serve_cluster`
+    doc; its `launches` are the counts of this phase's path (zeroed just
+    before the members start, read after their drain)."""
+    import gc
+    import shutil
+    import torch
+    from dragnet_tpu_torch import index_query_mt as mod_iqmt
+    from dragnet_tpu_torch import index_query_stack as mod_iqs
+    from dragnet_tpu_torch import integrity as mod_integ
+    from dragnet_tpu_torch import native as mod_native
+    from dragnet_tpu_torch.serve import client as tclient
+    from dragnet_tpu_torch.serve import coordinator as tcoord
+    from dragnet_tpu_torch.serve import scrub as mod_scrub
+    from dragnet_tpu_torch.serve import server as tserver
+    from dragnet_tpu_torch.serve import topology as ttopology
+    t_phase = time.monotonic()
+    doc = {'walls_s': {}}
+    # the shared datasource of (ii)'s build and (vi)'s standing query
+    sub_data = os.path.join(tmp, 'scl_sub.log')
+    lo, hi = (calendar.timegm(time.strptime(t, '%Y-%m-%dT%H:%M:%SZ'))
+              * 1000 for t in (SCL_SUB_AFTER, SCL_SUB_BEFORE))
+    mod_native.gen_to_file(SCL_SUB_RECORDS, sub_data, mindate_ms=lo,
+                           maxdate_ms=hi - 1, seed=15)
+    add_datasource(cli, SCL_DS, sub_data, os.path.join(tmp, 'idx_scl_sub'),
+                   [(m, b) for m, b, _ in BUILD_METRICS])
+    socks = {m: os.path.join(tmp, 'scl_%s.sock' % m) for m in 'abcd'}
+    trees, rcs = {}, {}
+    t0 = time.monotonic()
+    for m in 'abcd':
+        trees[m] = os.path.join(tmp, 'idx_scl_%s' % m)
+        if m != 'd':
+            shutil.copytree(os.path.join(tmp, 'idx_month'), trees[m])
+        rcs[m] = member_rc(tmp, m, trees[m])
+    copy_s = time.monotonic() - t0
+    topo_path = os.path.join(tmp, 'scl_topo.json')
+
+    def topo_doc(names, parts):
+        return {'assign': 'hash',
+                'members': {m: {'endpoint': socks[m], 'config': rcs[m]}
+                            for m in names},
+                'partitions': [{'id': i, 'replicas': r}
+                               for i, r in enumerate(parts)]}
+    tcoord.publish_topology(topo_path, dict(topo_doc('abc',
+                                                     SCL_PARTITIONS),
+                                            epoch=1))
+    disk = os.path.join(tmp, 'scl_disk_free_pct')
+    with open(disk, 'w') as f:
+        f.write('50\n')
+    qargv = {name: ['--points', '--counters'] + qargs + ['month']
+             for name, qargs, _ in QUERY_CASES}
+    kernel_scan = [(name, qargs) for name, qargs, route in QUERIES
+                   if route == 'kernel'][0]
+    servers = {}
+    readers = []
+
+    def start(m, **env):
+        with env_scope(**env):
+            committed, pending = ttopology.load_topology_state(
+                topo_path, member=m)
+            servers[m] = tserver.DnServer(
+                socket_path=socks[m], conf={'max_inflight': 4},
+                cluster=committed, member=m, pending=pending).start()
+        return servers[m]
+
+    def stop(m):
+        servers.pop(m).stop()
+
+    def routed(m, name):
+        rc, out, err, dt = served(tserver, cli, ['query', '--remote',
+                                                 socks[m]] + qargv[name])
+        want = query_outputs[name]
+        check(rc == 0 and (out, err) == (want[0], without_walk(want[1])),
+              'scl: routed query %s through %s differs from phase 7 (rc '
+              '%d, stdout %s): %s | phase 7: %s'
+              % (name, m, rc, 'equal' if out == want[0] else 'differs',
+                 err[-400:], without_walk(want[1])[-400:]))
+        return dt
+
+    def lap(label, t):
+        doc['walls_s'][label] = time.monotonic() - t
+        return time.monotonic()
+
+    try:
+        with env_scope(DN_DISK_SIM_FILE=disk, **SCL_KNOBS):
+            gc.collect()
+            torch.cuda.synchronize()
+            mem_before = torch.cuda.memory_allocated()
+            # the counts: zeroed just before the members start, read
+            # just after their drain
+            ck.reset_launches()
+            mod_iqs.launches['sums'] = 0
+            t = time.monotonic()
+            for m in 'abc':
+                start(m)
+            modes = {m: s.governor.mode() for m, s in servers.items()}
+            log('scl: members a, b, c on %s (private trees copied in %.2f '
+                's); disk reading pinned at 50 %% free, governor %s'
+                % (servers['a'].device, copy_s, modes))
+            check(set(modes.values()) == {'ok'}, 'scl: governor %r'
+                  % modes)
+
+            # (i) phase 7's queries, each member as router
+            walls = {}
+            for m in 'abc':
+                for name, _, _ in QUERY_CASES:
+                    walls['%s %s' % (m, name[0])] = routed(m, name)
+            # the p50 of (b) and (d) over their three routed runs
+            p50 = {c: percentile([walls['%s %s' % (m, c)]
+                                  for m in 'abc'], 0.5) for c in 'bd'}
+            cl = tclient.stats(socks['a'])['cluster']['counters']
+            doc['routed'] = {'walls_s': walls, 'p50_s': p50,
+                             'served_p50_s': serve_p50,
+                             'counters': cl}
+            log('scl (i) routed: phase 7\'s (a)-(e) through a, b and c '
+                '= phase 7 (--counters less the walk\'s stages); '
+                '%s' % fmt_times(walls, 3))
+            log('scl (i) routed p50 over the 3 routers: (b) %.4f s, (d) '
+                '%.4f s; phase 12 served (b) p50 %s; a\'s scatters %d, '
+                'local partials %d, remote %d'
+                % (p50['b'], p50['d'],
+                   '%.4f s' % serve_p50 if serve_p50 is not None
+                   else 'not run', cl['scatters'], cl['partials_local'],
+                   cl['partials_remote']))
+            t = lap('i', t)
+
+            # (ii) each member's own device work
+            prewarm = {}
+            for m in 'abc':
+                pw = servers[m].wait_prewarm(SCL_WAIT_S)
+                check(pw is not None and pw['state'] == 'ok' and
+                      pw['programs'] == 2, 'scl: %s prewarm %r' % (m, pw))
+                prewarm[m] = pw['ms']
+            batches = {'total': 0, 'device': 0}
+            orig_try = mod_ds.DeviceScan._try_device
+
+            def try_device(self, provider, weights, alive):
+                ok = orig_try(self, provider, weights, alive)
+                batches['total'] += 1
+                batches['device'] += int(ok)
+                return ok
+            mod_ds.DeviceScan._try_device = try_device
+            scans = {}
+            try:
+                for m in 'abc':
+                    b0, l0 = dict(batches), ck.launches['onehot_dense']
+                    rc, out, err, dt = served(tserver, cli, [
+                        'scan', '--remote', socks[m], '--points',
+                        '--counters'] + kernel_scan[1] + ['muskie'])
+                    torch.cuda.synchronize()
+                    nb = batches['total'] - b0['total']
+                    nd = batches['device'] - b0['device']
+                    nl = ck.launches['onehot_dense'] - l0
+                    check(rc == 0 and (out, err) == forced[kernel_scan[0]][:2],
+                          'scl: scan through %s differs from phase 4: %s'
+                          % (m, err[-300:]))
+                    check(nb > 0 and nd == nb == nl,
+                          'scl: scan through %s: %d device batches of %d, '
+                          'K1 %d launches' % (m, nd, nb, nl))
+                    scans[m] = {'wall_s': dt, 'batches': nb,
+                                'k1_launches': nl}
+                l0 = ck.launches['onehot_dense']
+                rc, out, err, build_s = served(tserver, cli, [
+                    'build', '--remote', socks['b'], '--interval=hour',
+                    SCL_DS])
+                torch.cuda.synchronize()
+                build_k1 = ck.launches['onehot_dense'] - l0
+                check(rc == 0 and build_k1 > 0,
+                      'scl: build --remote through b: rc %d, K1 %d: %s'
+                      % (rc, build_k1, err[-300:]))
+            finally:
+                mod_ds.DeviceScan._try_device = orig_try
+            doc['device'] = {'prewarm_ms': prewarm, 'scans': scans,
+                             'build': {'wall_s': build_s,
+                                       'k1_launches': build_k1}}
+            log('scl (ii) device: pre-warm (K7a at both shapes) %s ms; '
+                'the K1 scan (%s) through a, b, c %s, each = phase 4, K1 '
+                'once per device batch (%s); %s built through b in %.2f '
+                's, K1 %d' % (
+                    ', '.join('%s %.3f' % kv for kv in sorted(
+                        prewarm.items())), kernel_scan[0],
+                    fmt_times({m: s['wall_s'] for m, s in scans.items()},
+                              2),
+                    ', '.join('%s %d' % (m, s['k1_launches'])
+                              for m, s in sorted(scans.items())),
+                    SCL_DS, build_s, build_k1))
+            t = lap('ii', t)
+
+            # (iii) failover and the degraded modes
+            stop('b')
+            for name, _, _ in QUERY_CASES:
+                routed('a', name)
+            fo = tclient.stats(socks['a'])['cluster']['counters']
+            check(fo['failovers'] >= 1 and fo['degraded'] == 0,
+                  'scl: b stopped, failovers %d degraded %d'
+                  % (fo['failovers'], fo['degraded']))
+            stop('c')
+            req = dict(sub_request(cli, QUERY_CASES[1][1], 'month'),
+                       op='query')
+            rc, hd, out, err = tclient.request_bytes(socks['a'], req,
+                                                     timeout_s=SCL_WAIT_S)
+            check(rc == 1 and out == b'' and hd.get('retryable') and
+                  hd['stats'].get('missing_partitions') == [1] and
+                  b'partition(s) unavailable: 1' in err,
+                  'scl: b and c stopped, DN_ROUTER_PARTIAL=error gave rc '
+                  '%d %r: %s' % (rc, hd.get('stats'), err[-300:]))
+            err_mode = err.decode().strip()
+            stop('a')
+            start('a', DN_ROUTER_PARTIAL='allow')
+            rc, hd, out, err = tclient.request_bytes(socks['a'], req,
+                                                     timeout_s=SCL_WAIT_S)
+            check(rc == 0 and hd['stats'].get('partial') is True and
+                  hd['stats'].get('missing_partitions') == [1] and out and
+                  b'partition(s) 1 unavailable' in err,
+                  'scl: DN_ROUTER_PARTIAL=allow gave rc %d %r: %s'
+                  % (rc, hd.get('stats'), err[-300:]))
+            allow_mode = err.decode().strip()
+            stop('a')
+            for m in 'abc':
+                start(m)
+            doc['failover'] = {'failovers': fo['failovers'],
+                               'error': err_mode, 'allow': allow_mode}
+            log('scl (iii) failover: b stopped, (a)-(e) through a = phase '
+                '7 (%d failovers); c stopped too: error mode "%s"; allow '
+                'mode rc 0, partial, "%s"' % (fo['failovers'], err_mode,
+                                              allow_mode))
+            t = lap('iii', t)
+
+            # (iv) d joins with an empty tree: the handoff
+            new = topo_doc('abcd', SCL_JOIN_PARTITIONS)
+            t_join = time.monotonic()
+            committed, pending = tcoord.begin_transition(topo_path, new)
+            for s in servers.values():
+                s.topo_watcher.poll_now()
+            srv_d = start('d')
+            check(srv_d.puller is not None and
+                  srv_d.puller.wait(SCL_WAIT_S) and srv_d.puller.ready,
+                  'scl: d\'s handoff: %r' % (srv_d.puller.status()
+                                             if srv_d.puller else None))
+            pull_s = time.monotonic() - t_join
+            hand = dict(srv_d.puller.counters)
+            status = tcoord.wait_ready(topo_path, timeout_s=SCL_WAIT_S)
+            check(status.get('ready'), 'scl: transition not ready: %r'
+                  % status)
+            tcoord.commit_transition(topo_path)
+            for s in servers.values():
+                s.topo_watcher.poll_now()
+            epochs = {m: s.cluster.epoch for m, s in servers.items()}
+            check(set(epochs.values()) == {pending.epoch},
+                  'scl: epochs after the commit %r' % epochs)
+            want = {rel: path for rel, path in mod_integ.iter_tree_shards(
+                os.path.join(tmp, 'idx_month'))
+                if pending.partition_of(
+                    path, mod_scrub.rel_timeformat(rel)) == 2}
+            got = dict(mod_integ.iter_tree_shards(trees['d']))
+            check(got and set(got) == set(want),
+                  'scl: d holds %d shards, partition 2 has %d'
+                  % (len(got), len(want)))
+            for rel in got:
+                check(file_bytes(got[rel]) == file_bytes(want[rel]),
+                      'scl: d\'s %s differs from its donors\'' % rel)
+            check(hand['shards_streamed'] == len(want) and
+                  hand['bytes_streamed'] == sum(
+                      os.path.getsize(p) for p in got.values()),
+                  'scl: the puller counted %r' % hand)
+            for name, _, _ in QUERY_CASES:
+                routed('d', name)
+            doc['handoff'] = {'shards': hand['shards_streamed'],
+                              'bytes': hand['bytes_streamed'],
+                              'pull_s': pull_s, 'epoch': pending.epoch}
+            log('scl (iv) handoff: d joined with an empty tree, pulled %d '
+                'shards (%d B) of partition 2 in %.2f s, byte-equal to its '
+                'donors\'; epoch %d committed on all 4; (a)-(e) through d '
+                '= phase 7' % (hand['shards_streamed'],
+                               hand['bytes_streamed'], pull_s,
+                               pending.epoch))
+            t = lap('iv', t)
+
+            # (v) a flipped byte on a: failover, then the repair
+            with env_scope(DN_VERIFY='open'):
+                mod_integ.reset_memo()
+                topo = servers['a'].cluster
+                catalog = mod_integ.load_catalog(trees['a'])
+                rel = [r for r in sorted(catalog) if r.startswith('by_hour')
+                       and topo.partition_of(
+                           os.path.join(trees['a'], r),
+                           mod_scrub.rel_timeformat(r)) == 0][0]
+                shard = os.path.join(trees['a'], rel)
+                size = os.path.getsize(shard)
+                with open(shard, 'r+b') as f:
+                    f.seek(size // 2)
+                    byte = f.read(1)
+                    f.seek(size // 2)
+                    f.write(bytes([byte[0] ^ 0x5a]))
+                mod_iqmt.shard_cache_clear()
+                b = QUERY_CASES[1][0]
+                routed('a', b)
+                deadline = time.monotonic() + SCL_WAIT_S
+                while True:
+                    try:
+                        if mod_integ.file_crc(shard) == catalog[rel]:
+                            break
+                    except OSError:
+                        pass
+                    check(time.monotonic() < deadline,
+                          'scl: the repair of %s never landed' % rel)
+                    time.sleep(0.1)
+                check(file_bytes(shard) == file_bytes(
+                    os.path.join(trees['b'], rel)),
+                      'scl: the repaired %s differs from b\'s' % rel)
+                rep = tclient.stats(socks['a'])['integrity']['repair']
+                cf = tclient.stats(socks['a'])['cluster']['counters']
+                rc, out, err, scrub_s = served(tserver, cli, [
+                    'scrub', '--remote', socks['a']])
+                sdoc = json.loads(out) if rc == 0 else {}
+                tree = sdoc.get('trees', {}).get('month', {})
+                check(rc == 0 and tree.get('corrupt') == 0 and
+                      tree.get('missing') == 0 and tree.get('verified'),
+                      'scl: scrub --remote a: rc %d %r: %s'
+                      % (rc, tree, err[-300:]))
+                rc, qlist, err, _ = served(tserver, cli, [
+                    'quarantine', 'list', '--tree', trees['a']])
+                check(rc == 0 and os.path.basename(rel) in qlist,
+                      'scl: quarantine list: rc %d: %s%s'
+                      % (rc, qlist, err))
+            doc['repair'] = {'shard': rel, 'repair': rep,
+                             'corrupt_failovers': cf['corrupt_failovers'],
+                             'scrub': {'verified': tree['verified'],
+                                       'wall_s': scrub_s},
+                             'quarantine_lines': len(qlist.splitlines())}
+            log('scl (v) self-repair: %s flipped on a; (b) through a = '
+                'phase 7 (%d corrupt failovers); repaired from b, '
+                'byte-equal (repair %r); scrub --remote a: %d verified, 0 '
+                'corrupt, 0 missing in %.2f s; quarantine list: %s'
+                % (rel, cf['corrupt_failovers'], rep, tree['verified'],
+                   scrub_s, qlist.strip()[:160]))
+            t = lap('v', t)
+
+            # (vi) a routed standing query across a publish through a
+            b_args = QUERY_CASES[1][1]
+            reader = FrameReader(tclient, socks['a'],
+                                 sub_request(cli, b_args, SCL_DS), 'scl')
+            readers.append(reader)
+            _, seed = reader.wait(lambda fr: fr['seq'] == 1, 'its seed')
+            poll = served(tserver, cli, ['query', '--remote', socks['a']] +
+                          b_args + [SCL_DS])
+            check(poll[0] == 0 and seed['payload'] == poll[1].encode(),
+                  'scl: the routed seed frame differs from a routed poll')
+            time.sleep(2.0)        # past the seed's confirming scatter
+            before, _ = _sub_counters(tclient, socks['a'])
+            mark = reader.mark()
+            gen_s = append_records(sub_data, SCL_PUB_RECORDS, 16,
+                                   SCL_PUB_AFTER, SCL_PUB_BEFORE)
+            l0 = ck.launches['onehot_dense']
+            rc, out, err, pub_s = served(tserver, cli, [
+                'build', '--remote', socks['a'], '--interval=hour',
+                '--after', SCL_PUB_AFTER, '--before', SCL_PUB_BEFORE,
+                SCL_DS])
+            pub_k1 = ck.launches['onehot_dense'] - l0
+            check(rc == 0, 'scl: the publish through a: %s' % err[-300:])
+            poll = served(tserver, cli, ['query', '--remote', socks['a']] +
+                          b_args + [SCL_DS])
+            check(poll[0] == 0, 'scl: routed poll failed: %s' % poll[2])
+            tf, fr = reader.wait(lambda fr: fr['payload'] ==
+                                 poll[1].encode(), 'the routed poll\'s '
+                                 'bytes', since=mark)
+            time.sleep(2.0)        # past the publish's confirm
+            after, _ = _sub_counters(tclient, socks['a'])
+            recomputes = (after['recomputes'] - after['reconfirms']) - \
+                (before['recomputes'] - before['reconfirms'])
+            check(recomputes == 1 and reader.mark() - mark == 1,
+                  'scl: the publish cost %d recomputes and %d frames'
+                  % (recomputes, reader.mark() - mark))
+            doc['subscribe'] = {'publish_s': pub_s, 'append_s': gen_s,
+                                'k1_launches': pub_k1,
+                                'recomputes': recomputes,
+                                'reconfirms': after['reconfirms'] -
+                                before['reconfirms'],
+                                'frame_bytes': len(fr['payload'])}
+            log('scl (vi) routed standing query (b) on %s through a: seed '
+                '= a routed poll; %d records published through a in %.2f '
+                's (K1 %d): 1 recompute, 1 frame (%d B) = the routed poll, '
+                '%d confirming scatters' % (
+                    SCL_DS, SCL_PUB_RECORDS, pub_s, pub_k1,
+                    len(fr['payload']), doc['subscribe']['reconfirms']))
+            t = lap('vi', t)
+
+            # (vii) the fleet view
+            rc, top, err, _ = served(tserver, cli, ['top', '--remote',
+                                                    socks['a'], '--once'])
+            up = sorted(ln.split()[0] for ln in top.splitlines()
+                        if re.match(r'[abcd] +up\b', ln))
+            check(rc == 0 and 'members 4/4 up' in top and
+                  up == list('abcd'),
+                  'scl: dn top --once: rc %d\n%s%s' % (rc, top, err))
+            rc, st, err, _ = served(tserver, cli, ['stats', '--cluster',
+                                                   '--remote', socks['a']])
+            fleet = json.loads(st) if rc == 0 else {}
+            check(rc == 0 and fleet.get('members_up') == 4 and
+                  sorted(fleet.get('members', {})) == list('abcd'),
+                  'scl: stats --cluster: rc %d: %s' % (rc, err[-300:]))
+            log('scl (vii) fleet: dn top --once:\n%s'
+                % '\n'.join('    ' + ln for ln in
+                            top.rstrip('\n').splitlines()[:8]))
+            t = lap('vii', t)
+            for m in list(servers):
+                stop(m)
+            for r in readers:
+                r.join()
+            torch.cuda.synchronize()
+            launches = {'onehot_dense': ck.launches['onehot_dense'],
+                        'sums': mod_iqs.launches['sums']}
+            gc.collect()
+            mem_after = torch.cuda.memory_allocated()
+            t = lap('viii', t)
+    finally:
+        for m in list(servers):
+            stop(m)
+    check(all(r.ended == 'end' for r in readers),
+          'scl: the stream was not ended by an end frame')
+    check(mem_after - mem_before <= DRAIN_SLACK_BYTES,
+          'scl: device memory after the drain %d B, before the members '
+          '%d B' % (mem_after, mem_before))
+    doc['memory'] = {'before': mem_before, 'after_drain': mem_after}
+    doc['launches'] = launches
+    doc['wall_s'] = time.monotonic() - t_phase
+    log('scl (viii) drain: device memory %d B before the members, %d B '
+        'after their drain; launches K1 %d, K7a %d; phase %.1f s (%s)'
+        % (mem_before, mem_after, launches['onehot_dense'],
+           launches['sums'], doc['wall_s'],
+           fmt_times(doc['walls_s'], 1)))
+    return doc
+
+
+def file_bytes(path):
+    with open(path, 'rb') as f:
+        return f.read()
+
+
 def main_path_keys(ck, captured, reps):
     """Phase 5: the kernel on the fused keys the main path gave it, the
     largest batch of each query at each segment count."""
@@ -4507,6 +5064,9 @@ def main():
                     'result to this file')
     ap.add_argument('--cluster-child', metavar='SPEC',
                     help=argparse.SUPPRESS)
+    ap.add_argument('--only-scl', action='store_true',
+                    help='run only what phase 15 needs (phases 1-4 and '
+                    '7) and phase 15; prints no result line')
     args = ap.parse_args()
     if args.cluster_child:
         return cluster_child(args.cluster_child)
@@ -4592,27 +5152,52 @@ def main():
             log('cold %-36s %8.3f s  (%d records, first scans of the '
                 'process)' % (name, time.monotonic() - t0, COLD_RECORDS))
 
-        shapes, captured, main_launches, forced = main_path(
-            cli, mod_ds, ck, ds, args.records)
-        sparse = sparse_phase(cli, mod_ds, ds, args.records)
-        build = build_phase(cli, mod_ds, ck, tmp, data, args.records)
-        pipeline = pipeline_phase(cli, mod_ds, ck, tmp, args.records,
-                                  forced, build)
-        queries, query_outputs = query_phase(cli, ck, tmp, args.records,
-                                             args.seed)
-        auto = auto_phase(cli, mod_ds, ck, tmp, args.records, forced,
-                          query_outputs)
-        parse = parse_phase(cli, mod_ds, ck, tmp, data, args.records,
-                            args.seed, forced, build, args.reps)
-        lifecycle = lifecycle_phase(cli, mod_ds, ck, tmp, data,
-                                    args.records, query_outputs)
-        serve, k7, k7a = serve_phase(cli, ck, tmp, args.records,
-                                     query_outputs, forced, main_launches,
-                                     args.reps)
-        cluster, k9 = cluster_phase(cli, mod_ds, ck, tmp, args.records,
-                                    queries['builds_s']['hour'], args.reps)
-        subscribe = subscribe_phase(cli, ck, tmp, args.seed,
-                                    serve['memory'])
+        walls = {}
+
+        def phase(label, fn, *a):
+            t0 = time.monotonic()
+            rv = fn(*a)
+            torch.cuda.synchronize()
+            walls[label] = time.monotonic() - t0
+            log('phase %s: %.1f s' % (label, walls[label]))
+            return rv
+        shapes, captured, main_launches, forced = phase(
+            '4 scans', main_path, cli, mod_ds, ck, ds, args.records)
+        if args.only_scl:
+            queries, query_outputs = phase(
+                '7 query', query_phase, cli, ck, tmp, args.records,
+                args.seed)
+            scl = phase('15 scl', scl_phase, cli, mod_ds, ck, tmp,
+                        query_outputs, forced, None)
+            print(json.dumps({'serve_cluster': scl}), flush=True)
+            log('smoke (phases 1-4, 7 and 15 only): %.1f s'
+                % (time.monotonic() - t_smoke))
+            return 0
+        sparse = phase('5 sparse', sparse_phase, cli, mod_ds, ds,
+                       args.records)
+        build = phase('6 build', build_phase, cli, mod_ds, ck, tmp, data,
+                      args.records)
+        pipeline = phase('6b pipe', pipeline_phase, cli, mod_ds, ck, tmp,
+                         args.records, forced, build)
+        queries, query_outputs = phase('7 query', query_phase, cli, ck,
+                                       tmp, args.records, args.seed)
+        auto = phase('8 auto', auto_phase, cli, mod_ds, ck, tmp,
+                     args.records, forced, query_outputs)
+        parse = phase('9 parse', parse_phase, cli, mod_ds, ck, tmp, data,
+                      args.records, args.seed, forced, build, args.reps)
+        lifecycle = phase('9b lifecycle', lifecycle_phase, cli, mod_ds,
+                          ck, tmp, data, args.records, query_outputs)
+        serve, k7, k7a = phase('12 serve', serve_phase, cli, ck, tmp,
+                               args.records, query_outputs, forced,
+                               main_launches, args.reps)
+        cluster, k9 = phase('13 cluster', cluster_phase, cli, mod_ds, ck,
+                            tmp, args.records,
+                            queries['builds_s']['hour'], args.reps)
+        subscribe = phase('14 sub', subscribe_phase, cli, ck, tmp,
+                          args.seed, serve['memory'])
+        scl = phase('15 scl', scl_phase, cli, mod_ds, ck, tmp,
+                    query_outputs, forced,
+                    percentile(serve['latency_s']['residency'], 0.5))
     torch.cuda.synchronize()
 
     # 10. the kernel on the main path's own keys, and on uniform keys at
@@ -4674,7 +5259,9 @@ def main():
         'latency_s', 'memory', 'launches', 'wall_s')}}), flush=True)
     print(json.dumps({'cluster': cluster}), flush=True)
     print(json.dumps({'subscribe': subscribe}), flush=True)
+    print(json.dumps({'serve_cluster': scl}), flush=True)
     block = parse['shapes'][0]
+    log('phase walls: %s' % fmt_times(walls, 1))
     log('smoke: %.1f s' % (time.monotonic() - t_smoke))
     log('gpu: %s' % card)
     print(json.dumps({'kernels': [{
@@ -4690,6 +5277,7 @@ def main():
         'cluster_launches': cluster['cluster_launches'],
         'cluster_process_launches': cluster['cluster_process_launches'],
         'subscribe_launches': subscribe['launches']['onehot_dense'],
+        'scl_launches': scl['launches']['onehot_dense'],
         'max_abs_err': max(r['max_abs_err'] for r in results),
         'ms': main['ms'], 'plain_ms': main['plain_ms'],
         'bound_ms': main['bound_ms'], 'bound_by': main['bound_by'],
@@ -4714,7 +5302,8 @@ def main():
         dict(k7, query_launches=sum(q['dispatches'] for q in
                                     queries['queries']),
              subscribe_launches=subscribe['launches']['fold']),
-        dict(k7a, subscribe_launches=subscribe['launches']['sums']),
+        dict(k7a, subscribe_launches=subscribe['launches']['sums'],
+             scl_launches=scl['launches']['sums']),
         k9]}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': kind,

@@ -10,17 +10,19 @@ or device), the host-side index commands `index-read`, `rollup` and
 `compact`, and the configuration commands `datasource-add`,
 `datasource-update`, `datasource-remove`, `datasource-list`,
 `datasource-show`, `metric-add`, `metric-list`, `metric-remove` and
-`index-config`; and the resident server: `serve` (serve/server.py, on
-DN_TORCH_DEVICE), `stats` (with `--cluster`, the fleet view of
+`index-config`; the resident server: `serve` (serve/server.py, on
+DN_TORCH_DEVICE, alone or as a cluster member with `--cluster` and
+`--member`), `stats` (with `--cluster`, the fleet view of
 serve/fleet.py), `events`, `subscribe` (standing queries,
 serve/subscribe.py) and `top` (serve/top.py), with `--remote` and
-`--trace` on `scan`, `query` and `build`.  Option parsing, breakdown
-expansion, warnings (`--warnings`), output and the `-t` timing flag
-are the reference CLI's, so the port prints byte-identical results and
+`--trace` on `scan`, `query` and `build`; the cluster's `topo`
+(serve/coordinator.py, serve/rebalance.py); and the integrity commands
+`scrub` and `quarantine` (integrity.py, serve/scrub.py).  Option
+parsing, breakdown expansion, warnings (`--warnings`), output and the
+`-t` timing flag are the reference CLI's, so the port prints byte-identical results and
 writes byte-identical index trees, locally and over `--remote`.
-`--assetroot` on `query` and the cluster options of `serve` are not
-ported: the first is an unknown option (a usage error), the others
-fail naming what is missing.  The configuration is the same file as
+`--assetroot` on `query` is not ported: it is an unknown option (a
+usage error).  The configuration is the same file as
 bin/dn's ($DRAGNET_CONFIG or ~/.dragnetrc).
 
 Exit codes: 2 for usage errors (with the usage text on stderr), 1 for
@@ -91,6 +93,15 @@ dn rollup            [--tree=INDEX_PATH] [--interval=hour|day]
 dn compact           [--tree=INDEX_PATH] [--interval=hour|day]
                      [--min-gens=N]
 dn serve             --socket=PATH | --port=N [--pidfile=PATH] [--validate]
+                     [--cluster=TOPOLOGY.json --member=NAME]
+dn topo              show|status|apply NEW.json|commit|abort|rebalance
+                     [--topology=TOPOLOGY.json] [--wait=S] [--force]
+                     [--apply]
+dn scrub             [--tree=INDEX_PATH] [--check] [--forget-missing]
+                     [--repair --cluster=TOPOLOGY.json --member=NAME]
+                     [--remote=SOCKET|HOST:PORT]
+dn quarantine        list|clean [--tree=INDEX_PATH] [--older-than=AGE]
+                     [--max-bytes=N]
 dn stats             [--remote=SOCKET|HOST:PORT] [--prom] [--cluster]
 dn events            [--remote=SOCKET|HOST:PORT] [--follow]
 dn subscribe         --remote=SOCKET|HOST:PORT [--before=START_TIME]
@@ -120,8 +131,9 @@ DN_OPTIONS = [
     (['breakdowns', 'b'], 'arrayOfString', []),
     # index-build writer pool override; DN_BUILD_THREADS for one run
     (['build-threads'], 'string', None),
-    # `dn serve --cluster=TOPOLOGY.json --member=NAME`: parsed so the
-    # refusal names what is missing (the cluster is not ported)
+    # `dn serve` cluster mode: --cluster=TOPOLOGY.json names the
+    # scatter-gather cluster map (defaults to DN_SERVE_TOPOLOGY when
+    # set) and --member=NAME this server's identity in it
     (['cluster'], 'string', None),
     (['counters'], 'bool', None),
     (['data-format'], 'string', 'json'),
@@ -164,8 +176,27 @@ DN_OPTIONS = [
     (['subscribe'], 'bool', None),
     (['time-field'], 'string', None),
     (['time-format'], 'string', None),
-    # `dn rollup` / `dn compact`: limit the walk to one index root
+    # `dn rollup` / `dn compact` / `dn scrub` / `dn quarantine`: limit
+    # the walk to one index root
     (['tree'], 'string', None),
+    # `dn topo` dynamic-topology options: --topology names the
+    # coordinator file (defaults to DN_SERVE_TOPOLOGY), --wait bounds
+    # a readiness wait in seconds, --force commits an unready
+    # transition, --apply publishes a rebalance proposal
+    (['topology'], 'string', None),
+    (['wait'], 'string', None),
+    (['force'], 'bool', None),
+    (['apply'], 'bool', None),
+    # `dn scrub` / `dn quarantine` integrity options: --repair pulls
+    # good copies from cluster co-replicas, --check reports without
+    # quarantining, --forget-missing drops catalog entries for shards
+    # gone from disk, --older-than age-gates `dn quarantine clean`,
+    # --max-bytes evicts oldest-first down to a byte budget
+    (['max-bytes'], 'string', None),
+    (['repair'], 'bool', None),
+    (['check'], 'bool', None),
+    (['forget-missing'], 'bool', None),
+    (['older-than'], 'string', None),
     # one JSON span tree per data command on stderr (DN_TRACE=stderr
     # for one run); composes with --remote — the client ships its
     # trace id and grafts the server's spans
@@ -1070,7 +1101,8 @@ def cmd_follow(ctx, argv):
 
 
 def _integrity_trees(opts):
-    """[(dsname-or-None, indexroot)] a rollup/compact pass covers:
+    """[(dsname-or-None, indexroot)] a rollup/compact/scrub/quarantine
+    pass covers:
     the --tree override, else every configured file datasource's
     index tree."""
     from . import integrity as mod_integrity
@@ -1153,6 +1185,209 @@ def cmd_compact(ctx, argv):
                      % (total['compacted'],
                         total['generations_removed']))
     return 0
+
+
+def _parse_age(raw):
+    """'30s' / '15m' / '12h' / '7d' (or bare seconds) -> seconds."""
+    mult = {'s': 1, 'm': 60, 'h': 3600, 'd': 86400}
+    val, unit = raw, 1
+    if raw and raw[-1] in mult:
+        val, unit = raw[:-1], mult[raw[-1]]
+    try:
+        seconds = float(val) * unit
+        if seconds < 0:
+            raise ValueError(raw)
+    except ValueError:
+        raise UsageError('bad value for "older-than": "%s"' % raw)
+    return seconds
+
+
+def cmd_scrub(ctx, argv):
+    """`dn scrub [--tree T] [--check] [--forget-missing]
+    [--repair --cluster TOPO.json --member NAME]
+    [--remote SOCK|HOST:PORT]`: walk index trees comparing shard
+    bytes against the integrity catalog (integrity.py).  Mismatches
+    quarantine (--check reports only); --repair pulls good copies
+    from committed cluster co-replicas; --remote asks a resident
+    server to run the pass itself (tree-locked, plus anti-entropy in
+    cluster mode).  Exits 0 only when the trees are clean (or fully
+    repaired).  Not in USAGE_TEXT — the usage output is byte-pinned
+    to the reference goldens; documented in docs/robustness.md."""
+    import json as mod_json
+    opts = dn_parse_args(argv, ['tree', 'check', 'forget-missing',
+                                'repair', 'remote', 'cluster',
+                                'member'])
+    check_arg_count(opts, 0)
+    if opts.remote:
+        from .serve import client as mod_serve_client
+        req = {'op': 'scrub',
+               'repair': bool(getattr(opts, 'repair', None)),
+               'check': bool(getattr(opts, 'check', None))}
+        try:
+            rc, header, out, err = mod_serve_client.request_bytes(
+                opts.remote, req, timeout_s=600.0)
+        except (OSError, ValueError, DNError) as e:
+            fatal(DNError('serve endpoint "%s" unreachable'
+                          % opts.remote, cause=DNError(str(e))))
+        sys.stderr.write(err.decode('utf-8', 'replace'))
+        sys.stdout.write(out.decode('utf-8', 'replace'))
+        if rc != 0:
+            return rc
+        try:
+            doc = mod_json.loads(out.decode('utf-8'))
+        except ValueError:
+            return 1
+        dirty = sum((t.get('corrupt', 0) + t.get('missing', 0))
+                    for t in (doc.get('trees') or {}).values())
+        return 0 if dirty == 0 else 1
+    conf = mod_config.integrity_config()
+    if isinstance(conf, DNError):
+        fatal(conf)
+    if (opts.cluster is None) != (opts.member is None):
+        raise UsageError('"--cluster" and "--member" must be used '
+                         'together')
+    topo = None
+    if opts.cluster is not None:
+        from .serve import topology as mod_topology
+        try:
+            topo = mod_topology.load_topology(opts.cluster,
+                                              member=opts.member)
+        except DNError as e:
+            fatal(e)
+    if getattr(opts, 'repair', None) and topo is None:
+        raise UsageError('"--repair" needs donors: use --remote '
+                         'against a cluster member, or --cluster/'
+                         '--member with a topology file')
+    from . import integrity as mod_integrity
+    trees = _integrity_trees(opts)
+    if opts.tree and trees[0][0] is None:
+        # a bare --tree path carries no datasource name; repair needs
+        # one (the donor's shard_fetch resolves its tree by ds) —
+        # recover it from the configured datasources, or refuse
+        # rather than fail every donor fetch with a confusing error
+        import os
+        want = os.path.abspath(opts.tree)
+        try:
+            for dsname, root in \
+                    mod_integrity.configured_index_trees():
+                if os.path.abspath(root) == want:
+                    trees = [(dsname, opts.tree)]
+                    break
+        except DNError:
+            pass
+        if trees[0][0] is None and getattr(opts, 'repair', None):
+            fatal(DNError('"--repair" with "--tree": "%s" matches '
+                          'no configured datasource, so donors '
+                          'cannot serve it' % opts.tree))
+    rate = conf['scrub_rate_mb_s'] << 20
+    summary = {}
+    dirty = 0
+    for dsname, root in trees:
+        res = mod_integrity.scrub_tree(
+            root, quarantine=not getattr(opts, 'check', None),
+            forget_missing=bool(getattr(opts, 'forget_missing',
+                                        None)),
+            rate_bytes_s=rate)
+        res['repaired'] = 0
+        if getattr(opts, 'repair', None) and topo is not None:
+            res['repaired'] = _scrub_repair(
+                topo, opts.member, dsname, root,
+                res['corrupt_shards'] + res['missing_shards'])
+        summary[root] = res
+        dirty += res['corrupt'] + res['missing'] - res['repaired']
+    sys.stdout.write(mod_json.dumps(summary, indent=2,
+                                    sort_keys=True) + '\n')
+    return 0 if dirty == 0 else 1
+
+
+def _scrub_repair(topo, member, dsname, indexroot, rels):
+    """Pull damaged/missing shards from committed co-replicas (the
+    offline `dn scrub --repair` leg; a resident member repairs
+    itself through serve/scrub.py instead).  Returns how many
+    landed."""
+    import os
+    from . import integrity as mod_integrity
+    from .serve import rebalance as mod_rebalance
+    from .serve import scrub as mod_scrub
+    topo_conf = mod_config.topo_config()
+    if isinstance(topo_conf, DNError):
+        fatal(topo_conf)
+    catalog = mod_integrity.load_catalog(indexroot)
+    repaired = 0
+    for rel in rels:
+        expected = catalog.get(rel)
+        if expected is None:
+            continue
+        dest = os.path.join(os.path.abspath(indexroot), rel)
+        pid = topo.partition_of(dest, mod_scrub.rel_timeformat(rel))
+        donors = [m for m in topo.replicas(pid) if m != member]
+        for donor in donors:
+            try:
+                mod_rebalance.land_shard(
+                    topo.endpoint(donor), dsname, None, topo.epoch,
+                    rel, expected[0], expected[1], dest,
+                    topo_conf['handoff_timeout_s'],
+                    indexroot=indexroot)
+                repaired += 1
+                break
+            except (OSError, ValueError, DNError):
+                continue
+    return repaired
+
+
+def cmd_quarantine(ctx, argv):
+    """`dn quarantine list|clean [--older-than AGE] [--max-bytes N]
+    [--tree T]`: inspect and prune `.dn_quarantine/` — the forensics
+    directory every crash rollback and corrupt-detect moves
+    artifacts into, and nothing ever pruned before this command
+    existed.  AGE: '30s'/'15m'/'12h'/'7d' or bare seconds (clean
+    defaults to everything).  `--max-bytes N` evicts OLDEST-FIRST
+    only until each tree's quarantine fits the byte budget (newest
+    forensics survive); the serve scrub timer applies the same
+    eviction automatically under DN_QUARANTINE_MAX_MB."""
+    from . import integrity as mod_integrity
+    opts = dn_parse_args(argv, ['tree', 'older-than', 'max-bytes'])
+    if len(opts._args) < 1:
+        raise UsageError('missing quarantine subcommand')
+    sub = opts._args[0]
+    if sub == 'list':
+        check_arg_count(opts, 1)
+        total_files = 0
+        total_bytes = 0
+        for dsname, root in _integrity_trees(opts):
+            for name, size, age_s, path in \
+                    mod_integrity.quarantine_entries(root):
+                sys.stdout.write('%12d %10ds %s\n'
+                                 % (size, int(age_s), path))
+                total_files += 1
+                total_bytes += size
+        sys.stderr.write('dn quarantine: %d file(s), %d byte(s)\n'
+                         % (total_files, total_bytes))
+        return 0
+    if sub == 'clean':
+        check_arg_count(opts, 1)
+        age_s = _parse_age(opts.older_than) \
+            if opts.older_than is not None else 0
+        max_bytes = None
+        if opts.max_bytes is not None:
+            try:
+                max_bytes = int(opts.max_bytes)
+                if max_bytes < 0:
+                    raise ValueError(opts.max_bytes)
+            except ValueError:
+                raise UsageError('bad value for "max-bytes": "%s"'
+                                 % opts.max_bytes)
+        removed = 0
+        freed = 0
+        for dsname, root in _integrity_trees(opts):
+            n, b = mod_integrity.quarantine_clean(
+                root, older_than_s=age_s, max_bytes=max_bytes)
+            removed += n
+            freed += b
+        sys.stderr.write('dn quarantine: removed %d file(s), '
+                         'freed %d byte(s)\n' % (removed, freed))
+        return 0
+    raise UsageError('unknown quarantine subcommand: "%s"' % sub)
 
 
 # ---------------------------------------------------------------------------
@@ -1401,11 +1636,12 @@ def cmd_subscribe(ctx, argv):
 
 def _serve_configs():
     """Every knob `dn serve` reads, validated (a malformed value is
-    fatal), and the unported ones refused."""
-    from .serve import server as mod_server
+    fatal)."""
     confs = {}
     for name, fn in (('serve', mod_config.serve_config),
                      ('remote', mod_config.remote_config),
+                     ('router', mod_config.router_config),
+                     ('topo', mod_config.topo_config),
                      ('faults', mod_config.faults_config),
                      ('obs', mod_config.obs_config),
                      ('integrity', mod_config.integrity_config),
@@ -1417,28 +1653,167 @@ def _serve_configs():
         if isinstance(conf, DNError):
             fatal(conf)
         confs[name] = conf
-    err = mod_server.check_unported_knobs(confs['integrity'])
-    if err is not None:
-        fatal(err)
     return confs
 
 
+def cmd_topo(ctx, argv):
+    """`dn topo show|status|apply|commit|abort|rebalance
+    [--topology T.json] ...`: dynamic cluster topology management
+    (serve/coordinator.py, serve/rebalance.py).  `apply NEW.json`
+    publishes a pending epoch (members stream their newly-assigned
+    shards from the committed owners), `commit` cuts over atomically
+    once every member is handoff-ready (`--wait S` polls readiness,
+    `--force` overrides), `abort` withdraws the pending epoch, and
+    `rebalance` proposes partition moves toward load from the
+    members' live /stats (`--apply` publishes the proposal).  Host
+    work: no device is touched."""
+    import json
+    import os
+    opts = dn_parse_args(argv, ['topology', 'wait', 'force',
+                                'apply'])
+    if len(opts._args) < 1:
+        raise UsageError('missing topo subcommand')
+    sub = opts._args[0]
+    path = opts.topology or os.environ.get('DN_SERVE_TOPOLOGY') \
+        or None
+    if path is None:
+        raise UsageError('"--topology" (or DN_SERVE_TOPOLOGY) is '
+                         'required')
+    wait_s = None
+    if opts.wait is not None:
+        try:
+            wait_s = float(opts.wait)
+            if wait_s < 0:
+                raise ValueError(opts.wait)
+        except ValueError:
+            raise UsageError('bad value for "wait": "%s"'
+                             % opts.wait)
+    from .serve import coordinator as mod_coordinator
+    from .serve import topology as mod_topology
+    try:
+        if sub == 'show':
+            check_arg_count(opts, 1)
+            committed, pending = \
+                mod_topology.load_topology_state(path)
+            doc = {'committed': committed.summary()}
+            if pending is not None:
+                doc['pending'] = pending.summary()
+            sys.stdout.write(json.dumps(doc, indent=2,
+                                        sort_keys=True) + '\n')
+            return 0
+        if sub == 'status':
+            check_arg_count(opts, 1)
+            doc = mod_coordinator.transition_status(path)
+            sys.stdout.write(json.dumps(doc, indent=2,
+                                        sort_keys=True) + '\n')
+            return 0 if doc.get('ready') else 1
+        if sub == 'apply':
+            check_arg_count(opts, 2)
+            new_path = opts._args[1]
+            try:
+                with open(new_path, 'r') as f:
+                    new_doc = json.load(f)
+            except (OSError, ValueError) as e:
+                fatal(DNError('cannot read topology "%s": %s'
+                              % (new_path, e)))
+            committed, pending = mod_coordinator.begin_transition(
+                path, new_doc)
+            sys.stderr.write(
+                'dn topo: pending epoch %d published (committed '
+                'epoch %d; members hand off, then `dn topo '
+                'commit`)\n' % (pending.epoch, committed.epoch))
+            return 0
+        if sub == 'commit':
+            check_arg_count(opts, 1)
+            if wait_s:
+                status = mod_coordinator.wait_ready(
+                    path, timeout_s=wait_s)
+            else:
+                status = mod_coordinator.transition_status(path)
+            if not status.get('ready') and \
+                    not getattr(opts, 'force', None):
+                lag = [m for m, d in
+                       (status.get('members') or {}).items()
+                       if not d.get('ready')]
+                fatal(DNError(
+                    'transition to epoch %s not ready: member(s) %s '
+                    'still handing off (wait with --wait S, or '
+                    '--force to cut over anyway)'
+                    % (status.get('pending_epoch'),
+                       ','.join(sorted(lag)) or '?')))
+            committed = mod_coordinator.commit_transition(path)
+            sys.stderr.write('dn topo: epoch %d committed\n'
+                             % committed.epoch)
+            return 0
+        if sub == 'abort':
+            check_arg_count(opts, 1)
+            committed = mod_coordinator.abort_transition(path)
+            sys.stderr.write('dn topo: transition aborted '
+                             '(committed epoch %d stands)\n'
+                             % committed.epoch)
+            return 0
+        if sub == 'rebalance':
+            check_arg_count(opts, 1)
+            committed, pending = \
+                mod_topology.load_topology_state(path)
+            if pending is not None:
+                fatal(DNError('transition to epoch %d already '
+                              'pending; commit or abort it first'
+                              % pending.epoch))
+            from .serve import rebalance as mod_rebalance
+            loads = mod_rebalance.collect_loads(committed)
+            doc, decisions = mod_rebalance.propose_moves(committed,
+                                                         loads)
+            out = {'loads': loads, 'decisions': decisions,
+                   'proposed_epoch': doc['epoch'] if doc else None}
+            sys.stdout.write(json.dumps(out, indent=2,
+                                        sort_keys=True) + '\n')
+            if doc is None:
+                sys.stderr.write('dn topo: cluster balanced; '
+                                 'nothing to move\n')
+                return 0
+            if getattr(opts, 'apply', None):
+                mod_coordinator.begin_transition(
+                    path, doc, note={'rebalance': decisions})
+                sys.stderr.write(
+                    'dn topo: pending epoch %d published '
+                    '(%d move(s))\n' % (doc['epoch'],
+                                        len(decisions)))
+            return 0
+        raise UsageError('unknown topo subcommand: "%s"' % sub)
+    except DNError as e:
+        fatal(e)
+
+
 def cmd_serve(ctx, argv):
-    """`dn serve --socket PATH | --port N [--pidfile P] [--validate]`:
-    the resident single-member server (serve/server.py) on
-    DN_TORCH_DEVICE (CUDA unless it says cpu).  `--cluster`/`--member`
-    (and DN_SERVE_TOPOLOGY) need the cluster modules, which are not
-    ported: they fail saying so."""
+    """`dn serve --socket PATH | --port N [--pidfile P]
+    [--cluster TOPOLOGY.json --member NAME] [--validate]`: the resident
+    query server (serve/server.py) on DN_TORCH_DEVICE (CUDA unless it
+    says cpu), optionally as a member of a scatter-gather cluster
+    (serve/topology.py, serve/router.py)."""
     from .ops import resolve_device
     opts = dn_parse_args(argv, ['socket', 'port', 'pidfile', 'cluster',
                                 'member', 'validate'])
     check_arg_count(opts, 0)
     confs = _serve_configs()
-    if opts.cluster or opts.member or os.environ.get('DN_SERVE_TOPOLOGY'):
-        fatal(DNError('"serve --cluster/--member" is not ported to '
-                      'dragnet_tpu_torch (it needs the cluster router '
-                      'and topology, serve/router.py and '
-                      'serve/topology.py)'))
+    cluster = opts.cluster or os.environ.get('DN_SERVE_TOPOLOGY') \
+        or None
+    if (cluster is None) != (opts.member is None):
+        raise UsageError('"--cluster" and "--member" must be used '
+                         'together')
+    topo = None
+    topo_pending = None
+    if cluster is not None:
+        from .serve import topology as mod_topology
+        try:
+            # a pending transition file loads as (committed, pending):
+            # the server serves the committed map and — when this
+            # member appears in the pending epoch — starts its shard
+            # handoff immediately (a fresh joiner's startup path)
+            topo, topo_pending = mod_topology.load_topology_state(
+                cluster, member=opts.member)
+        except DNError as e:
+            fatal(e)
     port = None
     if opts.port is not None:
         try:
@@ -1495,7 +1870,21 @@ def cmd_serve(ctx, argv):
           'delta_pct=%d\n'
           % (sub_conf['max'], sub_conf['coalesce_ms'],
              sub_conf['queue_depth'], sub_conf['delta_pct']))
-        w('integrity config ok: verify=%s\n' % integ_conf['verify'])
+        router_conf, topo_conf = confs['router'], confs['topo']
+        w('router config ok: probe_ms=%d failures=%d cooldown_ms=%d '
+          'hedge_ms=%d fetch_timeout_s=%d partial=%s\n'
+          % (router_conf['probe_ms'], router_conf['failures'],
+             router_conf['cooldown_ms'], router_conf['hedge_ms'],
+             router_conf['fetch_timeout_s'], router_conf['partial']))
+        w('topo config ok: poll_ms=%d handoff_timeout_s=%d '
+          'handoff_retries=%d max_moves=%d\n'
+          % (topo_conf['poll_ms'], topo_conf['handoff_timeout_s'],
+             topo_conf['handoff_retries'], topo_conf['max_moves']))
+        w('integrity config ok: verify=%s scrub_interval_s=%d '
+          'scrub_rate_mb_s=%d quarantine_max_mb=%d\n'
+          % (integ_conf['verify'], integ_conf['scrub_interval_s'],
+             integ_conf['scrub_rate_mb_s'],
+             integ_conf['quarantine_max_mb']))
         w('resources config ok: disk_low_pct=%g disk_critical_pct=%g '
           'poll_ms=%d mem_budget_mb=%d fd_headroom=%d '
           'events_file_max_mb=%d\n'
@@ -1520,6 +1909,19 @@ def cmd_serve(ctx, argv):
              if dev_conf['scan_partitions'] == 'auto'
              else dev_conf['scan_partitions'],
              mod_scan_mt.scan_threads()))
+        if topo is not None:
+            w('cluster topology ok: member=%s epoch=%d assign=%s '
+              'members=%d partitions=%d (owns: %s)\n'
+              % (opts.member, topo.epoch, topo.assign,
+                 len(topo.members), len(topo.partitions),
+                 ','.join(str(p) for p in topo.partitions_of(opts.member))
+                 or 'none'))
+            if topo_pending is not None:
+                w('cluster transition pending: epoch %d (owns: %s)\n'
+                  % (topo_pending.epoch,
+                     ','.join(str(p) for p in
+                              topo_pending.partitions_of(opts.member))
+                     or 'none'))
         sites = confs['faults']['sites']
         if sites:
             w('faults armed: %s\n' % ' '.join(
@@ -1530,7 +1932,11 @@ def cmd_serve(ctx, argv):
     from .serve import server as mod_server
     try:
         return mod_server.serve_main(socket_path=opts.socket, port=port,
-                                     pidfile=opts.pidfile)
+                                     pidfile=opts.pidfile, cluster=topo,
+                                     member=opts.member,
+                                     router_conf=confs['router'],
+                                     pending=topo_pending,
+                                     topo_conf=confs['topo'])
     except DNError as e:
         fatal(e)
 
@@ -1551,13 +1957,16 @@ COMMANDS = {
     'index-scan': cmd_index_scan,
     'compact': cmd_compact,
     'query': cmd_query,
+    'quarantine': cmd_quarantine,
     'rollup': cmd_rollup,
     'scan': cmd_scan,
+    'scrub': cmd_scrub,
     'serve': cmd_serve,
     'stats': cmd_stats,
     'events': cmd_events,
     'subscribe': cmd_subscribe,
     'top': cmd_top,
+    'topo': cmd_topo,
 }
 
 

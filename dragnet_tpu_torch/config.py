@@ -9,7 +9,8 @@ validates: DN_FOLLOW_* (follow_config) and the observability knobs
 (serve_config), DN_REMOTE_* (remote_config), DN_VERIFY/DN_SCRUB_*
 (integrity_config) and the index query's device lane
 (index_device_config), and the standing-query knobs DN_SUB_*
-(subscribe_config).  The cluster and topology knobs are not ported.
+(subscribe_config), and the cluster's DN_ROUTER_* (router_config) and
+DN_TOPO_* (topo_config).
 Re-implements lib/config-common.js (clone-on-write
 DragnetConfig, versioned vmaj/vmin 0.0, schema-validated load) and
 lib/config-local.js (JSON file at $DRAGNET_CONFIG or
@@ -531,6 +532,119 @@ def remote_config(env=None):
     return rv
 
 
+# --- scatter-gather router knobs (DN_ROUTER_*) ------------------------
+#
+# Same contract as the serve/remote knobs: parsed and validated in one
+# place (serve/router.py consumes them; `dn serve --validate` checks
+# them up front).  Each entry: (env name, kind, default, min).
+
+_ROUTER_KNOBS = [
+    # member health-probe cadence (the breaker's recovery signal)
+    ('DN_ROUTER_PROBE_MS', 'int', 500, 50),
+    # consecutive probe/dispatch failures before a member's circuit
+    # breaker opens
+    ('DN_ROUTER_FAILURES', 'int', 3, 1),
+    # how long an open breaker waits before allowing one half-open
+    # trial request
+    ('DN_ROUTER_COOLDOWN_MS', 'int', 2000, 1),
+    # hedged reads: minimum delay before firing a duplicate partial
+    # at the next replica (the effective delay is max(this, observed
+    # p95 partial latency)); 0 disables hedging
+    ('DN_ROUTER_HEDGE_MS', 'int', 0, 0),
+    # per-partial-fetch wall-clock bound (a dead-but-accepting member
+    # must cost the router a bounded wait, never a hang)
+    ('DN_ROUTER_FETCH_TIMEOUT_S', 'int', 60, 1),
+]
+
+
+def router_config(env=None):
+    """The resolved DN_ROUTER_* knob dict (keys: probe_ms, failures,
+    cooldown_ms, hedge_ms, fetch_timeout_s, partial), or DNError on
+    the first malformed value.  DN_ROUTER_PARTIAL picks the response
+    contract when every replica of a partition is down: 'error' (the
+    default — a clean retryable DNError naming the missing
+    partitions) or 'allow' (a partial=true response merging the live
+    partitions, missing ids named in the header)."""
+    if env is None:
+        env = os.environ
+    rv = {}
+    for name, kind, default, minimum in _ROUTER_KNOBS:
+        key = name[len('DN_ROUTER_'):].lower()
+        raw = env.get(name)
+        if raw is None or raw == '':
+            rv[key] = default
+            continue
+        try:
+            value = int(raw)
+        except ValueError:
+            return DNError('%s: expected an integer >= %d, got "%s"'
+                           % (name, minimum, raw))
+        if value < minimum:
+            return DNError('%s: expected an integer >= %d, got "%s"'
+                           % (name, minimum, raw))
+        rv[key] = value
+    raw = env.get('DN_ROUTER_PARTIAL')
+    if raw is None or raw == '':
+        rv['partial'] = 'error'
+    elif raw in ('error', 'allow'):
+        rv['partial'] = raw
+    else:
+        return DNError('DN_ROUTER_PARTIAL: expected "error" or '
+                       '"allow", got "%s"' % raw)
+    return rv
+
+
+# --- dynamic-topology knobs (DN_TOPO_*) -------------------------------
+#
+# Same contract as the serve/router knobs: parsed and validated in one
+# place (serve/coordinator.py and serve/rebalance.py consume them;
+# `dn serve --validate` checks them up front).  Each entry: (env name,
+# kind, default, min).
+
+_TOPO_KNOBS = [
+    # topology-file poll cadence for live membership: a cluster member
+    # re-reads its --cluster file at this period and applies epoch
+    # changes while serving.  0 (the default) disables polling — the
+    # topology is static for the life of the process.
+    ('DN_TOPO_POLL_MS', 'int', 0, 0),
+    # per-shard-fetch wall-clock bound during partition handoff (a
+    # wedged donor must cost the joiner a bounded wait, never a hang)
+    ('DN_TOPO_HANDOFF_TIMEOUT_S', 'int', 120, 1),
+    # per-shard retry budget across donor replicas before the handoff
+    # records a failure for that shard
+    ('DN_TOPO_HANDOFF_RETRIES', 'int', 2, 0),
+    # rebalance planner: maximum partition moves per proposed epoch
+    # (small steps keep each handoff window short)
+    ('DN_TOPO_MAX_MOVES', 'int', 2, 1),
+]
+
+
+def topo_config(env=None):
+    """The resolved DN_TOPO_* knob dict (keys: poll_ms,
+    handoff_timeout_s, handoff_retries, max_moves), or DNError on the
+    first malformed value — the shared fail-fast contract `dn serve
+    --validate` checks."""
+    if env is None:
+        env = os.environ
+    rv = {}
+    for name, kind, default, minimum in _TOPO_KNOBS:
+        key = name[len('DN_TOPO_'):].lower()
+        raw = env.get(name)
+        if raw is None or raw == '':
+            rv[key] = default
+            continue
+        try:
+            value = int(raw)
+        except ValueError:
+            return DNError('%s: expected an integer >= %d, got "%s"'
+                           % (name, minimum, raw))
+        if value < minimum:
+            return DNError('%s: expected an integer >= %d, got "%s"'
+                           % (name, minimum, raw))
+        rv[key] = value
+    return rv
+
+
 # --- shard-integrity knobs (DN_VERIFY / DN_SCRUB_*) -------------------
 #
 # Same contract as the serve/remote knobs: parsed and validated in one
@@ -539,20 +653,42 @@ def remote_config(env=None):
 # and `--validate`).
 
 _SCRUB_KNOBS = [
-    # the reference's background threads in `dn serve` (scrub, rollup
-    # and compaction cadences); the port's server refuses any of them
-    # above 0 (serve/server.py check_unported_knobs): `dn rollup` and
-    # `dn compact` run on demand
+    # background scrub cadence in `dn serve`: walk every configured
+    # tree comparing bytes against the integrity catalog (and, in
+    # cluster mode, run anti-entropy against co-replicas).  0 (the
+    # default) disables the thread; `dn scrub` runs a pass on demand.
     ('DN_SCRUB_INTERVAL_S', 'int', 0, 1),
+    # scrub read-bandwidth bound (MB/s); the scrub is a janitor and
+    # must never compete with the serving path for disk.  0 =
+    # unlimited.
+    ('DN_SCRUB_RATE_MB_S', 'int', 64, 0),
+    # quarantine byte budget (MB): past it the serve scrub timer
+    # auto-evicts the OLDEST quarantined forensics until the
+    # directory fits — quarantined corruption must never fill the
+    # disk it was saved from.  0 (the default) keeps the manual-only
+    # `dn quarantine clean` contract.
+    ('DN_QUARANTINE_MAX_MB', 'int', 0, 0),
+    # background rollup-build cadence in `dn serve` (rides the scrub
+    # maintenance thread): refresh day/month rollup shards from the
+    # fine tree this often.  0 (the default) disables; `dn rollup`
+    # builds on demand.
     ('DN_ROLLUP_INTERVAL_S', 'int', 0, 1),
+    # background compaction cadence in `dn serve`: fold follow
+    # --append mini-generations back into their base shards this
+    # often.  0 (the default) disables; `dn compact` runs on demand.
     ('DN_COMPACT_INTERVAL_S', 'int', 0, 1),
+    # generations a base shard accumulates before the background
+    # compactor bothers rewriting it (an on-demand `dn compact`
+    # always folds from 1)
+    ('DN_COMPACT_MIN_GENS', 'int', 4, 1),
 ]
 
 
 def integrity_config(env=None):
-    """The resolved integrity knobs a single-member server reads (keys:
-    verify, scrub_interval_s, rollup_interval_s, compact_interval_s),
-    or DNError on the first malformed value.
+    """The resolved integrity knobs (keys: verify, scrub_interval_s,
+    scrub_rate_mb_s, quarantine_max_mb, rollup_interval_s,
+    compact_interval_s, compact_min_gens), or DNError on the first
+    malformed value.
 
     * DN_VERIFY: 'off' (default — byte-identical to the unverified
       path), 'open' (size+crc32 checked against the tree's integrity

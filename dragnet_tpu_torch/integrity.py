@@ -1,6 +1,7 @@
-"""Shard integrity: the per-tree checksum catalog and verified reads.
+"""Shard integrity: the per-tree checksum catalog, verified reads and
+the scrub walk.
 
-Counterpart of dragnet_tpu/integrity.py, its publish and read halves:
+Counterpart of dragnet_tpu/integrity.py (whole):
 
 * The catalog (`.dn_integrity.json` in the index root) records every
   committed shard's (size, crc32), written exactly like the journal
@@ -8,7 +9,8 @@ Counterpart of dragnet_tpu/integrity.py, its publish and read halves:
   SAME publish path (index_build_mt.publish_prepared embeds the
   checksums in the commit record; the recovery sweep's roll-forward
   replays them), so the catalog can never disagree with a committed
-  tree.
+  tree: builds, `dn follow` merge-publishes, handoff-fetched shards
+  and repair pulls all land entries.
 
 * Verified reads (DN_VERIFY=off|open|full): `open` checks size+crc on
   first shard-handle open — the handle cache's (path, mtime_ns, size,
@@ -20,10 +22,13 @@ Counterpart of dragnet_tpu/integrity.py, its publish and read halves:
   MISSING on disk: short results must be an explicit degradation, not
   a silent one.
 
-`configured_index_trees` lists the index trees of the configured file
-datasources: what `dn rollup` and `dn compact` walk without `--tree`.
-The reference's scrub walk (`dn scrub`, the serve scrubber) and its
-quarantine inspection come with `dn serve`.
+* The scrub walk (scrub_tree — `dn scrub`, the `scrub` serve op and
+  the DN_SCRUB_INTERVAL_S background thread) compares every shard's
+  bytes against the catalog at a bounded read rate, quarantining
+  mismatches; cluster members follow up with anti-entropy repair
+  (serve/scrub.py), pulling the good copy from a committed co-replica.
+
+All of it is host code: no device work, on the card or off it.
 """
 
 import json
@@ -59,8 +64,10 @@ class ShardIntegrityError(DNError):
             if self.integrity_shards else None
 
 
-def file_crc(path):
-    """(size, crc32) of a file, streamed in bounded chunks."""
+def file_crc(path, limiter=None):
+    """(size, crc32) of a file, streamed in bounded chunks; an
+    optional RateLimiter bounds the read bandwidth (the scrub's
+    janitor discipline)."""
     crc = 0
     size = 0
     with open(path, 'rb') as f:
@@ -70,6 +77,8 @@ def file_crc(path):
                 break
             crc = zlib.crc32(chunk, crc)
             size += len(chunk)
+            if limiter is not None:
+                limiter.consume(len(chunk))
     return size, crc & 0xffffffff
 
 
@@ -313,10 +322,14 @@ def quarantine_corrupt(shard_path, detail):
     mod_journal._quarantine(root, shard_path)
     mod_iqmt.shard_cache_invalidate(shard_path)
     counter_bump('integrity corrupt shards')
+    from .obs import events as obs_events
     from .obs import metrics as obs_metrics
     from .obs import trace as obs_trace
     obs_metrics.inc('integrity_corrupt_shards_total')
     obs_trace.event('integrity.corrupt', shard=rel)
+    if obs_events.enabled():
+        obs_events.emit('integrity.quarantine', shard=rel,
+                        error=detail)
     raise ShardIntegrityError(
         'index "%s": shard integrity check failed (%s); shard '
         'quarantined' % (shard_path, detail),
@@ -420,25 +433,125 @@ def check_missing(indexroot, present_paths, subdir=None,
             indexroot=indexroot, shards=missing)
 
 
-def configured_index_trees(cfg_path=None):
-    """[(dsname, indexroot)] for every configured file datasource
-    with an index tree — what `dn rollup`/`dn compact` walk without
-    `--tree` (and, in the reference, `dn scrub` and its serve-side
-    scrubber)."""
-    from . import config as mod_config
-    backend = mod_config.ConfigBackendLocal(cfg_path)
-    err, config = backend.load()
-    if err is not None and not getattr(err, 'is_enoent', False):
-        raise err
-    out = []
-    for dsname, dsdoc in config.datasource_list():
-        idx = (dsdoc.get('ds_backend_config') or {}).get('indexPath')
-        if idx:
-            out.append((dsname, idx))
-    return out
+# -- the scrub walk ---------------------------------------------------------
+
+def iter_tree_shards(indexroot):
+    """Every shard file under the tree as (relpath, abspath), litter
+    filtered, sorted (the offline analog of serve/rebalance
+    iter_shards, without needing a datasource)."""
+    from . import index_journal as mod_journal
+    indexroot = os.path.abspath(indexroot)
+    for sub in ('', 'by_day', 'by_hour'):
+        d = os.path.join(indexroot, sub) if sub else indexroot
+        try:
+            names = sorted(os.listdir(d))
+        except OSError:
+            continue
+        for name in names:
+            path = os.path.join(d, name)
+            if not os.path.isfile(path):
+                continue
+            if mod_journal.is_index_litter(name):
+                continue
+            if not sub and name != 'all':
+                continue        # only 'all' lives in the bare root
+            yield (shard_rel(indexroot, path), path)
 
 
-# -- quarantine inspection (the `dn serve` /stats recovery gauges) ----------
+class RateLimiter(object):
+    """Bound scrub read bandwidth (bytes/s); 0/None = unlimited.  The
+    scrub is a background janitor — it must never compete with the
+    serving path for disk."""
+
+    def __init__(self, bytes_per_s):
+        self.rate = bytes_per_s or 0
+        self._t0 = time.monotonic()
+        self._consumed = 0
+
+    def consume(self, nbytes):
+        if self.rate <= 0:
+            return
+        self._consumed += nbytes
+        ahead = self._consumed / float(self.rate) - \
+            (time.monotonic() - self._t0)
+        if ahead > 0:
+            time.sleep(min(ahead, 1.0))
+
+
+def scrub_tree(indexroot, quarantine=True, forget_missing=False,
+               rate_bytes_s=0, on_corrupt=None):
+    """Walk one tree comparing bytes against the catalog.  Returns
+    {'verified', 'corrupt', 'missing', 'uncataloged', 'bytes_read',
+    'corrupt_shards': [rel], 'missing_shards': [rel]}.
+
+    Mismatches are quarantined (quarantine=True; `--check` reports
+    only) and reported through `on_corrupt(rel, path)` so a cluster
+    member can schedule repair.  `forget_missing` drops catalog
+    entries for shards gone from disk — the operator's explicit
+    acknowledgment of loss (without it they keep failing verify-mode
+    queries, by design)."""
+    from . import index_journal as mod_journal
+    from . import index_query_mt as mod_iqmt
+    indexroot = os.path.abspath(indexroot)
+    catalog = load_catalog(indexroot)
+    limiter = RateLimiter(rate_bytes_s)
+    res = {'verified': 0, 'corrupt': 0, 'missing': 0,
+           'uncataloged': 0, 'bytes_read': 0,
+           'corrupt_shards': [], 'missing_shards': []}
+    seen = set()
+    for rel, path in iter_tree_shards(indexroot):
+        seen.add(rel)
+        expected = catalog.get(rel)
+        if expected is None:
+            res['uncataloged'] += 1
+            continue
+        try:
+            size, crc = file_crc(path, limiter=limiter)
+        except OSError:
+            # raced a concurrent retire/rewrite; the next pass sees
+            # the settled tree
+            continue
+        res['bytes_read'] += size
+        if (size, crc) == expected:
+            res['verified'] += 1
+            continue
+        # re-read BOTH sides once after a short grace: a concurrent
+        # publish renames shards then lands the catalog — either read
+        # may have straddled it.  True rot persists.
+        time.sleep(0.05)
+        fresh = load_catalog(indexroot).get(rel)
+        try:
+            size, crc = file_crc(path, limiter=limiter)
+        except OSError:
+            continue
+        res['bytes_read'] += size
+        if fresh is None:
+            res['uncataloged'] += 1
+            continue
+        if (size, crc) == fresh:
+            res['verified'] += 1
+            continue
+        expected = fresh
+        res['corrupt'] += 1
+        res['corrupt_shards'].append(rel)
+        counter_bump('integrity scrub corrupt')
+        if quarantine:
+            mod_journal._quarantine(indexroot, path)
+            mod_iqmt.shard_cache_invalidate(path)
+            counter_bump('integrity corrupt shards')
+            from .obs import metrics as obs_metrics
+            obs_metrics.inc('integrity_corrupt_shards_total')
+        if on_corrupt is not None:
+            on_corrupt(rel, path)
+    for rel in sorted(set(catalog) - seen):
+        res['missing'] += 1
+        res['missing_shards'].append(rel)
+    if forget_missing and res['missing_shards']:
+        update_catalog(indexroot, remove=res['missing_shards'])
+    return res
+
+
+# -- quarantine inspection / cleanup ----------------------------------------
 
 def quarantine_entries(indexroot):
     """[(name, bytes, age_s, path)] for the tree's quarantine
@@ -470,3 +583,48 @@ def quarantine_stats(indexroot):
     entries = quarantine_entries(indexroot)
     return {'files': len(entries),
             'bytes': sum(e[1] for e in entries)}
+
+
+def quarantine_clean(indexroot, older_than_s=0, max_bytes=None):
+    """Delete quarantined artifacts older than `older_than_s` (0 =
+    everything).  With `max_bytes`, evict OLDEST-FIRST only until the
+    directory fits the byte budget (newer forensics survive — the
+    most recent incident is the one an operator still wants).
+    Returns (files_removed, bytes_removed).  This is the ONLY place
+    quarantined forensics are deleted — on operator request
+    (`dn quarantine clean [--max-bytes N]`) or the serve scrub
+    timer's DN_QUARANTINE_MAX_MB budget."""
+    entries = quarantine_entries(indexroot)
+    total = sum(e[1] for e in entries)
+    removed = 0
+    freed = 0
+    for name, size, age_s, path in entries:
+        if max_bytes is not None and total <= max_bytes:
+            break
+        if age_s < older_than_s:
+            continue
+        try:
+            os.unlink(path)
+        except OSError:
+            continue
+        removed += 1
+        freed += size
+        total -= size
+    return removed, freed
+
+
+def configured_index_trees(cfg_path=None):
+    """[(dsname, indexroot)] for every configured file datasource
+    with an index tree — what `dn scrub`/`dn quarantine` walk by
+    default and the serve-side scrubber iterates."""
+    from . import config as mod_config
+    backend = mod_config.ConfigBackendLocal(cfg_path)
+    err, config = backend.load()
+    if err is not None and not getattr(err, 'is_enoent', False):
+        raise err
+    out = []
+    for dsname, dsdoc in config.datasource_list():
+        idx = (dsdoc.get('ds_backend_config') or {}).get('indexPath')
+        if idx:
+            out.append((dsname, idx))
+    return out

@@ -262,15 +262,19 @@ class DatasourceCluster(datasource_file.DatasourceFile):
             'index_build_threads': build_threads(),
             'parse_mode': parse_mode(),
         }
-        # the serve topology module is not ported: a plan run under
-        # DN_SERVE_TOPOLOGY says so in-plan, as the reference reports a
-        # topology file it cannot load
+        # DN_SERVE_TOPOLOGY names the cluster topology file: report the
+        # partition layout resident `dn serve` processes would serve
+        # under.  Informational only — a broken topology file must not
+        # fail a dry run, so load errors report in-plan instead.
         topo_path = os.environ.get('DN_SERVE_TOPOLOGY')
         if topo_path:
-            plan['serve_topology'] = {
-                'path': topo_path,
-                'error': 'serve topology is not ported to '
-                         'dragnet_tpu_torch'}
+            from ..serve import topology as mod_topology
+            try:
+                plan['serve_topology'] = \
+                    mod_topology.load_topology(topo_path).summary()
+            except DNError as e:
+                plan['serve_topology'] = {'path': topo_path,
+                                          'error': str(e)}
         names = self.mesh.names() if self.mesh is not None else \
             mod_mesh.local_device_names(device)
         plan['mesh'] = {'axis': 'd', 'local_devices': names}

@@ -1,6 +1,6 @@
-"""dn serve on the card: the resident single-member query server.
+"""dn serve on the card: the resident query server and its cluster.
 
-Counterpart of dragnet_tpu/serve for one member.  A long-lived daemon
+Counterpart of dragnet_tpu/serve (whole).  A long-lived daemon
 holds the warm state every other layer builds — the shard-handle LRU,
 the whole-tree find memo, the audition verdicts, the CUDA context and
 the built kernel libraries, and the device residency pins — and
@@ -17,12 +17,19 @@ protocol with byte-identical output framing.  Modules:
 * ioloop.py    — the selector connection front end
 * pool.py      — pooled persistent multiplexed client connections
 * subscribe.py — standing queries: pushed result frames per publish
-* fleet.py     — the fleet document (here the one-member fleet)
+* fleet.py     — the fleet document, merged over every member
 * top.py       — `dn top`, the terminal console over the fleet view
+* topology.py  — the cluster map: members, partitions, shard assignment
+* router.py    — the scatter-gather router (failover, hedging, degraded
+                 modes) and the member side of a partial
+* coordinator.py — epoch publication, transitions, the topology watcher
+* rebalance.py — partition handoff (shard streaming), the planner
+* scrub.py     — self-repair, the scrub thread, anti-entropy, and the
+                 rollup/compaction timer
 
-The cluster modules (topology, router, coordinator, rebalance) and the
-scrub and maintenance threads (scrub) are not ported; the server
-refuses every knob and op that would reach them.
+The cluster modules are host code: routing, handoff and repair move
+key items and shard files, and each member's requests run on its own
+device.
 
 Import-light on purpose: the heavy modules load lazily.
 """

@@ -1,12 +1,11 @@
 """Fleet aggregation: one merged observability document for a whole
 `dn serve` cluster.
 
-Counterpart of dragnet_tpu/serve/fleet.py (whole).  The port's server
-is a single member (`cluster` and `member` are None, no router), so
-it answers with the one-member fleet of itself; the multi-member
-fetch below is the reference's, unexercised until the serve cluster
-is ported.  The device rows read the port's /stats `device` section
-(serve/residency.py and device_index.stats_doc).
+Counterpart of dragnet_tpu/serve/fleet.py (whole).  A cluster member
+fetches every member of its topology; a server outside any cluster
+answers with the one-member fleet of itself.  The device rows read
+the port's /stats `device` section (serve/residency.py and
+device_index.stats_doc).
 
 With per-process observability alone, an operator watching a
 5-member handoff under flood polls five /stats endpoints by hand and

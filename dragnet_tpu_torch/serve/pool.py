@@ -53,6 +53,12 @@ def _transport_error():
     return mod_client.RemoteTransportError
 
 
+class LiveTimeout(OSError):
+    """A pooled exchange whose own response never came while the
+    connection kept delivering other requests' frames: the connection
+    is alive, and its other in-flight exchanges stand."""
+
+
 class PooledConn(object):
     """One endpoint's persistent multiplexed connection."""
 
@@ -247,8 +253,10 @@ class PooledConn(object):
                     self._fail_all(OSError(
                         'pooled exchange timed out after %.1fs'
                         % timeout_s))
-                raise OSError('pooled exchange timed out after %.1fs'
-                              % timeout_s)
+                    raise OSError('pooled exchange timed out after '
+                                  '%.1fs' % timeout_s)
+                raise LiveTimeout('pooled exchange timed out after '
+                                  '%.1fs' % timeout_s)
             if w.error is not None:
                 raise w.error
             return w.header, w.payload
@@ -330,6 +338,13 @@ class ConnectionPool(object):
         conn = self._get(endpoint, connect_timeout_s)
         try:
             header, payload = conn.exchange(req, timeout_s, phase)
+        except LiveTimeout:
+            # the connection is demonstrably alive: keep it for the
+            # exchanges still in flight on it (the reference
+            # invalidates it here, failing them all with "connection
+            # invalidated" — a short-timeout probe starved for a few
+            # seconds then kills a long partial on the same conn)
+            raise
         except (DNError, OSError, ValueError):
             # even a failed exchange may have LEARNED the endpoint is
             # v1 (one concurrent first-contact waiter got the real

@@ -33,16 +33,25 @@ Overload posture (admission.py): per-tenant weighted-fair admission,
 deadline propagation and early load shedding, as in the reference.
 
 Ops: scan, query, build, stats, metrics, health, events, topology,
-ping, the standing queries of serve/subscribe.py (`subscribe` on a v2
-connection, `sub_ack`, `unsubscribe`) and the one-member fleet view of
-serve/fleet.py (`fleet_stats`), plus `_sleep` when
-DN_SERVE_TEST_OPS=1.  DN_METRICS_HISTORY_S > 0 arms the metric history
-(obs/history.py).  The cluster and scrub ops, and the knobs that would
-start the reference's scrub and maintenance threads, are not ported:
-each fails loudly with a message that names what is missing.  A device
-fault in a request fails that request (rc 1, "dn: ..."); the server
-keeps serving, and nothing answers from the host where the device was
-asked for.
+ping, query_partial, shard_manifest, shard_fetch, scrub, the standing
+queries of serve/subscribe.py (`subscribe` on a v2 connection,
+`sub_ack`, `unsubscribe`) and the fleet view of serve/fleet.py
+(`fleet_stats`: every member of the cluster, or a lone server as a
+one-member fleet), plus `_sleep` when DN_SERVE_TEST_OPS=1.
+DN_METRICS_HISTORY_S > 0 arms the metric history (obs/history.py).
+
+Cluster mode (`--cluster=TOPOLOGY.json --member=NAME`, serve/topology.py):
+the member owns its partitions of the index tree and routes incoming
+queries through the scatter-gather router (serve/router.py: the ops
+`query_partial`, failover, hedging, the degraded modes), follows live
+topology changes with shard handoff (serve/coordinator.py and
+rebalance.py: `shard_manifest`, `shard_fetch`), and repairs damaged
+shards from its co-replicas (serve/scrub.py: the repair manager, the
+`scrub` op and the DN_SCRUB_INTERVAL_S / DN_ROLLUP_INTERVAL_S /
+DN_COMPACT_INTERVAL_S threads).  All of that is host code; each
+member's own requests run on its device.  A device fault in a request
+fails that request (rc 1, "dn: ..."); the server keeps serving, and
+nothing answers from the host where the device was asked for.
 """
 
 import codecs
@@ -241,43 +250,13 @@ def device_engaged(counters):
     return any(counters.get(k) for k in _DEVICE_SIGNALS)
 
 
-# -- what a single-member server does not carry ----------------------------
-
-# ops that reach the reference's cluster and scrub modules
-# (serve/router.py, scrub.py, rebalance.py), and the module each needs
-UNPORTED_OPS = {
-    'scrub': 'serve/scrub.py',
-    'query_partial': 'the cluster router (serve/router.py)',
-    'shard_manifest': 'the shard handoff (serve/rebalance.py)',
-    'shard_fetch': 'the shard handoff (serve/rebalance.py)',
-}
-
-
-def unported_error(what, missing):
-    return DNError('%s is not ported to dragnet_tpu_torch (it needs %s)'
-                   % (what, missing))
-
-
-def check_unported_knobs(integ_conf):
-    """DNError for the first knob that would start a reference thread
-    this server does not carry, else None."""
-    for key, name, missing in (
-            ('scrub_interval_s', 'DN_SCRUB_INTERVAL_S',
-             'the scrub thread (serve/scrub.py)'),
-            ('rollup_interval_s', 'DN_ROLLUP_INTERVAL_S',
-             'the maintenance thread (serve/scrub.py)'),
-            ('compact_interval_s', 'DN_COMPACT_INTERVAL_S',
-             'the maintenance thread (serve/scrub.py)')):
-        if integ_conf[key] > 0:
-            return unported_error('%s > 0' % name, missing)
-    return None
-
-
 # -- the server -------------------------------------------------------------
 
 class DnServer(object):
     def __init__(self, socket_path=None, port=None, host='127.0.0.1',
-                 conf=None, pidfile=None, device=None):
+                 conf=None, pidfile=None, device=None, cluster=None,
+                 member=None, router_conf=None, pending=None,
+                 topo_conf=None):
         from ..ops import resolve_device
         if conf is None:
             conf = mod_config.serve_config()
@@ -295,20 +274,54 @@ class DnServer(object):
         # here, before anything binds
         self.device = str(resolve_device(
             device or os.environ.get('DN_TORCH_DEVICE') or 'cuda'))
+        # cluster mode (`--cluster=TOPOLOGY.json --member=NAME`): this
+        # server owns its partitions of the index tree and acts as
+        # scatter-gather router for incoming queries (serve/router.py)
+        self.cluster = cluster
+        self.member = member
+        self.router = None
+        # dynamic topology (serve/coordinator.py): the committed map
+        # can be swapped while serving, a pending epoch streams its
+        # handoff (serve/rebalance.py), and DN_TOPO_POLL_MS > 0 polls
+        # the topology file for both
+        if topo_conf is None:
+            topo_conf = mod_config.topo_config()
+        if isinstance(topo_conf, DNError):
+            raise topo_conf
+        self.topo_conf = topo_conf
+        self.pending = None
+        self._initial_pending = pending
+        self.puller = None
+        self.topo_watcher = None
+        self.topo_leaving = False
+        self._topo_lock = threading.Lock()
+        self._topo_counters = {'transitions': 0,
+                               'mismatch_rejections': 0,
+                               'resyncs': 0,
+                               'handoff_rejections': 0,
+                               'handoff_retries': 0}
+        if cluster is not None:
+            from . import router as mod_router
+            self.router = mod_router.Router(
+                cluster, member, conf=router_conf,
+                local_exec=self._local_partial,
+                self_draining=lambda: self.draining,
+                self_degraded=lambda: self.governor.is_read_only())
         self.socket_path = socket_path
         self.port = port
         self.host = host
         self.pidfile = pidfile
         self.bound_port = None
+        # shard integrity (integrity.py, serve/scrub.py): verified
+        # reads quarantine + reject retryably; the repair manager
+        # pulls good copies from co-replicas in the background; the
+        # scrub thread (DN_SCRUB_INTERVAL_S) sweeps proactively
         integ_conf = mod_config.integrity_config()
         if isinstance(integ_conf, DNError):
             raise integ_conf
         obs_conf = mod_config.obs_config()
         if isinstance(obs_conf, DNError):
             raise obs_conf
-        err = check_unported_knobs(integ_conf)
-        if err is not None:
-            raise err
         self.integrity_conf = integ_conf
         # resource governance (resources.py): disk watermarks drive
         # low/critical modes (the member flips read-only while queries
@@ -319,7 +332,11 @@ class DnServer(object):
             raise res_conf
         self._resource_paths_memo = (None, 0.0)
         self.governor = mod_resources.ResourceGovernor(
-            res_conf, paths=self._resource_paths)
+            res_conf, paths=self._resource_paths, member=member)
+        from . import scrub as mod_scrub
+        self.repair = mod_scrub.RepairManager(self)
+        self.scrubber = None
+        self.maintainer = None
         self.admission = mod_admission.Admission(
             conf['max_inflight'], conf['queue_depth'],
             tenant_quota=conf['tenant_quota'],
@@ -347,12 +364,6 @@ class DnServer(object):
         mod_residency.configure(dev_conf['residency_mb'] << 20)
         self._prewarm_doc = None
         self._prewarm_thread = None
-        # a single member: no cluster topology, no member name and no
-        # router (serve/topology.py and router.py are not ported), so
-        # the fleet view is the one-member fleet of this server
-        self.cluster = None
-        self.member = None
-        self.router = None
         # the metric-history snapshotter (obs/history.py), armed at
         # bind from DN_METRICS_HISTORY_S; off by default
         self.history = None
@@ -423,10 +434,46 @@ class DnServer(object):
         self.running = True
         _SERVER_LEAKS.track(self)
         self._hook = mod_lifecycle.install_writer_invalidation()
+        if self.router is not None:
+            self.router.start()
+        if self.cluster is not None:
+            obs_metrics.set_gauge('topo_epoch', self.cluster.epoch)
+            if self._initial_pending is not None:
+                # started mid-transition (e.g. a fresh joiner): begin
+                # the handoff immediately
+                self.apply_topology(self.cluster,
+                                    self._initial_pending)
+                self._initial_pending = None
+            if self.cluster.path and self.topo_conf['poll_ms'] > 0:
+                from . import coordinator as mod_coordinator
+                self.topo_watcher = mod_coordinator.TopologyWatcher(
+                    self, self.cluster.path,
+                    self.topo_conf['poll_ms'],
+                    log=self.log).start()
+        if self.integrity_conf['scrub_interval_s'] > 0:
+            from . import scrub as mod_scrub
+            self.scrubber = mod_scrub.ScrubThread(
+                self, self.integrity_conf['scrub_interval_s'],
+                self.integrity_conf['scrub_rate_mb_s'] << 20,
+                log=self.log).start()
+        if self.integrity_conf['rollup_interval_s'] > 0 or \
+                self.integrity_conf['compact_interval_s'] > 0:
+            # the rollup/compaction timer (serve/scrub.py): refresh
+            # day/month rollup shards and fold follow --append
+            # mini-generations in the background, governor-paused
+            # under disk pressure
+            from . import scrub as mod_scrub
+            self.maintainer = mod_scrub.MaintenanceThread(
+                self, self.integrity_conf['rollup_interval_s'],
+                self.integrity_conf['compact_interval_s'],
+                self.integrity_conf['compact_min_gens'],
+                log=self.log).start()
         # the event journal is per-PROCESS: the first server to bind
-        # installs it (DN_EVENTS / DN_EVENTS_FILE arm it)
+        # installs it (DN_EVENTS / DN_EVENTS_FILE arm it); embedded
+        # co-process members share it (the fleet merge dedupes their
+        # identical tails)
         if obs_events.journal() is None:
-            obs_events.install()
+            obs_events.install(member=self.member)
         self.governor.start()
         # serve-time device pre-warm (serve/residency.py): the CUDA
         # context and K7a's first launches on a background thread,
@@ -508,9 +555,20 @@ class DnServer(object):
         # flush queued response bytes (the draining rejections the
         # workers just framed included), then close every connection
         self.loop.shutdown(max(1.0, deadline - time.monotonic() + 1))
+        if self.topo_watcher is not None:
+            self.topo_watcher.stop()
         if self.history is not None:
             self.history.stop()
+        if self.scrubber is not None:
+            self.scrubber.stop()
+        if self.maintainer is not None:
+            self.maintainer.stop()
         self.governor.stop()
+        self.repair.stop()
+        if self.puller is not None:
+            self.puller.stop()
+        if self.router is not None:
+            self.router.stop()
         # flush warm state cleanly: cached shard handles hold open
         # mmaps / sqlite connections; the result cache hands its
         # reserved governor bytes back
@@ -558,6 +616,174 @@ class DnServer(object):
             auditions=doc.get('auditions'), ms=doc.get('ms'),
             error=doc.get('error'))
 
+    # -- dynamic topology -------------------------------------------------
+
+    def apply_topology(self, committed, pending):
+        """The live-membership cutover (TopologyWatcher calls this on
+        every observed change; also called at bind for a server
+        started mid-transition).  Idempotent: same-epoch re-applies
+        are no-ops.  A committed epoch bump swaps the serving map
+        atomically (router probers/pool conns for departed members
+        retire); a pending epoch starts the shard handoff."""
+        if self.cluster is None:
+            return
+        with self._topo_lock:
+            if committed.epoch > self.cluster.epoch:
+                self.cluster = committed
+                self.topo_leaving = \
+                    self.member not in committed.members
+                if self.router is not None:
+                    self.router.update_topology(committed)
+                self._topo_counters['transitions'] += 1
+                obs_metrics.inc('topo_epoch_transitions_total')
+                obs_metrics.set_gauge('topo_epoch', committed.epoch)
+                obs_events.emit('topo.commit', epoch=committed.epoch,
+                                leaving=self.topo_leaving or None)
+                self.log.info('topology committed',
+                              epoch=committed.epoch,
+                              leaving=self.topo_leaving)
+            if pending is not None and \
+                    pending.epoch > self.cluster.epoch:
+                # dedupe by CONTENT, not epoch number: an abort
+                # followed by a re-apply reuses committed+1, and a
+                # member that only saw the final file must not keep
+                # the withdrawn map's handoff state (serving the new
+                # assignments with the old pull's shards would be a
+                # silently short shard set)
+                if self.pending is None or \
+                        self.pending.epoch != pending.epoch or \
+                        self.pending.doc() != pending.doc():
+                    self.pending = pending
+                    obs_metrics.set_gauge('topo_pending_epoch',
+                                          pending.epoch)
+                    obs_events.emit('topo.pending',
+                                    epoch=pending.epoch)
+                    self._start_handoff(self.cluster, pending)
+                    self.log.info('topology pending',
+                                  epoch=pending.epoch)
+            elif self.pending is not None and \
+                    (pending is None or
+                     self.pending.epoch <= self.cluster.epoch):
+                # resolved: committed (the puller's ready flag keeps
+                # gating until its pull finishes) or aborted
+                resolved = self.pending
+                self.pending = None
+                obs_metrics.set_gauge('topo_pending_epoch', 0)
+                if pending is None and \
+                        resolved.epoch > self.cluster.epoch:
+                    obs_events.emit('topo.abort',
+                                    epoch=resolved.epoch)
+                if pending is None and self.puller is not None and \
+                        self.puller.target_epoch == resolved.epoch \
+                        and resolved.epoch > self.cluster.epoch:
+                    # aborted outright: stop a pull for the withdrawn
+                    # epoch (streamed shards are harmless litter the
+                    # partition filter ignores)
+                    self.puller.stop()
+                    self.puller = None
+
+    def _start_handoff(self, committed, pending):
+        """Spawn the shard puller for a pending epoch (call with
+        _topo_lock held).  Members LEAVING in the pending map pull
+        nothing — they are demoted (health reports draining) and
+        removed only after the commit, when ownership has moved."""
+        if self.member is None or self.member not in pending.members:
+            if self.puller is not None:
+                self.puller.stop()
+            self.puller = None
+            return
+        from . import rebalance as mod_rebalance
+        if self.puller is not None:
+            self.puller.stop()
+        self.puller = mod_rebalance.HandoffPuller(
+            committed, pending, self.member,
+            topo_conf=self.topo_conf, log=self.log,
+            governor=self.governor).start()
+
+    def retry_failed_handoff(self):
+        """Restart a FAILED pull for the still-pending epoch (the
+        watcher calls this every poll): a donor that was transiently
+        unreachable past the retry budget must not wedge the
+        transition until a process restart.  One attempt per poll,
+        never concurrent (only a finished, failed puller restarts);
+        a pull left failed after a forced early commit is out of
+        scope — its donors have moved epochs and the operator
+        explicitly chose the degraded window."""
+        with self._topo_lock:
+            puller, pending = self.puller, self.pending
+            if pending is None or puller is None or \
+                    puller.target_epoch != pending.epoch:
+                return False
+            if puller.ready or not puller.failed or \
+                    not puller.wait(0):
+                return False
+            self._topo_counters['handoff_retries'] = \
+                self._topo_counters.get('handoff_retries', 0) + 1
+            self.log.info('retrying failed handoff',
+                          epoch=pending.epoch, error=puller.error)
+            self._start_handoff(self.cluster, pending)
+            return True
+
+    def _topo_leaving_now(self):
+        """Demotion signal: True once this member is absent from the
+        pending map (leaving as soon as the transition starts, per
+        the demote-then-remove contract) or from the committed map
+        (already removed)."""
+        with self._topo_lock:
+            if self.cluster is None:
+                return False
+            if self.topo_leaving:
+                return True
+            return self.pending is not None and \
+                self.member not in self.pending.members
+
+    def _serving_for_epoch(self, epoch, pids=None):
+        """The topology a partial at `epoch` executes under, with the
+        epoch-mismatch and handoff gates applied.  Accepts the
+        committed epoch always, and the pending epoch during a
+        transition window (commits propagate asynchronously — a
+        router that saw the commit first must not be reject-stormed
+        by members that have not polled yet).  Raises the retryable
+        mismatch/handoff-incomplete DNErrors otherwise."""
+        with self._topo_lock:
+            committed, pending = self.cluster, self.pending
+            puller = self.puller
+        serving = None
+        if epoch == committed.epoch:
+            serving = committed
+        elif pending is not None and epoch == pending.epoch:
+            serving = pending
+        if serving is None:
+            with self._topo_lock:
+                self._topo_counters['mismatch_rejections'] += 1
+            obs_metrics.inc('topo_epoch_mismatch_total')
+            have = str(committed.epoch)
+            if pending is not None:
+                have += '/pending %d' % pending.epoch
+            e = DNError('topology epoch mismatch (member has %s, '
+                        'router sent %s)' % (have, epoch))
+            e.retryable = True
+            e.epoch_mismatch = True
+            e.current_epoch = committed.epoch
+            raise e
+        if puller is not None and not puller.ready and \
+                puller.target_epoch == epoch and pids is not None and \
+                (set(pids) & puller.affected_pids):
+            # this member's shards for the requested partitions are
+            # still streaming in: serving now would return a SHORT
+            # shard set with rc=0 — reject retryably instead (the
+            # router fails over to a replica that has the bytes)
+            with self._topo_lock:
+                self._topo_counters['handoff_rejections'] += 1
+            e = DNError('handoff incomplete for partition(s) %s '
+                        '(epoch %d): shards still streaming'
+                        % (','.join(str(p) for p in sorted(
+                            set(pids) & puller.affected_pids)),
+                           epoch))
+            e.retryable = True
+            raise e
+        return serving
+
     def memory_doc(self):
         """Device memory now against its level when this server
         configured residency (bytes; None on the CPU)."""
@@ -568,34 +794,51 @@ class DnServer(object):
                 'before_server_bytes': self._memory_before}
 
     def topology_doc(self):
-        """The /stats `topology` body of a member outside any cluster
-        (the reference's answer without --cluster)."""
-        return {'member': None, 'configured': False}
+        """The /stats `topology` section and the `topology` op body:
+        current/pending epochs, handoff progress, transition
+        counters, watcher telemetry — what the coordinator polls for
+        commit readiness and dashboards scrape."""
+        with self._topo_lock:
+            committed, pending = self.cluster, self.pending
+            puller = self.puller
+            counters = dict(self._topo_counters)
+        doc = {'member': self.member,
+               'configured': committed is not None}
+        if committed is None:
+            return doc
+        doc.update({
+            'epoch': committed.epoch,
+            'state': 'pending' if pending is not None
+            else 'committed',
+            'pending_epoch': pending.epoch
+            if pending is not None else None,
+            'leaving': self._topo_leaving_now(),
+            'source': committed.path,
+            'poll_ms': self.topo_conf['poll_ms'],
+            'partitions_owned':
+            committed.partitions_of(self.member),
+            'counters': counters,
+        })
+        doc['handoff'] = puller.status() if puller is not None \
+            else None
+        if pending is not None:
+            ready = puller is not None and \
+                puller.target_epoch == pending.epoch and puller.ready
+            doc['handoff_ready'] = ready
+            note = getattr(pending, 'note', None)
+            if note is not None:
+                doc['pending_note'] = note
+        else:
+            doc['handoff_ready'] = puller is None or puller.ready
+        if self.topo_watcher is not None:
+            doc['watcher'] = self.topo_watcher.stats()
+        return doc
 
     # -- stats ------------------------------------------------------------
 
     def _bump(self, name, n=1):
         with self._stats_lock:
             self._counters[name] = self._counters.get(name, 0) + n
-
-    def _member_datasources(self):
-        """[(dsname, ds)] of file datasources with index trees in the
-        process's configuration."""
-        from .. import datasource_for_name
-        backend = mod_config.ConfigBackendLocal()
-        err, config = backend.load()
-        if err is not None and not getattr(err, 'is_enoent', False):
-            raise err
-        out = []
-        for dsname, dsdoc in config.datasource_list():
-            idx = (dsdoc.get('ds_backend_config') or {}).get('indexPath')
-            if not idx:
-                continue
-            ds = datasource_for_name(config, dsname)
-            if isinstance(ds, DNError):
-                continue
-            out.append((dsname, ds))
-        return out
 
     def _resource_paths(self):
         """Index roots the resource governor watches (30s-memoized:
@@ -607,7 +850,8 @@ class DnServer(object):
             return paths
         paths = []
         try:
-            for dsname, ds in self._member_datasources():
+            from . import scrub as mod_scrub
+            for dsname, ds in mod_scrub.member_datasources(self):
                 paths.append(ds.ds_indexpath)
         except Exception:
             pass
@@ -633,7 +877,8 @@ class DnServer(object):
         files = 0
         total = 0
         try:
-            for dsname, ds in self._member_datasources():
+            from . import scrub as mod_scrub
+            for dsname, ds in mod_scrub.member_datasources(self):
                 q = mod_integrity.quarantine_stats(ds.ds_indexpath)
                 files += q['files']
                 total += q['bytes']
@@ -650,10 +895,9 @@ class DnServer(object):
     def _history_provider(self):
         """Named operational series for the history snapshotter:
         request/shed/error totals (the admission counters predate the
-        typed registry), live inflight depth and follow ingest lag —
-        the qps / shed-rate / ingest-lag trends by their headline
-        names.  (The reference's `repair.completed` series belongs to
-        the repair manager, not ported.)"""
+        typed registry), live inflight depth, repair completions and
+        follow ingest lag — the qps / shed-rate / repair-rate /
+        ingest-lag trends by their headline names."""
         with self._stats_lock:
             requests = self._counters['requests']
             errors = self._counters['errors']
@@ -665,6 +909,8 @@ class DnServer(object):
             'serve.shed': (obs_history.COUNTER_KIND, shed),
             'serve.inflight': (obs_history.GAUGE_KIND,
                                self.admission.depth()['active']),
+            'repair.completed': (obs_history.COUNTER_KIND,
+                                 self.repair.stats()['completed']),
         }
         from ..follow import stats_doc as follow_stats
         fs = follow_stats()
@@ -759,10 +1005,11 @@ class DnServer(object):
                 counters.get('integrity corrupt shards', 0),
                 'missing_shards':
                 counters.get('integrity missing shards', 0),
-                # the repair queue and the background scrub are the
-                # reference's cluster and scrub modules: not ported
-                'repair': None,
-                'scrub': None,
+                # the repair queue and outcomes, and the last
+                # background-scrub summary (serve/scrub.py)
+                'repair': self.repair.stats(),
+                'scrub': self.scrubber.stats()
+                if self.scrubber is not None else None,
             },
             'rollup': {
                 'covered_shards':
@@ -776,6 +1023,11 @@ class DnServer(object):
                     counters.get('index shards queried', 1), 4)
                 if counters.get('index shards queried', 0) else 0.0,
             },
+            # rollup/compaction timer summary (serve/scrub.py
+            # MaintenanceThread): pass counters, compaction backlog;
+            # None when both intervals are 0
+            'maintenance': self.maintainer.stats()
+            if self.maintainer is not None else None,
             'metrics': obs_export.stats_section(counters=counters),
             # metric-history rings (obs/history.py): windowed
             # qps/shed/lag trends when DN_METRICS_HISTORY_S arms the
@@ -787,6 +1039,15 @@ class DnServer(object):
             if obs_events.journal() is not None
             else obs_events.disabled_doc(),
         }
+        if self.router is not None:
+            # scatter-gather observability: per-member breaker
+            # states, failover/hedge/degraded counters (router.py)
+            doc['cluster'] = self.router.stats_doc()
+        if self.cluster is not None:
+            # dynamic-topology observability: current/pending epoch,
+            # handoff progress, transition counters
+            # (serve/coordinator.py, serve/rebalance.py)
+            doc['topology'] = self.topology_doc()
         return doc
 
     # -- connection front end (loop-thread callbacks) ---------------------
@@ -966,15 +1227,19 @@ class DnServer(object):
             return self.subman.ack(req)
         if op == 'unsubscribe':
             return self.subman.unsubscribe(req)
-        if op in UNPORTED_OPS:
-            self._bump('errors')
-            err = unported_error('request op "%s"' % op, UNPORTED_OPS[op])
-            return 1, b'', ('dn: %s\n' % err.message).encode(), {}
         if op == 'health':
-            # the health probe (load balancers): tiny, never queued
-            # behind admission.  The fault seam lets a chaos run fail
-            # probes deterministically.
+            # the replica-probe op (scatter-gather routers, load
+            # balancers): tiny, never queued behind admission.  The
+            # fault seam lets the chaos soak fail probes
+            # deterministically (a FaultInjected here propagates to
+            # _handle_conn, which drops the connection — exactly what
+            # a dead member looks like to a prober).
             mod_faults.fire('member.health')
+            # a member LEAVING the topology (absent from the pending
+            # or committed map) reports draining so routers demote it
+            # — but stays ok (healthy, still serving) so the breaker
+            # never churns on an orderly departure
+            leaving = self._topo_leaving_now()
             # a read-only member (disk critical) stays ok — queries
             # keep serving byte-identically, the breaker must not
             # churn — but reports degraded_ro so routers rank it
@@ -982,7 +1247,7 @@ class DnServer(object):
             degraded_ro = self.governor.is_read_only()
             doc = {
                 'ok': not self.draining,
-                'draining': self.draining,
+                'draining': self.draining or leaving,
                 'degraded_ro': degraded_ro,
                 'pid': os.getpid(),
                 'uptime_s': round(time.monotonic() - self._t0, 3),
@@ -990,6 +1255,11 @@ class DnServer(object):
             }
             if degraded_ro:
                 doc['health'] = 'degraded_ro'
+            if self.cluster is not None:
+                doc['member'] = self.member
+                doc['epoch'] = self.cluster.epoch
+                if self.pending is not None:
+                    doc['pending_epoch'] = self.pending.epoch
             body = json.dumps(doc, sort_keys=True) + '\n'
             return 0, body.encode(), b'', {}
         if op == 'stats':
@@ -997,8 +1267,8 @@ class DnServer(object):
                               indent=2) + '\n'
             return 0, body.encode(), b'', {}
         if op == 'topology':
-            # the topology status op: a member outside any cluster,
-            # as the reference answers without --cluster
+            # the dynamic-topology status op (coordinator readiness
+            # polls, `dn topo status`): tiny, never queued
             body = json.dumps(self.topology_doc(),
                               sort_keys=True) + '\n'
             return 0, body.encode(), b'', {}
@@ -1010,8 +1280,8 @@ class DnServer(object):
                 counters=mod_vpipe.global_counters())
             return 0, body.encode(), b'', {}
         if op == 'events':
-            # the event-journal tail (`dn events [--follow]`):
-            # entries with seq > `since`, newest
+            # the event-journal tail (`dn events [--follow]` and the
+            # fleet scatter): entries with seq > `since`, newest
             # `limit`.  Control plane: never queued behind admission.
             j = obs_events.journal()
             since = req.get('since') or 0
@@ -1023,7 +1293,7 @@ class DnServer(object):
                 self._bump('errors')
                 return (1, b'', b'dn: bad "since"/"limit" in events '
                         b'request\n', {})
-            doc = {'member': None,
+            doc = {'member': self.member,
                    'enabled': j is not None,
                    'seq': j.seq if j is not None else 0,
                    'events': j.tail(since=since, limit=limit)
@@ -1031,10 +1301,12 @@ class DnServer(object):
             body = json.dumps(doc, sort_keys=True) + '\n'
             return 0, body.encode(), b'', {}
         if op == 'fleet_stats':
-            # the fleet view (serve/fleet.py): on a single member the
-            # one-member fleet of this server.  Control plane: no
-            # admission slot (the fleet view must render DURING the
-            # flood it describes).
+            # the cluster-aggregated view (serve/fleet.py): scatter
+            # stats/events to every topology member over the pooled
+            # path, merge one fleet doc.  Bounded by fleet_timeout_s
+            # per member — a dead member becomes an error slot,
+            # never a hang.  Control plane: no admission slot (the
+            # fleet view must render DURING the flood it describes).
             from . import fleet as mod_fleet
             limit = req.get('events')
             if limit is not None and \
@@ -1047,10 +1319,31 @@ class DnServer(object):
                 self, events_limit=50 if limit is None else limit)
             body = json.dumps(doc, sort_keys=True, indent=2) + '\n'
             return 0, body.encode(), b'', {}
+        if op == 'scrub':
+            # one on-demand integrity pass (`dn scrub --remote`):
+            # verify every configured tree against its catalog under
+            # the tree read locks, quarantine + schedule repair for
+            # mismatches, run cluster anti-entropy.  Control plane:
+            # no admission slot (like shard_manifest — a scrub must
+            # not starve behind a query flood).
+            from . import scrub as mod_scrub
+            try:
+                doc = mod_scrub.scrub_member(
+                    self, repair=bool(req.get('repair', True)),
+                    rate_bytes_s=self.integrity_conf[
+                        'scrub_rate_mb_s'] << 20,
+                    quarantine=not req.get('check'))
+            except DNError as e:
+                self._bump('errors')
+                return (1, b'',
+                        ('dn: %s\n' % e.message).encode(), {})
+            body = json.dumps(doc, sort_keys=True, indent=2) + '\n'
+            return 0, body.encode(), b'', {}
         if op == 'build' and req.get('idempotency'):
             return self._execute_idempotent(req['idempotency'], req,
                                             tenant, deadline_at)
-        if op in ('scan', 'query', 'build') or \
+        if op in ('scan', 'query', 'build', 'query_partial',
+                  'shard_manifest', 'shard_fetch') or \
                 (op == '_sleep' and
                  os.environ.get('DN_SERVE_TEST_OPS') == '1'):
             return self._execute_data(req, tenant=tenant,
@@ -1179,13 +1472,38 @@ class DnServer(object):
                                      % (mod_cli.ARG0, e.message))
                     rc = 1
                 except DNError as e:
+                    # cluster degraded responses ride the shared
+                    # DNError contract but mark the header: a
+                    # RouterPartitionError names the dead partitions
+                    # and is retryable (another router may have live
+                    # replicas); epoch mismatches are retryable too
+                    mp = getattr(e, 'missing_partitions', None)
+                    if mp is not None:
+                        flags['missing'] = list(mp)
+                    if getattr(e, 'epoch_mismatch', False):
+                        # the rejection names OUR epoch so the peer
+                        # can tell a stale map from a dead member
+                        flags['epoch_mismatch'] = True
+                        flags['current_epoch'] = \
+                            getattr(e, 'current_epoch', None)
                     iroot = getattr(e, 'integrity_root', None)
                     if iroot is not None:
                         # a verified read detected corruption (or a
                         # catalogued shard is missing): the header
-                        # names it (no repair queue without replicas)
+                        # names it so the router classifies the
+                        # rejection, and the damaged member starts
+                        # repairing itself in the background — the
+                        # self-healing contract
                         flags['corrupt_shard'] = \
                             getattr(e, 'corrupt_shard', None)
+                        shards = getattr(e, 'integrity_shards',
+                                         None) or []
+                        if shards:
+                            try:
+                                self.repair.schedule(
+                                    req.get('ds'), iroot, shards)
+                            except Exception:
+                                pass
                     if getattr(e, 'disk_full', False):
                         # the read-only rejection (resources.py):
                         # the header names it so clients/routers can
@@ -1282,14 +1600,14 @@ class DnServer(object):
         out, err = cap.finish()
         if rc != 0:
             self._bump('errors')
-        elif op in ('scan', 'query', 'build'):
+        elif op in ('scan', 'query', 'build', 'query_partial'):
             # feed the observed-service-time estimate (retry hints +
             # early shed) and the per-tenant fairness accounting.
             # The sample is EXECUTION time — measured from slot
             # acquisition, not request arrival — queue wait folded in
             # would double-count queueing and over-shed after bursts.
-            # (Coalesced followers never acquired a slot here: no
-            # sample, correctly.)
+            # (Coalesced followers and routed queries never acquired
+            # a slot here: no sample, correctly.)
             if flags.get('exec_t0') is not None:
                 self.admission.note_service_ms(
                     (time.monotonic() - flags['exec_t0']) * 1000.0)
@@ -1325,8 +1643,29 @@ class DnServer(object):
             # rejecting write-shaped ops until space frees (queries
             # still serve) — retry against another member or later
             extra['disk_full'] = True
+        if flags.get('missing') is not None:
+            # the degraded-result contract: missing partitions are
+            # NAMED in the header, in both DN_ROUTER_PARTIAL modes
+            # (rc=0 partial merge under 'allow', rc=1 clean retryable
+            # error under 'error')
+            extra['missing_partitions'] = flags['missing']
+            if rc == 0:
+                extra['partial'] = True
+        if flags.get('epoch_mismatch'):
+            # the stale-router resync signal: the rejected peer
+            # re-fetches the current map and retries
+            extra['epoch_mismatch'] = True
+            if flags.get('current_epoch') is not None:
+                extra['current_epoch'] = flags['current_epoch']
+        if flags.get('disk_full'):
+            # the read-only signal: this member is out of disk and
+            # rejecting write-shaped ops until space frees (queries
+            # still serve) — retry against another member or later
+            extra['disk_full'] = True
         if flags.get('corrupt_shard') is not None:
-            # this member quarantined (or is missing) the named shard
+            # the self-healing signal: this member quarantined (or is
+            # missing) the named shard and is repairing in the
+            # background; the router fails the partial over meanwhile
             extra['corrupt_shard'] = flags['corrupt_shard']
         return rc, out, err, finish_obs(rc, extra)
 
@@ -1359,6 +1698,26 @@ class DnServer(object):
 
         from .. import datasource_for_name, metrics_for_index
         cfg_path = req.get('config') or None
+        if self.cluster is not None and \
+                op in ('query_partial', 'shard_manifest',
+                       'shard_fetch'):
+            # per-member index trees: when the topology declares this
+            # member's own config, partition-scoped work resolves
+            # datasources through IT — the request's config names the
+            # router's view of the world, not ours.  Without the
+            # declaration, a query partial keeps the request's config
+            # (byte-identical to the shared-tree contract), but
+            # the handoff ops always resolve the DONOR's own view
+            # (process default) — a joiner's request config points at
+            # its empty tree, and enumerating that as the donor would
+            # silently hand off nothing.
+            override = self.cluster.member_config(self.member)
+            if override is None and self.pending is not None:
+                override = self.pending.member_config(self.member)
+            if override:
+                cfg_path = override
+            elif op in ('shard_manifest', 'shard_fetch'):
+                cfg_path = None
         backend = mod_config.ConfigBackendLocal(cfg_path)
         err, config = backend.load()
         if err is not None and not getattr(err, 'is_enoent', False):
@@ -1372,6 +1731,22 @@ class DnServer(object):
         if op == 'build':
             return self._run_build(req, ds, config, dsname, opts,
                                    metrics_for_index, flags)
+        if op == 'query_partial':
+            return self._run_partial(req, ds, dsname, opts, backend,
+                                     flags)
+        if op == 'shard_manifest':
+            return self._run_shard_manifest(req, ds, dsname, flags)
+        if op == 'shard_fetch':
+            return self._run_shard_fetch(req, ds, dsname, flags)
+        if op == 'query' and self.router is not None and \
+                not opts.dry_run:
+            # cluster mode: this member routes — scatter the query to
+            # the partition owners and merge the partial aggregates
+            # (dry runs stay local: the plan shows this member's own
+            # tree view)
+            return self._run_routed_query(req, ds, dsname, opts,
+                                          backend, flags)
+
         query = mod_cli.dn_query_config(opts)
         key = mod_admission.compute_key(
             req, _config_ident(backend.cbl_path))
@@ -1464,6 +1839,265 @@ class DnServer(object):
         mod_cli.dn_output(query, opts, result.clone_for_output(),
                           dsname)
         return 0
+
+    def _run_routed_query(self, req, ds, dsname, opts, backend,
+                          flags):
+        """Cluster-mode index query: scatter-gather through the
+        router, then the unmodified output layer over the merged
+        points — byte-identical to a single-process run when every
+        partition answered.  NO admission slot is held across the
+        scatter wait (the router blocks on REMOTE members; two
+        members routing at each other under full admission queues
+        would deadlock) — the local partial acquires its own slot
+        inside _local_partial."""
+        query = mod_cli.dn_query_config(opts)
+        key = mod_admission.compute_key(
+            req, _config_ident(backend.cbl_path))
+        interval = req.get('interval') or 'day'
+
+        def compute():
+            with obs_trace.span('serve.execute', op='query.routed'):
+                # deadline propagation: the remaining budget rides
+                # into every member partial (router.scatter derives
+                # per-partial deadline_ms from it)
+                return self.router.scatter(
+                    ds, dsname, query, interval, req,
+                    deadline_at=flags.get('deadline_at'))
+
+        # degraded errors (RouterPartitionError) propagate as DNError
+        # with their missing_partitions/retryable attrs intact — the
+        # job() handler frames the message and marks the header
+        from . import router as mod_router
+        try:
+            (result, missing), shared = self.coalescer.run(
+                key, compute, lease=flags)
+        except mod_router.TopologyEpochError:
+            # a member rejected the scatter as stale: re-fetch the
+            # current map (synchronously, when a watcher runs) and
+            # retry ONCE under the refreshed topology — the straggler
+            # self-heals instead of erroring to the client
+            with self._topo_lock:
+                self._topo_counters['resyncs'] += 1
+            obs_metrics.inc('topo_resyncs_total')
+            if obs_events.enabled():
+                obs_events.emit('topo.resync',
+                                epoch=self.cluster.epoch
+                                if self.cluster is not None else None)
+            if self.topo_watcher is not None:
+                self.topo_watcher.poll_now()
+            (result, missing), shared = self.coalescer.run(
+                key, compute, lease=flags)
+        flags['coalesced'] = shared
+        if missing:
+            flags['missing'] = list(missing)
+            sys.stderr.write(
+                'dn: warning: partial result: partition(s) %s '
+                'unavailable\n' % ','.join(str(p) for p in missing))
+        mod_cli.dn_output(query, opts, result.clone_for_output(),
+                          dsname)
+        return 0
+
+    def _run_partial(self, req, ds, dsname, opts, backend, flags):
+        """The member side of the scatter: execute the query over the
+        requested partitions of THIS member's shard walk and return
+        per-shard key items as JSON (the router merges them in global
+        find order)."""
+        if self.cluster is None:
+            mod_cli.fatal(DNError(
+                'not a cluster member (start with '
+                '--cluster/--member)'))
+        pids = req.get('partitions')
+        if not isinstance(pids, list) or not pids or \
+                not all(isinstance(p, int) and
+                        not isinstance(p, bool) for p in pids):
+            mod_cli.fatal(DNError(
+                'bad "partitions" in query_partial request'))
+        # a router running a different topology file must never merge
+        # this member's partitions: the epoch gate accepts the
+        # committed epoch (and the pending epoch during a handoff
+        # window, once this member's shards for the partitions have
+        # landed) and rejects anything else with a clean retryable
+        # error carrying our current epoch — the stale side resyncs
+        serving = self._serving_for_epoch(req.get('epoch'),
+                                          pids=pids)
+        known = set(serving.partition_ids())
+        if not all(p in known for p in pids):
+            mod_cli.fatal(DNError(
+                'bad "partitions" in query_partial request'))
+        query = mod_cli.dn_query_config(opts)
+        key = mod_admission.compute_key(
+            req, _config_ident(backend.cbl_path))
+        interval = req.get('interval') or 'day'
+
+        def compute():
+            from . import router as mod_router
+            lease = self._admit_resources('query_partial', ds)
+            try:
+                slot = flags['slot'] = self.admission.acquire(
+                    tenant=flags.get('tenant'),
+                    deadline_at=flags.get('deadline_at'))
+            except BaseException:
+                lease.release()
+                raise
+            flags['exec_t0'] = time.monotonic()
+            try:
+                with self._tree_lock(ds, dsname).read(), \
+                        obs_trace.span('serve.execute',
+                                       op='query_partial'):
+                    return mod_router.partial_query(
+                        ds, query, interval, serving, pids)
+            finally:
+                slot.release()
+                lease.release()
+
+        try:
+            shards, shared = self.coalescer.run(key, compute,
+                                                lease=flags)
+        except (mod_admission.BusyError,
+                mod_admission.DrainingError,
+                mod_admission.DeadlineError):
+            raise
+        except DNError as e:
+            if getattr(e, 'retryable', False):
+                # a corrupt-detect (ShardIntegrityError) must reach
+                # the job() handler with its attributes intact: the
+                # router reads the corrupt_shard header to classify
+                # the failover, and the repair schedule hangs off it
+                raise
+            mod_cli.fatal(e)
+        flags['coalesced'] = shared
+        body = json.dumps({'epoch': serving.epoch,
+                           'member': self.member, 'shards': shards},
+                          sort_keys=True, separators=(',', ':'))
+        sys.stdout.write(body + '\n')
+        return 0
+
+    def _run_shard_manifest(self, req, ds, dsname, flags):
+        """The donor side of partition handoff: enumerate this
+        member's shards for the requested COMMITTED partitions as
+        (relpath, size, crc32) triples (serve/rebalance.py).  Control
+        plane: no admission slot (a handoff must not starve behind a
+        query flood), but the tree read lock holds so a concurrent
+        build cannot reshape the tree mid-enumeration."""
+        from . import rebalance as mod_rebalance
+        if self.cluster is None:
+            mod_cli.fatal(DNError(
+                'not a cluster member (start with '
+                '--cluster/--member)'))
+        serving = self._serving_for_epoch(req.get('epoch'))
+        pids = req.get('partitions')
+        known = set(serving.partition_ids())
+        if not isinstance(pids, list) or not pids or \
+                not all(isinstance(p, int) and
+                        not isinstance(p, bool) and p in known
+                        for p in pids):
+            mod_cli.fatal(DNError(
+                'bad "partitions" in shard_manifest request'))
+        with self._tree_lock(ds, dsname).read(), \
+                obs_trace.span('serve.execute', op='shard_manifest'):
+            try:
+                shards = mod_rebalance.shard_manifest(ds, serving,
+                                                      pids)
+            except DNError as e:
+                mod_cli.fatal(e)
+        body = json.dumps({'epoch': serving.epoch,
+                           'member': self.member, 'shards': shards},
+                          sort_keys=True, separators=(',', ':'))
+        sys.stdout.write(body + '\n')
+        return 0
+
+    def _run_shard_fetch(self, req, ds, dsname, flags):
+        """The donor side of one shard's stream: the raw shard bytes
+        as the response payload (the joiner verifies size + crc
+        against the manifest before landing them)."""
+        from . import rebalance as mod_rebalance
+        if self.cluster is None:
+            mod_cli.fatal(DNError(
+                'not a cluster member (start with '
+                '--cluster/--member)'))
+        self._serving_for_epoch(req.get('epoch'))
+        offset = req.get('offset') or 0
+        length = req.get('length')
+        if not isinstance(offset, int) or isinstance(offset, bool) \
+                or offset < 0 or \
+                (length is not None and
+                 (not isinstance(length, int) or
+                  isinstance(length, bool) or length < 1)):
+            mod_cli.fatal(DNError(
+                'bad "offset"/"length" in shard_fetch request'))
+        with self._tree_lock(ds, dsname).read(), \
+                obs_trace.span('serve.execute', op='shard_fetch'):
+            try:
+                data = mod_rebalance.read_shard(ds, req.get('rel'),
+                                                offset=offset,
+                                                length=length)
+            except DNError as e:
+                mod_cli.fatal(e)
+        # raw bytes, not text: write through the capture's underlying
+        # binary buffer (this handler writes nothing else)
+        sys.stdout.buffer.write(data)
+        return 0
+
+    def _local_partial(self, partition_ids, partial_req):
+        """The router's in-process partial executor for partitions
+        this member itself owns: same admission-slot + tree-read-lock
+        discipline as a socket-delivered query_partial, without
+        dialing our own socket (a self-dial under a full admission
+        queue would deadlock the scatter)."""
+        from .. import datasource_for_name
+        from . import router as mod_router
+        # same epoch + handoff gate as the socket path: the scatter
+        # snapshot may be one epoch behind (or ahead of) a cutover
+        # that landed between snapshot and execution — serving the
+        # wrong map locally would mix epochs in the merge
+        serving = self._serving_for_epoch(partial_req.get('epoch'),
+                                          pids=partition_ids)
+        cfg_path = partial_req.get('config') or None
+        override = serving.member_config(self.member)
+        if override:
+            cfg_path = override
+        backend = mod_config.ConfigBackendLocal(cfg_path)
+        err, config = backend.load()
+        if err is not None and not getattr(err, 'is_enoent', False):
+            raise err
+        dsname = partial_req.get('ds')
+        ds = datasource_for_name(config, dsname)
+        if isinstance(ds, DNError):
+            raise ds
+        opts = _opts_shim(partial_req)
+        query = mod_cli.dn_query_config(opts)
+        interval = partial_req.get('interval') or 'day'
+        deadline_ms = partial_req.get('deadline_ms')
+        deadline_at = time.monotonic() + deadline_ms / 1000.0 \
+            if deadline_ms and deadline_ms > 0 else None
+        lease = self._admit_resources('query_partial', ds)
+        try:
+            slot = self.admission.acquire(
+                tenant=partial_req.get('tenant'),
+                deadline_at=deadline_at)
+        except BaseException:
+            lease.release()
+            raise
+        try:
+            with self._tree_lock(ds, dsname).read():
+                return mod_router.partial_query(
+                    ds, query, interval, serving, partition_ids)
+        except DNError as e:
+            # a corrupt/missing detect on OUR OWN partial propagates
+            # to the router (which fails over to a replica), not
+            # through the request error handler — so the self-repair
+            # schedule hooks in right here
+            iroot = getattr(e, 'integrity_root', None)
+            shards = getattr(e, 'integrity_shards', None) or []
+            if iroot is not None and shards:
+                try:
+                    self.repair.schedule(dsname, iroot, shards)
+                except Exception:
+                    pass
+            raise
+        finally:
+            slot.release()
+            lease.release()
 
     def _run_build(self, req, ds, config, dsname, opts,
                    metrics_for_index, flags):
@@ -1564,11 +2198,21 @@ def sweep_configured_trees(warn=None):
     return acted
 
 
-def serve_main(socket_path=None, port=None, pidfile=None):
+def serve_main(socket_path=None, port=None, pidfile=None,
+               cluster=None, member=None, router_conf=None,
+               pending=None, topo_conf=None):
     """Run the daemon until SIGTERM/SIGINT, then drain.  Returns the
     process exit code.  The device (DN_TORCH_DEVICE, CUDA unless it
     says cpu) is resolved before anything is swept, claimed or
-    bound."""
+    bound.  `cluster` (an already-loaded, validated topology.Topology)
+    and `member` (this server's member name) start the scatter-gather
+    cluster mode (serve/topology.py, serve/router.py); `pending` is the
+    in-flight transition epoch when the topology file was mid-handoff
+    at startup (a fresh joiner starts pulling immediately).  The CLI
+    loads and validates the topology file and DN_ROUTER_*/DN_TOPO_*
+    knobs exactly once and hands the results here — re-reading them
+    would open a window where the state just validated differs from
+    the state actually served."""
     from ..ops import resolve_device
     conf = mod_config.serve_config()
     if isinstance(conf, DNError):
@@ -1584,7 +2228,9 @@ def serve_main(socket_path=None, port=None, pidfile=None):
                         pidfile=pidfile, warn=warn)
     try:
         server = DnServer(socket_path=socket_path, port=port,
-                          pidfile=pidfile, conf=conf)
+                          pidfile=pidfile, conf=conf, cluster=cluster,
+                          member=member, router_conf=router_conf,
+                          pending=pending, topo_conf=topo_conf)
         server.bind()
     except BaseException as e:
         mod_residency.deconfigure()
@@ -1601,8 +2247,10 @@ def serve_main(socket_path=None, port=None, pidfile=None):
     signal.signal(signal.SIGINT, on_signal)
     where = socket_path if socket_path is not None \
         else '%s:%d' % (server.host, server.bound_port)
-    sys.stderr.write('dn serve: listening on %s (pid %d, device %s)\n'
-                     % (where, os.getpid(), server.device))
+    aka = ' as member "%s" (epoch %d)' % (member, cluster.epoch) \
+        if cluster is not None else ''
+    sys.stderr.write('dn serve: listening on %s (pid %d, device %s)%s\n'
+                     % (where, os.getpid(), server.device, aka))
     server.serve_forever()
     sys.stderr.write('dn serve: drained; exiting\n')
     return 0

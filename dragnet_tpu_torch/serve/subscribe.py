@@ -72,11 +72,11 @@ differs.
 On the card: the recompute is host work (per-shard key items through
 the handle cache), so the pusher thread allocates nothing on the
 device and never touches the residency pins; the poll a frame equals
-runs the served device lane.  The reference's routed groups (a
-cluster member's scatter through serve/router.py, and the confirming
-scatter its stat-TTL window needs) are not ported: a standing query
-on a server with a router fails naming serve/router.py, never
-answered from the local walk alone.
+runs the served device lane.  On a cluster member a group scatters
+through the router (serve/router.py) as a poll does, one scatter per
+publish batch for every subscriber, and a confirming scatter past the
+peers' stat-TTL window (_confirm_delay) catches a peer process that
+answered from its memo.
 """
 
 import hashlib
@@ -340,6 +340,13 @@ class SubscriptionManager(object):
             try:
                 with group.compute_lock:
                     self._recompute(group, seed=True)
+                if self.server.router is not None:
+                    # a seed scatter right after another process's
+                    # publish can catch a peer inside its stat-TTL
+                    # window exactly like a sweep scatter can —
+                    # confirm it too
+                    group.confirm_at = (time.monotonic() +
+                                        self._confirm_delay())
             except (mod_admission.BusyError,
                     mod_admission.DrainingError,
                     mod_admission.OverloadedError) as e:
@@ -577,6 +584,20 @@ class SubscriptionManager(object):
                     group.last_error = repr(e)
                     self._bump('compute_errors')
                     continue
+            if group.doc['watch'] == 'query' and \
+                    self.server.router is not None:
+                # routed reconvergence: a scatter answered by a peer
+                # PROCESS that did not see this write's hook can lag
+                # by the peer's stat-TTL memo window (the poll path
+                # self-heals by re-scattering every request; a
+                # standing query scatters only when signalled).  One
+                # confirming scatter after the window expires either
+                # observes the settled bytes (unchanged -> converged,
+                # stop) or pushes the newer state and re-arms
+                if signal or changed:
+                    group.confirm_at = now + self._confirm_delay()
+                else:
+                    group.confirm_at = None
             if changed:
                 self._push_group(group)
             else:
@@ -625,8 +646,7 @@ class SubscriptionManager(object):
         """How long a routed group waits before its confirming
         scatter: past every peer process's stat-TTL memo window,
         plus a coalesce period of slack for the publish batch to
-        finish landing.  Read where a routed group arms its confirm
-        (serve/router.py's scatter, not ported)."""
+        finish landing."""
         return (mod_iqmt.stat_ttl_s() +
                 self.conf['coalesce_ms'] / 1000.0 + 0.1)
 
@@ -668,13 +688,6 @@ class SubscriptionManager(object):
         if isinstance(qc, DNError):
             raise qc
         doc['_indexroot'] = getattr(ds, 'ds_indexpath', None)
-        if self.server.router is not None:
-            # a cluster member's walk covers only its partitions: the
-            # standing query would need the routed scatter, and the
-            # local walk alone would be a silently partial answer
-            raise DNError('a routed standing query is not ported to '
-                          'dragnet_tpu_torch (it needs the cluster '
-                          'router, serve/router.py)')
 
         slot = lease = None
         if seed:
@@ -702,7 +715,12 @@ class SubscriptionManager(object):
                 epoch = mod_iqmt.cache_epoch()
                 validators = mod_qcache.tree_validators(
                     doc['_indexroot'])
-                result = self._incremental_result(group, ds, qc)
+                if self.server.router is not None:
+                    # a cluster member's walk covers only its
+                    # partitions: the group scatters like a poll
+                    result = self._routed_result(ds, doc, qc)
+                else:
+                    result = self._incremental_result(group, ds, qc)
         finally:
             if slot is not None:
                 slot.release()
@@ -796,6 +814,23 @@ class SubscriptionManager(object):
             aggr.merge_key_items(items)
         index_list.bump_hidden('index shards queried', len(paths))
         return ScanResult(pipeline, points=aggr.points())
+
+    def _routed_result(self, ds, doc, qc):
+        """Cluster mode: the member's own walk only covers its
+        partitions, so a standing query scatters like a poll does —
+        still ONE scatter per publish batch for every subscriber of
+        the group."""
+        req = {'op': 'query', 'ds': doc['ds'],
+               'config': doc.get('config'),
+               'queryconfig': doc['queryconfig'],
+               'interval': doc['interval']}
+        result, missing = self.server.router.scatter(
+            ds, doc['ds'], qc, doc['interval'], req)
+        if missing:
+            raise DNError('standing query degraded: partition(s) %s '
+                          'unavailable'
+                          % ','.join(str(p) for p in missing))
+        return result
 
     def _install_payload(self, group, payload, epoch):
         digest = _payload_digest(payload)

@@ -421,3 +421,215 @@ def test_serve_validate_reports_subscribe_and_history(monkeypatch,
     assert got[0] == ref[0] == 1 and got[2] == ref[2]
     assert b'DN_SUB_QUEUE_DEPTH' in got[2]
     assert not os.path.exists(sock)
+
+
+# -- three members: the fleet view of a cluster ------------------------------
+
+def _gen_fleet_corpus(path, n=300):
+    import datetime
+    t0 = 1388534400
+    with open(path, 'w') as f:
+        for i in range(n):
+            ts = datetime.datetime.fromtimestamp(
+                t0 + i * 1100, datetime.timezone.utc).strftime(
+                    '%Y-%m-%dT%H:%M:%S.000Z')
+            f.write(json.dumps({
+                'time': ts, 'host': 'host%d' % (i % 3),
+                'latency': (i * 7) % 230,
+            }, separators=(',', ':')) + '\n')
+
+
+@pytest.fixture(scope='module')
+def fleet_corpus(tmp_path_factory):
+    """The reference fixture's 300 records, indexed by the JAX
+    package."""
+    root = tmp_path_factory.mktemp('tfleet_corpus')
+    datafile = str(root / 'data.log')
+    _gen_fleet_corpus(datafile)
+    rc_path = str(root / 'dragnetrc.json')
+    prior = os.environ.get('DRAGNET_CONFIG')
+    os.environ['DRAGNET_CONFIG'] = rc_path
+    try:
+        for args in (['datasource-add', '--path', datafile,
+                      '--index-path', str(root / 'idx'), '--time-field',
+                      'time', 'fleetds'],
+                     ['metric-add', '-b', 'host', 'fleetds', 'm1'],
+                     ['build', 'fleetds']):
+            rc, out, err = run_ref(args)
+            assert rc == 0, err
+        yield {'rc_path': rc_path, 'ds': 'fleetds'}
+    finally:
+        if prior is None:
+            os.environ.pop('DRAGNET_CONFIG', None)
+        else:
+            os.environ['DRAGNET_CONFIG'] = prior
+
+
+@pytest.fixture
+def fleet(fleet_corpus, tmp_path, monkeypatch):
+    """Three in-process port members with the journal and the history
+    armed, fast-failing client knobs so a dead member costs
+    milliseconds, and the disk reading pinned (_fixed_disk; the
+    disk-low test below plants its own)."""
+    from dragnet_tpu_torch.obs import events as tevents
+    from dragnet_tpu_torch.serve import topology as ttopology
+    monkeypatch.setenv('DN_TORCH_DEVICE', 'cpu')
+    monkeypatch.setenv('DRAGNET_CONFIG', fleet_corpus['rc_path'])
+    monkeypatch.setenv('DN_ROUTER_PROBE_MS', '60000')
+    monkeypatch.setenv('DN_REMOTE_RETRIES', '0')
+    monkeypatch.setenv('DN_REMOTE_BACKOFF_MS', '1')
+    monkeypatch.setenv('DN_REMOTE_CONNECT_TIMEOUT_S', '1')
+    monkeypatch.setenv('DN_EVENTS', '256')
+    monkeypatch.setenv('DN_METRICS_HISTORY_S', '1')
+    monkeypatch.setenv('DN_RESOURCE_POLL_MS', '50')
+    _fixed_disk(tmp_path, monkeypatch)
+    tevents.uninstall()
+    socks = {m: str(tmp_path / ('dn-%s.sock' % m)) for m in 'abc'}
+    topo_path = str(tmp_path / 'topo.json')
+    with open(topo_path, 'w') as f:
+        json.dump({'epoch': 1, 'assign': 'hash',
+                   'members': {m: {'endpoint': socks[m]} for m in socks},
+                   'partitions': [
+                       {'id': 0, 'replicas': ['a', 'b']},
+                       {'id': 1, 'replicas': ['b', 'c']},
+                       {'id': 2, 'replicas': ['c', 'a']}]}, f)
+    servers = {}
+    try:
+        for m in 'abc':
+            servers[m] = tserver.DnServer(
+                socket_path=socks[m], conf=_conf(),
+                cluster=ttopology.load_topology(topo_path, member=m),
+                member=m).start()
+        yield {'servers': servers, 'socks': socks,
+               'sim': tmp_path / 'disk_free_pct', 'events': tevents}
+    finally:
+        for srv in servers.values():
+            srv.stop()
+        tevents.uninstall()
+
+
+def _fleet_query(fleet_corpus, sock):
+    req = {'op': 'query', 'ds': fleet_corpus['ds'], 'interval': 'day',
+           'config': fleet_corpus['rc_path'],
+           'queryconfig': {'breakdowns': [
+               {'name': 'host', 'field': 'host'}]},
+           'opts': {}}
+    return tclient.request_bytes(sock, req, timeout_s=120.0)
+
+
+def test_fleet_doc_three_members_merged(fleet, fleet_corpus):
+    rc, hd, out, err = _fleet_query(fleet_corpus, fleet['socks']['a'])
+    assert rc == 0, err
+    assert out == run_ref(['query', '-b', 'host', 'fleetds'])[1]
+    rc, hd, out, err = tclient.request_bytes(
+        fleet['socks']['a'], {'op': 'fleet_stats'}, timeout_s=60.0)
+    assert rc == 0, err
+    doc = json.loads(out.decode('utf-8'))
+    assert doc['version'] == tfleet.FLEET_VERSION == jfleet.FLEET_VERSION
+    assert doc['members_total'] == 3 and doc['members_up'] == 3
+    assert doc['complete'] and doc['unreachable'] == []
+    assert doc['epoch'] == 1 and doc['epoch_skew'] == 0
+    assert set(doc['members']) == {'a', 'b', 'c'}
+    for name, row in doc['members'].items():
+        assert row['ok'] and row['epoch'] == 1, name
+        assert row['history'] and row['events'], name
+    assert set(doc['epochs']) == {'a', 'b', 'c'}
+    agg = doc['aggregate']
+    member_counts = 0
+    for m in 'abc':
+        hists = tclient.stats(fleet['socks'][m])['metrics']['histograms']
+        member_counts += sum(ent['count'] for name, ent in hists.items()
+                             if name.startswith('serve_op_latency_ms'))
+    assert agg['latency']['count'] == member_counts
+    assert agg['requests'] >= 3
+    assert set(doc['breakers']) == {'a', 'b', 'c'}
+    # the same document renders to the same frame in both packages
+    assert ttop.render_frame(doc, ansi=False) == \
+        jtop.render_frame(doc, ansi=False)
+
+
+def test_fleet_doc_dead_member_unreachable_not_hang(fleet, fleet_corpus):
+    rc, hd, out, err = _fleet_query(fleet_corpus, fleet['socks']['a'])
+    assert rc == 0, err
+    fleet['servers']['b'].stop()
+    t0 = time.monotonic()
+    rc, hd, out, err = tclient.request_bytes(
+        fleet['socks']['a'], {'op': 'fleet_stats'}, timeout_s=60.0)
+    assert rc == 0, err
+    assert time.monotonic() - t0 < _conf()['fleet_timeout_s'] + 10
+    doc = json.loads(out.decode('utf-8'))
+    assert doc['members_up'] == 2 and doc['unreachable'] == ['b']
+    assert not doc['complete']
+    row = doc['members']['b']
+    assert row == {'ok': False, 'unreachable': True,
+                   'error': row['error']} and row['error']
+    assert doc['members']['a']['ok'] and doc['members']['c']['ok']
+    assert doc['aggregate']['latency'] is not None
+
+
+def test_fleet_events_merged_and_deduped(fleet):
+    fleet['events'].emit('router.failover', partition=9, to='c')
+    rc, hd, out, err = tclient.request_bytes(
+        fleet['socks']['a'], {'op': 'fleet_stats', 'events': 20},
+        timeout_s=60.0)
+    assert rc == 0, err
+    doc = json.loads(out.decode('utf-8'))
+    evs = [e for e in doc['events'] if e['type'] == 'router.failover'
+           and e.get('partition') == 9]
+    assert len(evs) == 1 and evs[0]['member'] == 'a'
+
+
+def test_dn_stats_cluster_three_members_cli_and_prom(fleet):
+    rc, out, err = run_port(['stats', '--cluster', '--remote',
+                             fleet['socks']['b']])
+    assert rc == 0, err
+    doc = json.loads(out.decode('utf-8'))
+    assert doc['members_total'] == 3 and doc['aggregated_by'] == 'b'
+    rc, out, err = run_port(['stats', '--cluster', '--prom', '--remote',
+                             fleet['socks']['b']])
+    assert rc == 0, err
+    text = out.decode('utf-8')
+    assert 'dn_fleet_members_up 3' in text
+    for m in 'abc':
+        assert 'dn_fleet_member_up{member="%s"} 1' % m in text
+    assert jfleet.fleet_prometheus_text(doc) == \
+        tfleet.fleet_prometheus_text(doc)
+
+
+def test_dn_top_once_renders_three_members(fleet, fleet_corpus):
+    import re
+    rc, hd, out, err = _fleet_query(fleet_corpus, fleet['socks']['a'])
+    assert rc == 0, err
+    fleet['events'].emit('topo.commit', epoch=1)
+    rc, out, err = run_port(['top', '--remote', fleet['socks']['a'],
+                             '--once'])
+    assert rc == 0, err
+    text = out.decode('utf-8')
+    assert '\x1b[' not in text
+    assert 'members 3/3 up' in text
+    for m in 'abc':
+        assert re.search(r'^%s +up' % m, text, re.M), m
+    assert 'topo.commit' in text
+
+
+def test_dn_top_renders_disk_low(fleet, fleet_corpus):
+    """A planted `low` reading (7 % free, under DN_DISK_LOW_PCT): every
+    member renders `disk-low` with the `disk:` line, as the JAX
+    package's top renders the same document; back at 50 %, `up`."""
+    import re
+    fleet['sim'].write_text('7\n')
+    for srv in fleet['servers'].values():
+        _wait(lambda: srv.governor.mode() == 'low', 'governor low')
+    doc = ttop.fetch_fleet(fleet['socks']['a'])
+    frame = ttop.render_frame(doc, ansi=False)
+    assert frame == jtop.render_frame(doc, ansi=False)
+    for m in 'abc':
+        assert re.search(r'^%s +disk-low' % m, frame, re.M), frame
+    assert 'disk:' in frame
+    fleet['sim'].write_text('50\n')
+    for srv in fleet['servers'].values():
+        _wait(lambda: srv.governor.mode() == 'ok', 'governor ok')
+    rc, out, err = run_port(['top', '--remote', fleet['socks']['a'],
+                             '--once'])
+    assert rc == 0 and b'members 3/3 up' in out
+    assert b'disk-low' not in out

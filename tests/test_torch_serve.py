@@ -8,8 +8,10 @@ the port's local CLI, and the JAX package's local CLI.  Also: a
 concurrent soak, coalescing, queue-full and deadline errors, drain,
 pidfile/socket reclaim, `--validate`, the build idempotency replay,
 the writer invalidation hook, the result cache, device residency and
-the pre-warm through the server, a device fault that fails one request
-only, and every unported knob and op failing loudly.
+the pre-warm through the server, and a device fault that fails one
+request only.  The cluster ops and knobs are held in
+tests/test_torch_serve_cluster.py, test_torch_topology_dynamic.py and
+test_torch_scrub.py.
 """
 
 import json
@@ -397,55 +399,6 @@ def test_unsupported_op(server):
     assert rc == 1 and b'unsupported request op' in err
 
 
-@pytest.mark.parametrize('op', sorted(tserver.UNPORTED_OPS))
-def test_unported_op_fails_loudly(server, op):
-    """The cluster and scrub ops answer rc 1 with a message naming the
-    missing module, never a silent success."""
-    rc, hd, out, err = tclient.request_bytes(server.socket_path,
-                                             {'op': op})
-    assert rc == 1 and out == b''
-    assert err.startswith(b'dn: request op "%s" is not ported' %
-                          op.encode()), err
-    assert tserver.UNPORTED_OPS[op].encode() in err
-
-
-UNPORTED_KNOBS = [('DN_SCRUB_INTERVAL_S', '60', 'serve/scrub.py'),
-                  ('DN_ROLLUP_INTERVAL_S', '60', 'serve/scrub.py'),
-                  ('DN_COMPACT_INTERVAL_S', '60', 'serve/scrub.py')]
-
-
-@pytest.mark.parametrize('knob,value,missing', UNPORTED_KNOBS)
-def test_unported_knob_fails_loudly(tmp_path, monkeypatch, knob, value,
-                                    missing):
-    """A knob that would start a reference thread the port does not
-    carry fails the server before it binds, and `--validate`."""
-    monkeypatch.setenv(knob, value)
-    sock = str(tmp_path / 'dn.sock')
-    with pytest.raises(DNError) as ei:
-        tserver.DnServer(socket_path=sock, conf=_conf())
-    assert knob in ei.value.message and missing in ei.value.message
-    for extra in (['--validate'], []):
-        rc, out, err = run_port(['serve', '--socket', sock] + extra)
-        assert rc == 1 and out == b''
-        assert err.startswith(b'dn: %s > 0 is not ported' % knob.encode())
-        assert not os.path.exists(sock)
-        assert not os.path.exists(sock + '.pid')
-
-
-@pytest.mark.parametrize('args,env', [
-    (['serve', '--socket', '/tmp/never.sock', '--cluster', 't.json',
-      '--member', 'a'], {}),
-    (['serve', '--socket', '/tmp/never.sock'],
-     {'DN_SERVE_TOPOLOGY': 't.json'}),
-    (['serve', '--socket', '/tmp/never.sock', '--member', 'a'], {})])
-def test_cluster_options_fail_loudly(monkeypatch, args, env):
-    for k, v in env.items():
-        monkeypatch.setenv(k, v)
-    rc, out, err = run_port(args)
-    assert rc == 1 and out == b''
-    assert b'is not ported to dragnet_tpu_torch' in err, err
-
-
 def test_serve_without_cuda_fails_before_bind(tmp_path, monkeypatch):
     """CUDA asked for (DN_TORCH_DEVICE unset) on a machine without it:
     `dn serve` fails before it claims or binds anything."""
@@ -638,8 +591,11 @@ def test_stats_reports_faults_and_recovery(server, corpus):
     assert st['draining'] is False
     integ = st['integrity']
     assert integ['verify'] in ('off', 'open', 'full')
-    # the repair queue and the scrub are not ported
-    assert integ['repair'] is None and integ['scrub'] is None
+    # the repair queue is always there; the scrub thread only under
+    # DN_SCRUB_INTERVAL_S > 0
+    assert integ['repair']['scheduled'] == integ['repair']['queued'] == 0
+    assert integ['scrub'] is None and st['maintenance'] is None
+    assert 'cluster' not in st and 'topology' not in st
     assert st['device']['device'] == 'cpu'
     assert st['metrics']['version'] == 1
 
@@ -879,7 +835,13 @@ def test_serve_validate_ok(monkeypatch):
                    b'events ok: events=0 events_file=off\n'
                    b'subscribe config ok: max=64 coalesce_ms=250 '
                    b'queue_depth=4 delta_pct=50\n'
-                   b'integrity config ok: verify=off\n'
+                   b'router config ok: probe_ms=500 failures=3 '
+                   b'cooldown_ms=2000 hedge_ms=0 fetch_timeout_s=60 '
+                   b'partial=error\n'
+                   b'topo config ok: poll_ms=0 handoff_timeout_s=120 '
+                   b'handoff_retries=2 max_moves=2\n'
+                   b'integrity config ok: verify=off scrub_interval_s=0 '
+                   b'scrub_rate_mb_s=64 quarantine_max_mb=0\n'
                    b'resources config ok: disk_low_pct=10 '
                    b'disk_critical_pct=5 poll_ms=2000 mem_budget_mb=0 '
                    b'fd_headroom=64 events_file_max_mb=64\n'
@@ -914,7 +876,13 @@ def test_serve_validate_reports_armed_faults(monkeypatch):
      'DN_DEVICE_PREWARM: expected a boolean (0/1), got "maybe"'),
     ('DN_INDEX_RESIDENCY_SHARE', '2',
      'DN_INDEX_RESIDENCY_SHARE: expected a fraction in [0, 1], got "2"'),
-    ('DN_VERIFY', 'always', 'DN_VERIFY: expected "off", "open" or')])
+    ('DN_VERIFY', 'always', 'DN_VERIFY: expected "off", "open" or'),
+    ('DN_ROUTER_PARTIAL', 'maybe',
+     'DN_ROUTER_PARTIAL: expected "error" or "allow", got "maybe"'),
+    ('DN_TOPO_POLL_MS', '-1',
+     'DN_TOPO_POLL_MS: expected an integer >= 0, got "-1"'),
+    ('DN_SCRUB_INTERVAL_S', 'often',
+     'DN_SCRUB_INTERVAL_S: expected 0 or an integer >= 1, got "often"')])
 def test_serve_validate_rejects_bad_knob(monkeypatch, knob, value,
                                          message):
     monkeypatch.setenv(knob, value)

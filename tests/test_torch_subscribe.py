@@ -16,8 +16,10 @@ unsubscribe, the drain's `end` frame, the disabled and limit
 rejections, the fleet watch, the /stats section, `dn subscribe` JSONL,
 `dn top --subscribe` and its polling fallback, the push codec against
 the reference's on drawn byte strings, the write hook for the stacked
-device build and `follow`, a publish from another process, and a
-routed request refused naming serve/router.py.
+device build and `follow`, a publish from another process, and the
+routed groups of a cluster member (one scatter per publish through
+serve/router.py, and the confirming scatter past the peers' stat-TTL
+window).
 """
 
 import datetime
@@ -588,20 +590,127 @@ def test_rejected_registrations(server, corpus):
     assert rc == 1 and b'requires protocol 2' in err
 
 
-def test_routed_request_refused_naming_router(server, corpus):
-    """A server that would route (a cluster member) cannot answer a
-    standing query from its local walk: the registration fails naming
-    serve/router.py, and no group is left behind."""
-    server.router = object()
+def _cluster_topo(tmp_path, socks, parts):
+    from dragnet_tpu_torch.serve import topology as ttopology
+    topo_path = str(tmp_path / 'topo.json')
+    with open(topo_path, 'w') as f:
+        json.dump({'epoch': 1, 'assign': 'hash',
+                   'members': {m: {'endpoint': socks[m]} for m in socks},
+                   'partitions': [{'id': i, 'replicas': r}
+                                  for i, r in enumerate(parts)]}, f)
+    return {m: ttopology.load_topology(topo_path, member=m)
+            for m in socks}
+
+
+def _pin_disk(tmp_path, monkeypatch):
+    """A fixed free-space reading: a cluster member's governor must not
+    depend on the disk the tests run on."""
+    sim = tmp_path / 'disk_free_pct'
+    sim.write_text('50\n')
+    monkeypatch.setenv('DN_DISK_SIM_FILE', str(sim))
+
+
+def test_routed_group_reconfirms_and_stays_quiet(corpus, tmp_path,
+                                                 monkeypatch):
+    """A cluster member's group scatters through the router, and re-
+    scatters ONCE after the peer stat-TTL window (_confirm_delay): the
+    confirm fires after quiescence, a confirm that finds identical bytes
+    pushes no frame, and a publish pushes once with its confirm quiet
+    too — as the JAX package's test of the same name pins."""
+    ds = 'ds_dnc'
+    monkeypatch.setenv('DN_SUB_COALESCE_MS', '30')
+    monkeypatch.setenv('DN_IQ_STAT_TTL_MS', '120')
+    monkeypatch.setenv('DN_ROUTER_PROBE_MS', '60000')
+    _pin_disk(tmp_path, monkeypatch)
+    sock = str(tmp_path / 'routed.sock')
+    topo = _cluster_topo(tmp_path, {'a': sock}, [['a'], ['a'], ['a']])
+    srv = tserver.DnServer(socket_path=sock, conf=_conf(),
+                           cluster=topo['a'], member='a').start()
     try:
-        with pytest.raises(DNError) as ei:
-            next(tclient.subscribe_stream(server.socket_path,
-                                          _sub_req(corpus, 'ds_dnc')))
-        assert 'serve/router.py' in ei.value.message
-        st = tclient.stats(server.socket_path)['subscriptions']
-        assert st['active'] == 0 and st['groups'] == []
+        stream = tclient.subscribe_stream(sock, _sub_req(corpus, ds))
+        try:
+            seed = next(stream)
+            assert seed['kind'] == 'full' and seed['seq'] == 1
+            assert seed['payload'] == _ref_poll(ds)
+
+            def reconfirms():
+                st = tclient.stats(sock)['subscriptions']
+                return st['counters']['reconfirms']
+
+            _wait(lambda: reconfirms() >= 1, 'the seed\'s confirm')
+            time.sleep(0.5)
+            st = tclient.stats(sock)['subscriptions']
+            assert st['subscribers'][0]['seq'] == 1
+            assert st['groups'][0]['version'] == 1
+            assert tclient.stats(sock)['cluster']['counters'][
+                'scatters'] >= 2
+            before = reconfirms()
+            _publish(corpus, ds, sock)
+            pushed = next(stream)
+            assert pushed['seq'] == 2
+            assert pushed['payload'] == _poll(sock, ds) == _ref_poll(ds)
+            _wait(lambda: reconfirms() > before, 'the publish\'s confirm')
+            time.sleep(0.5)
+            st = tclient.stats(sock)['subscriptions']
+            assert st['subscribers'][0]['seq'] == 2
+        finally:
+            stream.close()
     finally:
-        server.router = None
+        srv.stop()
+
+
+def test_routed_group_on_three_members(corpus, tmp_path, monkeypatch):
+    """Three members (partitions [a,b], [b,c], [c,a]); four subscribers
+    through `a`: the seed and the frame after a publish through `a`
+    equal a routed poll and the JAX package's local query, with one
+    recompute per publish for the whole group (the served build holds
+    a's write lock until it has landed; the confirming scatter past the
+    stat-TTL window recomputes the same bytes and pushes nothing)."""
+    ds = 'ds_sq'
+    monkeypatch.setenv('DN_SUB_COALESCE_MS', '30')
+    monkeypatch.setenv('DN_ROUTER_PROBE_MS', '60000')
+    _pin_disk(tmp_path, monkeypatch)
+    socks = {m: str(tmp_path / ('dn-%s.sock' % m)) for m in 'abc'}
+    topo = _cluster_topo(tmp_path, socks,
+                         [['a', 'b'], ['b', 'c'], ['c', 'a']])
+    servers = {}
+    streams = []
+    try:
+        for m in 'abc':
+            servers[m] = tserver.DnServer(
+                socket_path=socks[m], conf=_conf(), cluster=topo[m],
+                member=m).start()
+        for _ in range(4):
+            streams.append(tclient.subscribe_stream(
+                socks['a'], _sub_req(corpus, ds)))
+        seeds = [next(s) for s in streams]
+        assert {fr['payload'] for fr in seeds} == {_ref_poll(ds)}
+        _settled(socks['a'])
+        time.sleep(0.5)          # the seed's confirm (0.13 s) has run
+        st = tclient.stats(socks['a'])['subscriptions']
+        before = (st['counters']['recomputes'] -
+                  st['counters']['reconfirms'])
+        scatters = tclient.stats(socks['a'])['cluster']['counters'][
+            'scatters']
+        _publish(corpus, ds, socks['a'])
+        polled = _ref_poll(ds)
+        frames = [_next_with_payload(s, polled) for s in streams]
+        assert {fr['seq'] for fr in frames} == {2}
+        assert _poll(socks['a'], ds) == polled
+        time.sleep(0.5)
+        _settled(socks['a'], seq=2)
+        st = tclient.stats(socks['a'])['subscriptions']
+        assert st['counters']['recomputes'] - \
+            st['counters']['reconfirms'] - before == 1
+        assert st['groups'][0]['subscribers'] == 4
+        cl = tclient.stats(socks['a'])['cluster']['counters']
+        # the publish's scatter, its confirm's and the routed poll's
+        assert cl['scatters'] - scatters >= 2
+    finally:
+        for s in streams:
+            s.close()
+        for srv in servers.values():
+            srv.stop()
 
 
 # -- the fleet watch and the /stats section ----------------------------------
