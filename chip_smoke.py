@@ -2,12 +2,13 @@
 """Chip smoke for the PyTorch/CUDA port (dragnet_tpu_torch) on one GPU.
 
     python3 chip_smoke.py [--records N] [--seed S] [--reps R] [--json F]
-                          [--only-scl]
+                          [--only-scl | --only-devbench]
 
 Phases, each ending in torch.cuda.synchronize() so a fault shows where
 it happened and printing its wall (`phase ...: N s`); any failed check
-exits non-zero.  `--only-scl` runs phases 1-4, 7 and 15 alone and
-prints no result line:
+exits non-zero.  `--only-scl` runs phases 1-4, 7 and 15 alone,
+`--only-devbench` phases 1 and 16 over the generated data, and neither
+prints a result line:
 
 1. build   the kernels (ops/csrc/onehot_agg.cu, the one-hot aggregation;
            ops/csrc/quote_parity.cu, the byte lane's quote parity) from
@@ -263,6 +264,20 @@ prints no result line:
            top --once` shows members 4/4 up, `stats --cluster` every
            member; (viii) the drain: the stream's `end` frame, device
            memory back within 16 MiB; a `serve_cluster` JSON line.
+16. devb   the kernel-resident microbenchmark (devbench.kernel_bench)
+           over the first scan batch (65,536 records) of phase 3's
+           file, for bench.py's QUERY (32,768 segments: index_add_) and
+           PALLAS_QUERY (256: K1), 32 folds each: K1 launching once per
+           fold of the resident loop on PALLAS_QUERY and never on
+           QUERY, the resident accumulator equal to 33 plain folds of
+           the batch (index_add_, on the card), bound_share (the
+           reference's bytes at 3.35 TB/s over the measured ms) below
+           1.05; the K1 leg again under DN_BENCH_TRACE, its
+           torch.profiler trace naming the kernel; device memory back to
+           its level.  Prints per leg the resident ms per batch (host
+           clock and CUDA events), H2D through the staging ring, D2H,
+           the reupload contrast; from the trace, the device kernels a
+           fold runs and their time; and a `devbench` JSON line.
 10. main   the kernel again, on the fused keys the main path gave it:
    keys    the largest batch of each kernel query at each segment count
            (the time window, and with it the accumulator, grows during
@@ -270,7 +285,8 @@ prints no result line:
 11. result the card's name and power limit (nvidia-smi), a `kernels`
            JSON line (per kernel: launches on the main path, the build,
            the query phase, the eager auto runs, the follow rounds,
-           the served path, phases 13, 14 and 15, times, bound; K7,
+           the served path, phases 13, 14 and 15, phase 16's resident
+           loops, times, bound; K7,
            K7a and K9,
            torch ops that replace the reference's jitted XLA programs,
            with theirs),
@@ -461,6 +477,22 @@ K7A_REPLACES = 'dragnet_tpu/index_query_stack.py:416'
 # translation entry (8 B), each accumulator segment read and written
 # (16 B)
 K7_ROW_BYTES, K7_TAB_BYTES, K7_SEG_BYTES = 16, 8, 16
+# phase 16: the kernel-resident microbenchmark's two legs, bench.py's
+# QUERY (8*8*16*32 = 32,768 segments, past K1's gate: index_add_) and
+# PALLAS_QUERY (8*32 = 256 segments: K1), with whether K1 carries each,
+# over the first scan batch of phase 3's file; the symbol a trace of
+# the K1 leg must name
+DEVBENCH_LEGS = [
+    ('QUERY', {'breakdowns': [{'name': 'host'}, {'name': 'req.method'},
+                              {'name': 'operation'},
+                              {'name': 'latency', 'aggr': 'quantize'}],
+               'filter': {'ne': ['res.statusCode', 599]}}, False),
+    ('PALLAS_QUERY', {'breakdowns': [{'name': 'host'},
+                                     {'name': 'latency',
+                                      'aggr': 'quantize'}]}, True),
+]
+DEVBENCH_ITERS = 32
+K1_SYMBOL = 'onehot_into_kernel'
 
 
 def log(msg):
@@ -5037,6 +5069,103 @@ def scl_phase(cli, mod_ds, ck, tmp, query_outputs, forced, serve_p50):
     return doc
 
 
+def devbench_phase(tmp, data):
+    """Phase 16: devbench.kernel_bench on the card over the first scan
+    batch of the data file, for both legs: K1 launching once per fold
+    of the resident loop on PALLAS_QUERY and never on QUERY, the
+    resident accumulator equal to DEVBENCH_ITERS + 1 plain folds
+    (index_add_, no kernel) of the batch on the card, bound_share below
+    1.05; then the K1 leg under DN_BENCH_TRACE, whose trace must name
+    the kernel, and device memory back to its level."""
+    import torch
+    from dragnet_tpu_torch import devbench
+    from dragnet_tpu_torch.engine import BATCH_SIZE
+    import numpy as np
+    torch.cuda.synchronize()
+    mem_before = torch.cuda.memory_allocated()
+    legs = []
+    for name, qconf, kernel in DEVBENCH_LEGS:
+        cap = {}
+        r = devbench.kernel_bench(data, qconf, iters=DEVBENCH_ITERS,
+                                  max_records=BATCH_SIZE, capture=cap)
+        check(r is not None, 'devbench %s: refused the batch' % name)
+        check(r['records'] == BATCH_SIZE and r['platform'] == 'gpu',
+              'devbench %s: %d records on %s'
+              % (name, r['records'], r['platform']))
+        check((r['segments'] <= 4096) == kernel,
+              'devbench %s: %d segments' % (name, r['segments']))
+        check(r['onehot_kernel'] is kernel and r['kernel_launches'] ==
+              (DEVBENCH_ITERS if kernel else 0),
+              'devbench %s: onehot_kernel %s, K1 %d launches in %d folds'
+              % (name, r['onehot_kernel'], r['kernel_launches'],
+                 DEVBENCH_ITERS))
+        check(r['bound_share'] is not None and r['bound_share'] < 1.05,
+              'devbench %s: bound share %r' % (name, r['bound_share']))
+        folds = DEVBENCH_ITERS + 1
+        dense, first, cvec = cap['resident']
+        pdense, pfirst, pcvec = cap['plain']
+        err = int(np.abs(dense - folds * pdense).max())
+        check(pdense.sum() > 0 and err == 0 and
+              np.array_equal(cvec, folds * pcvec) and
+              np.array_equal(first, pfirst),
+              'devbench %s: the resident accumulator is not %d plain '
+              'folds (max abs err %d)' % (name, folds, err))
+        log('devbench %-12s %6d segments  resident %.4f ms/batch (events '
+            '%.4f)  %.0f records/s  bound %.6f ms (%.4f %%)  K1 %d  '
+            'H2D %.3f GB/s (%.1f B/record)  D2H %.1f MB/s  reupload '
+            '%.0f records/s  residency x%.2f'
+            % (name, r['segments'], r['kernel_ms_per_batch'],
+               r['device_ms_per_batch'], r['kernel_records_per_sec'],
+               r['bound_ms'], 100 * r['bound_share'],
+               r['kernel_launches'], r['h2d_gb_per_sec'],
+               r['h2d_bytes_per_record'], r['d2h_mb_per_sec'],
+               r['reupload_records_per_sec'], r['residency_speedup']))
+        legs.append(dict(r, name=name, max_abs_err=err))
+    tracedir = os.path.join(tmp, 'devbench_trace')
+    name, qconf, _ = DEVBENCH_LEGS[1]
+    with env_scope(DN_BENCH_TRACE=tracedir):
+        traced = devbench.kernel_bench(data, qconf, iters=DEVBENCH_ITERS,
+                                       max_records=BATCH_SIZE)
+    files = [os.path.join(d, f) for d, _, fs in os.walk(tracedir)
+             for f in fs]
+    named = [f for f in files if K1_SYMBOL.encode() in file_bytes(f)]
+    check(traced is not None and traced['onehot_kernel'] and named,
+          'devbench trace: %d files, %d naming %s'
+          % (len(files), len(named), K1_SYMBOL))
+    # where a traced fold's time goes: the device kernels it ran (the
+    # trace's `kernel` events) against its wall
+    with open(named[0]) as f:
+        events = json.load(f)['traceEvents']
+    kernels = [e for e in events if e.get('cat') == 'kernel']
+    k1 = [e for e in kernels if K1_SYMBOL in e.get('name', '')]
+    trace = {
+        'file_bytes': os.path.getsize(named[0]),
+        'ms_per_fold': traced['kernel_ms_per_batch'],
+        'kernels_per_fold': len(kernels) / DEVBENCH_ITERS,
+        'kernel_ms_per_fold':
+        sum(e.get('dur', 0) for e in kernels) / 1e3 / DEVBENCH_ITERS,
+        'k1_launches': len(k1),
+        'k1_ms_per_fold':
+        sum(e.get('dur', 0) for e in k1) / 1e3 / DEVBENCH_ITERS}
+    check(len(k1) == DEVBENCH_ITERS,
+          'devbench trace: %d K1 kernel events in %d folds'
+          % (len(k1), DEVBENCH_ITERS))
+    torch.cuda.synchronize()
+    mem_after = torch.cuda.memory_allocated()
+    check(mem_after <= mem_before,
+          'devbench: device memory %d B after, %d B before'
+          % (mem_after, mem_before))
+    log('devbench trace: %s (%d B), K1 named; a traced fold %.4f ms, '
+        '%.1f kernels (%.4f ms on the device, K1 %d launches, %.4f ms '
+        'a fold); device memory %d B before, %d B after'
+        % (os.path.basename(named[0]), trace['file_bytes'],
+           trace['ms_per_fold'], trace['kernels_per_fold'],
+           trace['kernel_ms_per_fold'], trace['k1_launches'],
+           trace['k1_ms_per_fold'], mem_before, mem_after))
+    return {'iters': DEVBENCH_ITERS, 'legs': legs, 'trace': trace,
+            'memory': {'before': mem_before, 'after': mem_after}}
+
+
 def file_bytes(path):
     with open(path, 'rb') as f:
         return f.read()
@@ -5067,6 +5196,9 @@ def main():
     ap.add_argument('--only-scl', action='store_true',
                     help='run only what phase 15 needs (phases 1-4 and '
                     '7) and phase 15; prints no result line')
+    ap.add_argument('--only-devbench', action='store_true',
+                    help='run only phases 1 and 16 (over the generated '
+                    'data); prints no result line')
     args = ap.parse_args()
     if args.cluster_child:
         return cluster_child(args.cluster_child)
@@ -5103,6 +5235,18 @@ def main():
                                  time.monotonic() - t0))
     log(nvcc_log.rstrip() if nvcc_log else
         '(library up to date, not rebuilt)')
+    if args.only_devbench:
+        with tempfile.TemporaryDirectory(prefix='chip_smoke_') as tmp:
+            data = os.path.join(tmp, 'muskie.log')
+            mod_native.gen_to_file(args.records, data, seed=args.seed)
+            t0 = time.monotonic()
+            devb = devbench_phase(tmp, data)
+            torch.cuda.synchronize()
+            log('phase 16 devbench: %.1f s' % (time.monotonic() - t0))
+        print(json.dumps({'devbench': dict(devb, card=card)}), flush=True)
+        log('smoke (phases 1 and 16 only): %.1f s'
+            % (time.monotonic() - t_smoke))
+        return 0
 
     # 2. kernel vs plain at the reference's test shapes (weighted), at
     # one batch with each kernel query's caps (unit weights, as the main
@@ -5198,6 +5342,7 @@ def main():
         scl = phase('15 scl', scl_phase, cli, mod_ds, ck, tmp,
                     query_outputs, forced,
                     percentile(serve['latency_s']['residency'], 0.5))
+        devb = phase('16 devbench', devbench_phase, tmp, data)
     torch.cuda.synchronize()
 
     # 10. the kernel on the main path's own keys, and on uniform keys at
@@ -5240,6 +5385,7 @@ def main():
                        'query': queries, 'auto': auto, 'parse': parse,
                        'lifecycle': lifecycle, 'serve': serve,
                        'cluster': cluster, 'subscribe': subscribe,
+                       'serve_cluster': scl, 'devbench': devb,
                        'index_kernels': [k7, k7a, k9]}, f, indent=1)
     print(json.dumps({'query': [
         {k: q[k] for k in ('name', 'route', 'points', 'device_s',
@@ -5260,6 +5406,7 @@ def main():
     print(json.dumps({'cluster': cluster}), flush=True)
     print(json.dumps({'subscribe': subscribe}), flush=True)
     print(json.dumps({'serve_cluster': scl}), flush=True)
+    print(json.dumps({'devbench': dict(devb, card=card)}), flush=True)
     block = parse['shapes'][0]
     log('phase walls: %s' % fmt_times(walls, 1))
     log('smoke: %.1f s' % (time.monotonic() - t_smoke))
@@ -5278,6 +5425,8 @@ def main():
         'cluster_process_launches': cluster['cluster_process_launches'],
         'subscribe_launches': subscribe['launches']['onehot_dense'],
         'scl_launches': scl['launches']['onehot_dense'],
+        'devbench_launches': sum(r['kernel_launches']
+                                 for r in devb['legs']),
         'max_abs_err': max(r['max_abs_err'] for r in results),
         'ms': main['ms'], 'plain_ms': main['plain_ms'],
         'bound_ms': main['bound_ms'], 'bound_by': main['bound_by'],

@@ -21,9 +21,10 @@ serve/subscribe.py) and `top` (serve/top.py), with `--remote` and
 parsing, breakdown expansion, warnings (`--warnings`), output and the
 `-t` timing flag are the reference CLI's, so the port prints byte-identical results and
 writes byte-identical index trees, locally and over `--remote`.
-`--assetroot` on `query` is not ported: it is an unknown option (a
-usage error).  The configuration is the same file as
-bin/dn's ($DRAGNET_CONFIG or ~/.dragnetrc).
+`--assetroot` is accepted on `scan`, `query` and `build` and read
+nowhere, as in the reference, which only ever passed it to Manta.  The
+configuration is the same file as bin/dn's ($DRAGNET_CONFIG or
+~/.dragnetrc).
 
 Exit codes: 2 for usage errors (with the usage text on stderr), 1 for
 fatal runtime errors ("dn: <message>"); `follow` returns its own (1
@@ -70,13 +71,15 @@ dn build             [--before=START_TIME] [--after=END_TIME]
 dn query             [--before=START_TIME] [--after=END_TIME] [--filter=FILTER]
                      [--breakdowns=BREAKDOWN[,...]] [--interval=hour|day|all]
                      [--raw] [--points] [--counters] [--gnuplot]
-                     [--dry-run] [--iq-threads=auto|N] [--iq-stack=auto|0|1]
+                     [--dry-run] [--assetroot=ASSET_ROOT]
+                     [--iq-threads=auto|N] [--iq-stack=auto|0|1]
                      [--remote=SOCKET|HOST:PORT] [--trace]
                      DATASOURCE
 dn scan              [--before=START_TIME] [--after=END_TIME] [--filter=FILTER]
                      [--breakdowns=BREAKDOWN[,...]]
                      [--raw] [--points] [--counters] [--warnings] [--dry-run]
-                     [--gnuplot] [--parse=auto|host|vector|device]
+                     [--gnuplot] [--assetroot=ASSET_ROOT]
+                     [--parse=auto|host|vector|device]
                      [--remote=SOCKET|HOST:PORT] [--trace]
                      DATASOURCE
 dn index-config      DATASOURCE
@@ -763,8 +766,8 @@ def _try_remote(ctx, opts, req):
 def cmd_scan(ctx, argv):
     opts = dn_parse_args(argv, ['before', 'after', 'filter', 'breakdowns',
                                 'raw', 'points', 'counters', 'warnings',
-                                'gnuplot', 'dry-run', 'parse', 'remote',
-                                'trace'])
+                                'gnuplot', 'assetroot', 'dry-run',
+                                'parse', 'remote', 'trace'])
     check_arg_count(opts, 1)
     dsname = opts._args[0]
     ds = datasource_for_name(ctx['config'], dsname)
@@ -794,8 +797,9 @@ def cmd_scan(ctx, argv):
 def cmd_query(ctx, argv):
     opts = dn_parse_args(argv, ['before', 'after', 'filter', 'breakdowns',
                                 'raw', 'points', 'counters', 'interval',
-                                'gnuplot', 'dry-run', 'iq-threads',
-                                'iq-stack', 'remote', 'trace'])
+                                'gnuplot', 'assetroot', 'dry-run',
+                                'iq-threads', 'iq-stack', 'remote',
+                                'trace'])
     check_arg_count(opts, 1)
     dsname = opts._args[0]
     ds = datasource_for_name(ctx['config'], dsname)

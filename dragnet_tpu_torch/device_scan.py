@@ -135,6 +135,15 @@ def _note_h2d(nbytes):
         obs_metrics.inc('device_h2d_bytes', int(nbytes))
 
 
+def uses_kernel(staged):
+    """Whether a staged batch folds through the one-hot kernel (K1)
+    rather than index_add_ (never in sparse mode): the one decision
+    _fold_staged and the benchmark's capture share."""
+    n, profile, caps, ns, total_w = staged
+    return not profile[-1] and bool(caps) and \
+        cuda_kernels.should_use(ns, total_w)
+
+
 def _align(nbytes, quantum=256):
     return (nbytes + quantum - 1) // quantum * quantum
 
@@ -670,6 +679,11 @@ class DeviceScan(VectorScan):
                       'probation': None}
         self._sticky = None       # upload-profile state (_stage_device)
         self._mesh_rows = None    # per-record input keys (_run_staged)
+        # when True, _run_staged records (inputs, staged, use_kernel) on
+        # self.captured before the upload: the kernel-resident benchmark
+        # (devbench.py) replays the production fold on that batch
+        self.capture_next = False
+        self.captured = None
         self._sparse_cap = SPARSE_CAP0
         self._sparse_ub = 0       # unique-count upper bound this epoch
         self._plans = None        # built from the query
@@ -1569,6 +1583,11 @@ class DeviceScan(VectorScan):
             # whole)
             self._mesh_rows = frozenset(k for k, v in inputs.items()
                                         if isinstance(v, np.ndarray))
+        if self.capture_next:
+            # before the upload: the benchmark tells the per-record
+            # host arrays (its H2D) from the resident tables by type
+            self.capture_next = False
+            self.captured = (dict(inputs), staged, uses_kernel(staged))
         args, nbytes, slot = self._upload_inputs(inputs)
         self._fold_staged(staged, args)
         _note_h2d(nbytes)
@@ -1593,8 +1612,7 @@ class DeviceScan(VectorScan):
             self._fold_sparse(args, n, profile, caps,
                               min(sparse_cap, self._sparse_ub - n), base)
         else:
-            use_kernel = bool(caps) and cuda_kernels.should_use(ns,
-                                                                total_w)
+            use_kernel = uses_kernel(staged)
             mesh_info = self._device_mesh()
             if mesh_info is None:
                 self._fold(args, n, profile, caps, ns, use_kernel, base)

@@ -24,6 +24,8 @@ CASES = {
               '{"ne": ["res.statusCode", 599]}'],
     'quantize': ['-b', 'latency[aggr=quantize]'],
     'points': ['--points', '-b', 'operation,res.statusCode'],
+    # accepted and read nowhere, as in the reference
+    'assetroot': ['--assetroot=/dragnet/assets', '-b', 'host'],
     'counters': ['--counters', '-b',
                  'timestamp[field=time,date,aggr=lquantize,step=600],'
                  'res.statusCode', '-f', '{"ge": ["res.statusCode", 500]}'],
@@ -82,3 +84,33 @@ def test_port_cli_matches_bin_dn(dsenv, monkeypatch, case):
     if case == 'counters':
         assert 'Aggregator' in got.stderr
         assert got.stderr == ref.stderr
+
+
+@pytest.fixture(scope='module')
+def builtenv(dsenv, tmp_path_factory):
+    """A datasource with an index path and one metric, its hour tree
+    built by the port's CLI on the CPU."""
+    d = tmp_path_factory.mktemp('torch_cli_idx')
+    data = str(d / 'muskie.log')
+    tnative.gen_to_file(2000, data, seed=11)
+    env = dict(dsenv)
+    for args in (['datasource-add', 'muskieidx', '--path=' + data,
+                  '--time-field=time', '--index-path=' + str(d / 'idx')],
+                 ['metric-add', '-b', 'host,req.method', 'muskieidx',
+                  'bymethod'],
+                 ['build', '--interval=hour', 'muskieidx']):
+        proc = _port(env, args)
+        assert proc.returncode == 0, proc.stderr
+    return env
+
+
+def test_port_cli_query_assetroot_matches_bin_dn(builtenv, monkeypatch):
+    """`query --assetroot=...` on a tree the port built: accepted and
+    ignored by both CLIs, with the same stdout and exit code."""
+    args = ['query', '--assetroot=/dragnet/assets', '--interval=hour',
+            '-b', 'host,req.method', 'muskieidx']
+    ref = _bin_dn(monkeypatch, builtenv, args)
+    got = _port(builtenv, args)
+    assert ref.returncode == 0, ref.stderr
+    assert got.returncode == ref.returncode, got.stderr
+    assert ref.stdout and got.stdout == ref.stdout

@@ -638,12 +638,12 @@ def test_port_cli_query_bad_flag_values(cli_env, bad):
 
 
 @pytest.mark.parametrize('bad', [['--socket', 'x'], ['--prom'],
-                                 ['--assetroot', '/x']])
+                                 ['--tree', '/x']])
 def test_port_cli_query_unsupported_options(cli_env, bad):
-    """Options `query` does not take (another command's, or one the port
-    cannot honour yet) are usage errors (exit 2).  `--remote` and
-    `--trace` are `query` options now: tests/test_torch_serve.py and
-    tests/test_torch_obs_serve.py."""
+    """Options `query` does not take (another command's) are usage
+    errors (exit 2).  `--remote` and `--trace` are `query` options:
+    tests/test_torch_serve.py and tests/test_torch_obs_serve.py;
+    `--assetroot` is accepted and ignored: tests/test_torch_cli.py."""
     got = _port_cli(['query'] + bad + ['-b', 'host', 'muskie'])
     assert got.returncode == 2
     assert 'unknown option' in got.stderr
