@@ -2,18 +2,25 @@
 """Chip smoke for the PyTorch/CUDA port (dragnet_tpu_torch) on one GPU.
 
     python3 chip_smoke.py [--records N] [--seed S] [--reps R] [--json F]
-                          [--only-scl | --only-devbench]
+                          [--only-scl | --only-devbench | --only-body]
 
 Phases, each ending in torch.cuda.synchronize() so a fault shows where
-it happened and printing its wall (`phase ...: N s`); any failed check
-exits non-zero.  `--only-scl` runs phases 1-4, 7 and 15 alone,
-`--only-devbench` phases 1 and 16 over the generated data, and neither
-prints a result line:
+it happened and printing its wall (`phase ...: N s`) with the device
+folds it ran and the scan program's launches in them; any failed check
+exits non-zero.  `--only-scl` runs phases 1-4, 3b, 7 and 15 alone,
+`--only-devbench` phases 1 and 16 over the generated data,
+`--only-body` phases 1, 3b and 16, and none prints a result line.
+Every device fold of the run, on every path and thread (forced, the
+stack, sparse, the mesh, auto, follow, serve, the cluster and its
+child processes), must launch the scan program K2 exactly once per
+mesh shard (once off a mesh): a ledger around DeviceScan._fold_staged
+counts it, and a phase whose folds launched otherwise fails.
 
 1. build   the kernels (ops/csrc/onehot_agg.cu, the one-hot aggregation;
-           ops/csrc/quote_parity.cu, the byte lane's quote parity) from
-           the sources in this checkout, one nvcc per source started
-           together; prints ptxas's registers, shared memory and spills
+           ops/csrc/quote_parity.cu, the byte lane's quote parity;
+           ops/csrc/scan_body.cu, the scan program K2) from the sources
+           in this checkout, one nvcc per source started together;
+           prints ptxas's registers, shared memory and spills
            (-Xptxas -v).
 2. kernel  the kernel against its plain torch version, exactly, at the
            four shapes of tests/test_pallas.py (through onehot_dense),
@@ -36,12 +43,31 @@ prints a result line:
            and a cold pass: the three queries over 20,000 records, once,
            which pays the process's one-time CUDA warm-up (timed
            separately) before the measured main path.
+3b. body   the scan program K2 against its plain version
+           (scan_program.scan_body_ref) on the card, exactly, on the
+           first batch (65,536 records) of phase 3's file for bench.py's
+           QUERY and PALLAS_QUERY, the timestamp query of phase 4, the
+           two sparse queries of phase 5 and the build's per-minute
+           metric with its hour key, and of generated records holding
+           every tag kind and bad dates for a filter over every leaf
+           kind, nested 4 deep, with time bounds, signed weights, a
+           host-translated key, kvalid and linear buckets over negative
+           values: counters, first occurrences, dense sums, fused keys
+           and sparse rows, in every output mode the key space allows
+           (K1's fused key, dense atomics, sparse) and as two mesh
+           shards.  Each case's own route timed: K2 in a CUDA graph of
+           `reps` calls and issued one by one, the plain version (the
+           torch interpreter of the same descriptor, the old eager
+           body's successor) issued one by one, and the bound (bytes:
+           each input read once, each output written once; or the
+           integer operations a record needs); a `body` JSON line.
 4. scans   `scan` through the port's CLI code path, in-process, on the
            card, for three queries; each output (--points and
            --counters) must equal the port's host engine on the same
-           file byte for byte, every batch must run on the device, the
-           kernel must launch once per batch on the two kernel queries
-           and never on the scatter query.
+           file byte for byte, every batch must run on the device, K2
+           must launch once per batch on every query, and K1 once per
+           batch on the two kernel queries and never on the scatter
+           query.
 5. sparse  two high-cardinality scans on the card (the sparse program:
            fused i64 keys sort-merged into a resident set): the
            per-minute timestamp x host x url x latency query, which
@@ -266,24 +292,28 @@ prints a result line:
            memory back within 16 MiB; a `serve_cluster` JSON line.
 16. devb   the kernel-resident microbenchmark (devbench.kernel_bench)
            over the first scan batch (65,536 records) of phase 3's
-           file, for bench.py's QUERY (32,768 segments: index_add_) and
-           PALLAS_QUERY (256: K1), 32 folds each: K1 launching once per
-           fold of the resident loop on PALLAS_QUERY and never on
+           file, for bench.py's QUERY (32,768 segments: K2's dense
+           atomics) and PALLAS_QUERY (256: K2's fused key, then K1), 32
+           folds each: K2 launching once per fold of the resident loop
+           on both, K1 once per fold on PALLAS_QUERY and never on
            QUERY, the resident accumulator equal to 33 plain folds of
-           the batch (index_add_, on the card), bound_share (the
-           reference's bytes at 3.35 TB/s over the measured ms) below
-           1.05; the K1 leg again under DN_BENCH_TRACE, its
-           torch.profiler trace naming the kernel; device memory back to
-           its level.  Prints per leg the resident ms per batch (host
-           clock and CUDA events), H2D through the staging ring, D2H,
-           the reupload contrast; from the trace, the device kernels a
-           fold runs and their time; and a `devbench` JSON line.
+           the batch (scan_body_ref with index_add_, on the card),
+           bound_share (the reference's bytes at 3.35 TB/s over the
+           measured ms) below 1.05; each leg again under
+           DN_BENCH_TRACE, whose torch.profiler trace must hold exactly
+           K2 and K1 (PALLAS_QUERY) or K2 alone (QUERY) as each fold's
+           device kernels; device memory back to its level.  Prints per
+           leg the resident ms per batch (host clock and CUDA events),
+           H2D through the staging ring, D2H, the reupload contrast;
+           from each trace, the device kernels a fold runs and their
+           time; and a `devbench` JSON line.
 10. main   the kernel again, on the fused keys the main path gave it:
    keys    the largest batch of each kernel query at each segment count
            (the time window, and with it the accumulator, grows during
            the timestamp query), captured in phase 4.
 11. result the card's name and power limit (nvidia-smi), a `kernels`
            JSON line (per kernel: launches on the main path, the build,
+           K2's launches and folds per phase,
            the query phase, the eager auto runs, the follow rounds,
            the served path, phases 13, 14 and 15, phase 16's resident
            loops, times, bound; K7,
@@ -312,6 +342,8 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 INT32_OPS_PER_S = 33.5e12      # H100 SXM: half the 67 TFLOP/s fp32 rate
 
 DEVICE = 'cuda'
+# K2's launches on the main path (phase 4), counted from zero there
+BODY_LAUNCHES = {}
 KERNEL_SOURCE = 'dragnet_tpu_torch/ops/csrc/onehot_agg.cu'
 KERNEL_REPLACES = 'dragnet_tpu/ops/pallas_kernels.py:102'
 
@@ -493,6 +525,65 @@ DEVBENCH_LEGS = [
 ]
 DEVBENCH_ITERS = 32
 K1_SYMBOL = 'onehot_into_kernel'
+# phase 3b: the scan program K2 (ops/csrc/scan_body.cu), which replaces
+# the reference's jitted per-batch program (jax.jit of `fold` ->
+# `run_body` -> `body`), held against its plain version on real batches
+BODY_SOURCE = 'dragnet_tpu_torch/ops/csrc/scan_body.cu'
+BODY_REPLACES = 'dragnet_tpu/device_scan.py:2069'
+K2_SYMBOL = 'scan_body_kernel'
+TS_60 = {'name': 'timestamp', 'field': 'time', 'date': '',
+         'aggr': 'lquantize', 'step': 60}
+LAT_Q = {'name': 'latency', 'aggr': 'quantize'}
+MAIN_DS_FILTER = {'ne': ['host', 'zzz']}
+# a filter over every leaf kind (string tables, numeric eq/ne/lt/le/gt/
+# ge, NaN, +-Infinity and beyond-i32 constants, booleans, strings
+# compared as numbers), and/or nested 4 deep, over records holding every
+# tag kind, bad dates, time bounds, signed weights, a host-translated key
+# (code: numbers and strings), kvalid (latency: numbers and strings) and
+# linear buckets over negative values
+EDGE_QUERY = {
+    'timeAfter': '2014-05-01T06:00:00Z', 'timeBefore': '2014-05-03T12:00:00Z',
+    'breakdowns': [dict(TS_60, step=3600), {'name': 'code'},
+                   {'name': 'delta', 'aggr': 'lquantize', 'step': 7},
+                   LAT_Q],
+    'filter': {'or': [
+        {'and': [{'or': [{'eq': ['host', 'a']}, {'eq': ['host', True]},
+                         {'and': [{'eq': ['host', 17]},
+                                  {'ne': ['code', '500']}]}]},
+                 {'ne': ['latency', 'abc']},
+                 {'lt': ['latency', 'Infinity']}]},
+        {'and': [{'ge': ['latency', 16.5]},
+                 {'or': [{'le': ['code', '404']},
+                         {'eq': ['req.method', 'GET']},
+                         {'gt': ['latency', -1e20]}]}]},
+        {'and': [{'eq': ['latency', 'abc']}, {'ge': ['latency', '-Infinity']},
+                 {'le': ['latency', 3e9]}]}]}}
+# (name, query, time field, datasource filter, signed weights, the
+# generated edge records instead of phase 3's file)
+BODY_CASES = [
+    ('QUERY', DEVBENCH_LEGS[0][1], None, MAIN_DS_FILTER, False, False),
+    ('PALLAS_QUERY', DEVBENCH_LEGS[1][1], None, MAIN_DS_FILTER, False,
+     False),
+    ('timestamp(60s) x statusCode >= 500',
+     {'breakdowns': [TS_60, {'name': 'res.statusCode'}],
+      'filter': {'ge': ['res.statusCode', 500]}}, 'time', MAIN_DS_FILTER,
+     False, False),
+    ('timestamp(60s) x host x url x latency',
+     {'breakdowns': [TS_60, {'name': 'host'}, {'name': 'req.url'}, LAT_Q]},
+     'time', MAIN_DS_FILTER, False, False),
+    ('host x url x op x method x status x lat x dlat',
+     {'breakdowns': [{'name': 'host'}, {'name': 'req.url'},
+                     {'name': 'operation'}, {'name': 'req.method'},
+                     {'name': 'res.statusCode'}, LAT_Q,
+                     {'name': 'dataLatency', 'aggr': 'quantize'}]},
+     None, MAIN_DS_FILTER, False, False),
+    ('build requests (hour key)',
+     {'breakdowns': [dict(TS_60, name='hour', step=3600), TS_60,
+                     {'name': 'req.method'}, {'name': 'res.statusCode'},
+                     LAT_Q]}, 'time', None, False, False),
+    ('every leaf kind, signed weights', EDGE_QUERY, 'time', None, True,
+     True),
+]
 
 
 def log(msg):
@@ -828,6 +919,7 @@ def main_path(cli, mod_ds, ck, ds, records):
         current[0] = name
         b0 = dict(batches)
         l0 = ck.launches['onehot_dense']
+        k0 = ck.launches['scan_body']
         s0 = len(shapes)
         t0 = time.monotonic()
         rc, out, err = run_cli(cli, argv)
@@ -837,13 +929,16 @@ def main_path(cli, mod_ds, ck, ds, records):
         nb = batches['total'] - b0['total']
         nd = batches['device'] - b0['device']
         nl = ck.launches['onehot_dense'] - l0
+        nk2 = ck.launches['scan_body'] - k0
         segs = sorted(set(s[0] for s in shapes[s0:]))
         per_query.append((name, route, argv, out, err, dt, nb, nd, nl))
         log('scan %-36s %8.2f s  %11.0f records/s  batches %d '
-            '(device %d)  kernel launches %d  kernel segments %s'
-            % (name, dt, records / dt, nb, nd, nl, segs))
+            '(device %d)  K2 launches %d  kernel launches %d  kernel '
+            'segments %s' % (name, dt, records / dt, nb, nd, nk2, nl, segs))
         check(nb > 0 and nd == nb,
               '%s: %d of %d batches ran on the device' % (name, nd, nb))
+        check(nk2 == nd, '%s: the scan program launched %d times for %d '
+              'device batches' % (name, nk2, nd))
         if route == 'kernel':
             check(nl == nb, '%s: kernel launched %d times for %d '
                   'batches (segments %s)' % (name, nl, nb, segs))
@@ -851,12 +946,13 @@ def main_path(cli, mod_ds, ck, ds, records):
             check(nl == 0, '%s: expected the scatter path, the kernel '
                   'launched %d times' % (name, nl))
     main_launches = ck.launches['onehot_dense']
+    BODY_LAUNCHES['main'] = ck.launches['scan_body']
     main_s = time.monotonic() - t_main
     forced = {q[0]: (q[3], q[4], q[5]) for q in per_query}
     mod_ds.DeviceScan._try_device = orig_try
     ck.onehot_dense_into = orig_kernel
-    log('main path: %.2f s, one-hot kernel launches %d'
-        % (main_s, main_launches))
+    log('main path: %.2f s, scan program launches %d, one-hot kernel '
+        'launches %d' % (main_s, BODY_LAUNCHES['main'], main_launches))
 
     # the same outputs from the port's host engine
     for name, route, argv, out, err, dt, nb, nd, nl in per_query:
@@ -3611,6 +3707,7 @@ def cluster_child(spec_path):
     from dragnet_tpu_torch import datasource_file as mod_dsf
     from dragnet_tpu_torch.parallel import distributed as mod_dist
     spy = Spy()
+    ledger = FoldLedger(mod_ds, ck)
     timer = MergeTimer(spy, mod_mesh, cuda=cuda)
     batches = batch_counter(spy, mod_ds)
     stages = Timers()
@@ -3631,11 +3728,13 @@ def cluster_child(spec_path):
         mod_mesh.reset_launches()
         mod_cl.reset_allgather_stats()
         b0 = dict(batches)
+        m = ledger.mark()
         t0 = time.monotonic()
         rc, out, err = run_cli(cli, argv)
         if cuda:
             torch.cuda.synchronize()
         dt = time.monotonic() - t0
+        folds, _, bad = ledger.since(m)
         ms, bound = timer.take()
         results.append({
             'argv': argv, 'rc': rc, 'wall_s': dt, 'stdout': out,
@@ -3643,6 +3742,8 @@ def cluster_child(spec_path):
             'batches': batches['total'] - b0['total'],
             'device_batches': batches['device'] - b0['device'],
             'k1': ck.launches['onehot_dense'],
+            'k2': ck.launches['scan_body'], 'folds': folds,
+            'k2_bad': bad[:3],
             'merges': mod_mesh.launches['scan_merge'],
             'merge_ms': ms, 'merge_bound_ms': bound,
             'allgather': dict(mod_cl.allgather_stats)})
@@ -3980,6 +4081,15 @@ def cluster_phase(cli, mod_ds, ck, tmp, records, build_s, reps):
         for pid, r in enumerate((r0, r1)):
             child_k1[pid] += r['k1']
             child_merges[pid] += r['merges']
+            check(not r['k2_bad'] and r['k2'] >= r['folds'],
+                  'cluster (iii) %s, process %d: the scan program launched '
+                  '%d times in %d folds (%s)'
+                  % (label, pid, r['k2'], r['folds'], r['k2_bad']))
+            if label in routes:
+                check(r['folds'] == r['device_batches'],
+                      'cluster (iii) %s, process %d: %d folds for %d '
+                      'device batches' % (label, pid, r['folds'],
+                                          r['device_batches']))
             if label in routes:
                 want = r['merges'] if routes[label] == 'kernel' else 0
                 check(r['k1'] == want and
@@ -5069,14 +5179,241 @@ def scl_phase(cli, mod_ds, ck, tmp, query_outputs, forced, serve_p50):
     return doc
 
 
+class FoldLedger(object):
+    """Every device-scan fold of the run (DeviceScan._fold_staged, one a
+    metric and batch, on any thread) and the scan program's launches it
+    made, which must be one per shard of its mesh (one off a mesh).
+    Folds run one at a time under the ledger's lock, so a fold's launch
+    count is its own; `since` reads a phase's share."""
+
+    def __init__(self, mod_ds, ck):
+        import threading
+        self.lock = threading.RLock()
+        self.folds = 0
+        self.launches = 0
+        self.bad = []
+        orig = mod_ds.DeviceScan._fold_staged
+        ledger = self
+
+        def fold_staged(scan, staged, args):
+            mesh = scan._device_mesh()
+            want = 1 if mesh is None or staged[1][-1] else mesh[0].size
+            with ledger.lock:
+                l0 = ck.launches['scan_body']
+                rv = orig(scan, staged, args)
+                got = ck.launches['scan_body'] - l0
+                ledger.folds += 1
+                ledger.launches += got
+                if got != want:
+                    ledger.bad.append('%d launches for %d shard(s) (%d '
+                                      'records, segments %d)'
+                                      % (got, want, staged[0], staged[3]))
+            return rv
+        mod_ds.DeviceScan._fold_staged = fold_staged
+
+    def mark(self):
+        return self.folds, self.launches, len(self.bad)
+
+    def since(self, mark):
+        """(folds, K2 launches, the folds that launched otherwise) since
+        `mark`."""
+        return (self.folds - mark[0], self.launches - mark[1],
+                self.bad[mark[2]:])
+
+
+def edge_records(path, n, seed):
+    """n records of every tag kind in the fields EDGE_QUERY reads, with
+    bad dates and negative values (phase 3b)."""
+    import random
+    rng = random.Random(seed)
+    hosts = ['a', 'b', 'c', None, True, False, {'x': 1}, 17, -3]
+    lats = [0, 1, 2, 16, 17, 200, 4096, 2147483647, -1, -7, -2147483648,
+            '26', 'x', None, True]
+    with open(path, 'w') as f:
+        for i in range(n):
+            rec = {}
+            if rng.random() < 0.93:
+                rec['host'] = rng.choice(hosts + ['host-%d' % (i % 40)])
+            if rng.random() < 0.9:
+                rec['req'] = {'method': rng.choice(['GET', 'PUT', None])}
+            if rng.random() < 0.95:
+                rec['latency'] = rng.choice(lats + [rng.randrange(5000)])
+            if rng.random() < 0.95:
+                rec['code'] = rng.choice([200, 204, 404, 500, '500', None])
+            if rng.random() < 0.9:
+                rec['delta'] = rng.choice([rng.randrange(-60, 60), 'n/a'])
+            r = rng.random()
+            if r < 0.9:
+                rec['time'] = '2014-05-%02dT%02d:%02d:%02dZ' % (
+                    1 + i * 3 // n, rng.randrange(24), rng.randrange(60),
+                    rng.randrange(60))
+            elif r < 0.95:
+                rec['time'] = 'invalid'
+            f.write(json.dumps(rec) + '\n')
+
+
+def _body_bound(prog, args, n, occ):
+    """(bound ms, 'bytes' or 'operations') of one scan-program call:
+    each per-record input and table byte read once and each output byte
+    written once (the fused key or the sparse rows, the first-occurrence
+    and dense bins this batch touched, the counters), at 3.35 TB/s;
+    against the integer operations the program needs a record (a
+    compare or select per leaf, fold and counter, a multiply-add per key
+    column) at the int32 rate."""
+    from dragnet_tpu_torch import scan_program as sp
+    nbytes = sum(args[k].numel() * args[k].element_size()
+                 for k in prog.slot_keys)
+    if prog.mode == sp.MODE_SPARSE:
+        nbytes += 24 * n
+    else:
+        nbytes += (4 * n if prog.mode == sp.MODE_K1 else 8 * occ) + \
+            8 * occ
+    nbytes += 8 * prog.ncounters
+    nleaf = sum(1 for op in prog.ops if op[0] == sp.OP_LEAF)
+    nkey = prog.header['key_end'] - prog.header['key_begin']
+    per_record = 2 * nleaf + (len(prog.ops) - nleaf - nkey) + \
+        3 * nkey + prog.ncounters + 2
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n * per_record / INT32_OPS_PER_S * 1e3
+    return (bytes_ms, 'bytes') if bytes_ms >= ops_ms else \
+        (ops_ms, 'operations')
+
+
+def body_phase(tmp, data, reps):
+    """Phase 3b: the scan program K2 against its plain version on the
+    card, exactly, on the first batch of phase 3's file for each
+    BODY_CASES query (and of generated edge records for the last), in
+    every output mode the batch's key space allows and as two mesh
+    shards; each case's own route timed (K2 in a CUDA graph of `reps`
+    calls and issued one by one; the plain version issued one by one)
+    against its bound."""
+    import numpy as np
+    import torch
+    from dragnet_tpu_torch import devbench
+    from dragnet_tpu_torch import query as mod_query
+    from dragnet_tpu_torch import scan_program as sp
+    from dragnet_tpu_torch.device_scan import (DeviceScan,
+                                               MAX_DENSE_SEGMENTS, I64MAX)
+    from dragnet_tpu_torch.engine import NativeColumns, BATCH_SIZE
+    from dragnet_tpu_torch.vpipe import Pipeline
+    dev = torch.device('cuda')
+    edge = os.path.join(tmp, 'edge.log')
+    edge_records(edge, BATCH_SIZE + 1000, 7)
+    shapes = []
+    worst = 0
+    for name, qconf, tfield, dsf, signed, use_edge in BODY_CASES:
+        scan = DeviceScan(mod_query.query_load(json.loads(json.dumps(
+            qconf))), tfield, Pipeline(), ds_filter=dsf, device=dev)
+        parser = devbench._one_batch_parser(edge if use_edge else data,
+                                            scan, BATCH_SIZE)
+        n = parser.batch_size()
+        rng = np.random.default_rng(len(name))
+        w = rng.integers(-3, 9, n).astype(np.float64) if signed \
+            else np.ones(n)
+        scan.capture_next = True
+        check(scan._try_device(NativeColumns(parser), w, None),
+              'body %s: the batch was refused' % name)
+        torch.cuda.synchronize()
+        inputs, staged, use_kernel = scan.captured
+        _, profile, caps, ns, _ = staged
+        own = sp.MODE_SPARSE if profile[-1] else \
+            sp.MODE_K1 if use_kernel else sp.MODE_DENSE
+        args = {k: (torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                    if isinstance(v, np.ndarray) else v)
+                for k, v in inputs.items()}
+        nsb = max(ns, 1)
+        modes = [m for m in (sp.MODE_K1, sp.MODE_DENSE, sp.MODE_SPARSE)
+                 if m == sp.MODE_SPARSE or nsb <= MAX_DENSE_SEGMENTS]
+        checked = 0
+        for mode in modes:
+            prog = scan._program(profile, caps, ns, mode)
+            rowkeys = {prog.slot_keys[i] for i in prog.rows}
+            shards = [(0, n, None)]
+            if mode != sp.MODE_SPARSE and profile[1]:
+                shards += [(0, n // 2, n - 3), (n // 2, n - n // 2, n - 3)]
+            for row0, sn, nvalid in shards:
+                sargs = {k: args[k][row0:row0 + sn].contiguous()
+                         if k in rowkeys else args[k]
+                         for k in prog.slot_keys}
+                accs = []
+                nacc = 1 if mode == sp.MODE_SPARSE else nsb
+                for _ in range(2):
+                    accs.append([
+                        torch.zeros(nacc, dtype=torch.int64, device=dev),
+                        torch.full((nacc,), I64MAX, dtype=torch.int64,
+                                   device=dev),
+                        torch.zeros(prog.ncounters, dtype=torch.int64,
+                                    device=dev)])
+                kouts = [torch.empty(sn, dtype=torch.int32, device=dev)
+                         for _ in range(2)]
+                got = sp.scan_body(prog, sargs, sn, *accs[0], base=9 << 32,
+                                   row0=row0, nvalid=nvalid,
+                                   key_out=kouts[0])
+                want = sp.scan_body_ref(prog, sargs, sn, *accs[1],
+                                        base=9 << 32, row0=row0,
+                                        nvalid=nvalid, key_out=kouts[1])
+                torch.cuda.synchronize()
+                pairs = list(zip(accs[0], accs[1]))
+                if mode == sp.MODE_K1:
+                    pairs.append((got, want))
+                elif mode == sp.MODE_SPARSE:
+                    pairs += list(zip(got, want))
+                    pairs = pairs[2:]      # dense and first are unused
+                err = max(int((a.to(torch.float64) - b.to(torch.float64))
+                              .abs().max()) if a.numel() else 0
+                          for a, b in pairs)
+                worst = max(worst, err)
+                check(err == 0 and all(torch.equal(a, b)
+                                       for a, b in pairs),
+                      'body %s: K2 differs from its plain version in mode '
+                      '%d (rows %d+%d, max abs err %d)'
+                      % (name, mode, row0, sn, err))
+                checked += 1
+        # the case's own route, timed
+        prog = scan._program(profile, caps, ns, own)
+        nacc = 1 if own == sp.MODE_SPARSE else nsb
+        acc = [torch.zeros(nacc, dtype=torch.int64, device=dev),
+               torch.full((nacc,), I64MAX, dtype=torch.int64, device=dev),
+               torch.zeros(prog.ncounters, dtype=torch.int64, device=dev)]
+        kout = torch.empty(n, dtype=torch.int32, device=dev)
+        sp.scan_body(prog, args, n, *acc, key_out=kout)
+        torch.cuda.synchronize()
+        occurred = int((acc[1] < I64MAX).sum()) if own != sp.MODE_SPARSE \
+            else 0
+        ms, eager = cuda_time_ms(
+            lambda: sp.scan_body(prog, args, n, *acc, key_out=kout), reps)
+        plain_ms, plain_host = cuda_time_events(
+            lambda: sp.scan_body_ref(prog, args, n, *acc, key_out=kout),
+            max(3, reps // 10))
+        bound, by = _body_bound(prog, args, n, occurred)
+        r = {'case': name, 'mode': ['k1', 'dense', 'sparse'][own],
+             'n': n, 'ns': ns, 'slots': len(prog.slot_keys),
+             'ops': len(prog.ops), 'stack': prog.stack_depth(),
+             'modes_checked': checked, 'max_abs_err': worst, 'ms': ms,
+             'eager_ms': eager, 'plain_ms': plain_ms,
+             'plain_host_ms': plain_host, 'bound_ms': bound,
+             'bound_by': by, 'library_ms': None}
+        shapes.append(r)
+        log('body %-44s %-6s %6d records, %9d segments, %2d slots, %3d '
+            'ops: exact in %d mode/shard runs; K2 %.4f ms (one by one '
+            '%.4f), plain %.4f ms (host %.4f), bound %.6f ms (%s, %.1f %%)'
+            % (name, r['mode'], n, ns, r['slots'], r['ops'], checked, ms,
+               eager, plain_ms, plain_host, bound, by, 100 * bound / ms))
+        del scan, args, acc, kout
+    torch.cuda.synchronize()
+    return {'shapes': shapes, 'max_abs_err': worst}
+
+
 def devbench_phase(tmp, data):
     """Phase 16: devbench.kernel_bench on the card over the first scan
-    batch of the data file, for both legs: K1 launching once per fold
-    of the resident loop on PALLAS_QUERY and never on QUERY, the
-    resident accumulator equal to DEVBENCH_ITERS + 1 plain folds
-    (index_add_, no kernel) of the batch on the card, bound_share below
-    1.05; then the K1 leg under DN_BENCH_TRACE, whose trace must name
-    the kernel, and device memory back to its level."""
+    batch of the data file, for both legs: the scan program K2 launching
+    once per fold of the resident loop on both, K1 once per fold on
+    PALLAS_QUERY and never on QUERY, the resident accumulator equal to
+    DEVBENCH_ITERS + 1 plain folds (scan_body_ref with index_add_, no
+    kernel) of the batch on the card, bound_share below 1.05; then each
+    leg under DN_BENCH_TRACE, whose trace must hold exactly K2 and K1
+    (PALLAS_QUERY) or K2 alone (QUERY) as the device kernels of each
+    fold, and device memory back to its level."""
     import torch
     from dragnet_tpu_torch import devbench
     from dragnet_tpu_torch.engine import BATCH_SIZE
@@ -5099,6 +5436,9 @@ def devbench_phase(tmp, data):
               'devbench %s: onehot_kernel %s, K1 %d launches in %d folds'
               % (name, r['onehot_kernel'], r['kernel_launches'],
                  DEVBENCH_ITERS))
+        check(r['body_kernel'] and r['body_launches'] == DEVBENCH_ITERS,
+              'devbench %s: K2 %d launches in %d folds'
+              % (name, r['body_launches'], DEVBENCH_ITERS))
         check(r['bound_share'] is not None and r['bound_share'] < 1.05,
               'devbench %s: bound share %r' % (name, r['bound_share']))
         folds = DEVBENCH_ITERS + 1
@@ -5111,57 +5451,71 @@ def devbench_phase(tmp, data):
               'devbench %s: the resident accumulator is not %d plain '
               'folds (max abs err %d)' % (name, folds, err))
         log('devbench %-12s %6d segments  resident %.4f ms/batch (events '
-            '%.4f)  %.0f records/s  bound %.6f ms (%.4f %%)  K1 %d  '
+            '%.4f)  %.0f records/s  bound %.6f ms (%.4f %%)  K2 %d  K1 %d  '
             'H2D %.3f GB/s (%.1f B/record)  D2H %.1f MB/s  reupload '
             '%.0f records/s  residency x%.2f'
             % (name, r['segments'], r['kernel_ms_per_batch'],
                r['device_ms_per_batch'], r['kernel_records_per_sec'],
-               r['bound_ms'], 100 * r['bound_share'],
+               r['bound_ms'], 100 * r['bound_share'], r['body_launches'],
                r['kernel_launches'], r['h2d_gb_per_sec'],
                r['h2d_bytes_per_record'], r['d2h_mb_per_sec'],
                r['reupload_records_per_sec'], r['residency_speedup']))
         legs.append(dict(r, name=name, max_abs_err=err))
-    tracedir = os.path.join(tmp, 'devbench_trace')
-    name, qconf, _ = DEVBENCH_LEGS[1]
-    with env_scope(DN_BENCH_TRACE=tracedir):
-        traced = devbench.kernel_bench(data, qconf, iters=DEVBENCH_ITERS,
-                                       max_records=BATCH_SIZE)
-    files = [os.path.join(d, f) for d, _, fs in os.walk(tracedir)
-             for f in fs]
-    named = [f for f in files if K1_SYMBOL.encode() in file_bytes(f)]
-    check(traced is not None and traced['onehot_kernel'] and named,
-          'devbench trace: %d files, %d naming %s'
-          % (len(files), len(named), K1_SYMBOL))
     # where a traced fold's time goes: the device kernels it ran (the
-    # trace's `kernel` events) against its wall
-    with open(named[0]) as f:
-        events = json.load(f)['traceEvents']
-    kernels = [e for e in events if e.get('cat') == 'kernel']
-    k1 = [e for e in kernels if K1_SYMBOL in e.get('name', '')]
-    trace = {
-        'file_bytes': os.path.getsize(named[0]),
-        'ms_per_fold': traced['kernel_ms_per_batch'],
-        'kernels_per_fold': len(kernels) / DEVBENCH_ITERS,
-        'kernel_ms_per_fold':
-        sum(e.get('dur', 0) for e in kernels) / 1e3 / DEVBENCH_ITERS,
-        'k1_launches': len(k1),
-        'k1_ms_per_fold':
-        sum(e.get('dur', 0) for e in k1) / 1e3 / DEVBENCH_ITERS}
-    check(len(k1) == DEVBENCH_ITERS,
-          'devbench trace: %d K1 kernel events in %d folds'
-          % (len(k1), DEVBENCH_ITERS))
+    # trace's `kernel` events) against its wall, per leg
+    trace = {}
+    for name, qconf, kernel in DEVBENCH_LEGS:
+        tracedir = os.path.join(tmp, 'devbench_trace_' + name)
+        with env_scope(DN_BENCH_TRACE=tracedir):
+            traced = devbench.kernel_bench(data, qconf,
+                                           iters=DEVBENCH_ITERS,
+                                           max_records=BATCH_SIZE)
+        files = [os.path.join(d, f) for d, _, fs in os.walk(tracedir)
+                 for f in fs]
+        named = [f for f in files if K2_SYMBOL.encode() in file_bytes(f)]
+        check(traced is not None and traced['body_kernel'] and
+              len(named) == 1,
+              'devbench trace %s: %d files, %d naming %s'
+              % (name, len(files), len(named), K2_SYMBOL))
+        with open(named[0]) as f:
+            events = json.load(f)['traceEvents']
+        kernels = [e for e in events if e.get('cat') == 'kernel']
+        k1 = [e for e in kernels if K1_SYMBOL in e.get('name', '')]
+        k2 = [e for e in kernels if K2_SYMBOL in e.get('name', '')]
+        want = (2 if kernel else 1) * DEVBENCH_ITERS
+        check(len(k2) == DEVBENCH_ITERS and
+              len(k1) == (DEVBENCH_ITERS if kernel else 0) and
+              len(kernels) == want,
+              'devbench trace %s: %d device kernels (K2 %d, K1 %d) in %d '
+              'folds, want %d' % (name, len(kernels), len(k2), len(k1),
+                                  DEVBENCH_ITERS, want))
+        t = {
+            'file_bytes': os.path.getsize(named[0]),
+            'ms_per_fold': traced['kernel_ms_per_batch'],
+            'kernels_per_fold': len(kernels) / DEVBENCH_ITERS,
+            'kernel_ms_per_fold':
+            sum(e.get('dur', 0) for e in kernels) / 1e3 / DEVBENCH_ITERS,
+            'k2_launches': len(k2),
+            'k2_ms_per_fold':
+            sum(e.get('dur', 0) for e in k2) / 1e3 / DEVBENCH_ITERS,
+            'k1_launches': len(k1),
+            'k1_ms_per_fold':
+            sum(e.get('dur', 0) for e in k1) / 1e3 / DEVBENCH_ITERS}
+        trace[name] = t
+        log('devbench trace %s: %s (%d B); a traced fold %.4f ms, %.1f '
+            'device kernels (%.4f ms on the device: K2 %d launches, %.4f '
+            'ms a fold; K1 %d, %.4f ms)'
+            % (name, os.path.basename(named[0]), t['file_bytes'],
+               t['ms_per_fold'], t['kernels_per_fold'],
+               t['kernel_ms_per_fold'], t['k2_launches'],
+               t['k2_ms_per_fold'], t['k1_launches'], t['k1_ms_per_fold']))
     torch.cuda.synchronize()
     mem_after = torch.cuda.memory_allocated()
     check(mem_after <= mem_before,
           'devbench: device memory %d B after, %d B before'
           % (mem_after, mem_before))
-    log('devbench trace: %s (%d B), K1 named; a traced fold %.4f ms, '
-        '%.1f kernels (%.4f ms on the device, K1 %d launches, %.4f ms '
-        'a fold); device memory %d B before, %d B after'
-        % (os.path.basename(named[0]), trace['file_bytes'],
-           trace['ms_per_fold'], trace['kernels_per_fold'],
-           trace['kernel_ms_per_fold'], trace['k1_launches'],
-           trace['k1_ms_per_fold'], mem_before, mem_after))
+    log('devbench: device memory %d B before, %d B after'
+        % (mem_before, mem_after))
     return {'iters': DEVBENCH_ITERS, 'legs': legs, 'trace': trace,
             'memory': {'before': mem_before, 'after': mem_after}}
 
@@ -5199,6 +5553,9 @@ def main():
     ap.add_argument('--only-devbench', action='store_true',
                     help='run only phases 1 and 16 (over the generated '
                     'data); prints no result line')
+    ap.add_argument('--only-body', action='store_true',
+                    help='run only phases 1, 3b and 16 (over the '
+                    'generated data); prints no result line')
     args = ap.parse_args()
     if args.cluster_child:
         return cluster_child(args.cluster_child)
@@ -5216,6 +5573,8 @@ def main():
     from dragnet_tpu_torch.config import ConfigBackendLocal
     from dragnet_tpu_torch import datasource_for_name
     from dragnet_tpu_torch.ops import cuda_kernels as ck
+    # every fold of the run, on every path: K2 once per fold and shard
+    ledger = FoldLedger(mod_ds, ck)
 
     card = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
@@ -5235,17 +5594,30 @@ def main():
                                  time.monotonic() - t0))
     log(nvcc_log.rstrip() if nvcc_log else
         '(library up to date, not rebuilt)')
-    if args.only_devbench:
+    if args.only_devbench or args.only_body:
         with tempfile.TemporaryDirectory(prefix='chip_smoke_') as tmp:
             data = os.path.join(tmp, 'muskie.log')
             mod_native.gen_to_file(args.records, data, seed=args.seed)
+            if args.only_body:
+                t0 = time.monotonic()
+                body = body_phase(tmp, data, args.reps)
+                torch.cuda.synchronize()
+                log('phase 3b body: %.1f s' % (time.monotonic() - t0))
+                print(json.dumps({'body': body}), flush=True)
             t0 = time.monotonic()
+            m = ledger.mark()
             devb = devbench_phase(tmp, data)
             torch.cuda.synchronize()
-            log('phase 16 devbench: %.1f s' % (time.monotonic() - t0))
+            folds, k2, bad = ledger.since(m)
+            check(not bad and k2 == folds > 0,
+                  'phase 16: %d K2 launches in %d folds (%s)'
+                  % (k2, folds, bad[:3]))
+            log('phase 16 devbench: %.1f s (%d folds, K2 %d launches)'
+                % (time.monotonic() - t0, folds, k2))
         print(json.dumps({'devbench': dict(devb, card=card)}), flush=True)
-        log('smoke (phases 1 and 16 only): %.1f s'
-            % (time.monotonic() - t_smoke))
+        log('smoke (phases 1, %s16 only): %.1f s'
+            % ('3b and ' if args.only_body else '',
+               time.monotonic() - t_smoke))
         return 0
 
     # 2. kernel vs plain at the reference's test shapes (weighted), at
@@ -5297,14 +5669,23 @@ def main():
                 'process)' % (name, time.monotonic() - t0, COLD_RECORDS))
 
         walls = {}
+        body_folds = {}
 
         def phase(label, fn, *a):
             t0 = time.monotonic()
+            m = ledger.mark()
             rv = fn(*a)
             torch.cuda.synchronize()
             walls[label] = time.monotonic() - t0
-            log('phase %s: %.1f s' % (label, walls[label]))
+            folds, k2, bad = ledger.since(m)
+            check(not bad, 'phase %s: the scan program did not launch '
+                  'once per fold and shard: %d of %d folds, e.g. %s'
+                  % (label, len(bad), folds, bad[:3]))
+            body_folds[label] = {'folds': folds, 'launches': k2}
+            log('phase %s: %.1f s (%d device folds, K2 %d launches)'
+                % (label, walls[label], folds, k2))
             return rv
+        body = phase('3b body', body_phase, tmp, data, args.reps)
         shapes, captured, main_launches, forced = phase(
             '4 scans', main_path, cli, mod_ds, ck, ds, args.records)
         if args.only_scl:
@@ -5386,6 +5767,7 @@ def main():
                        'lifecycle': lifecycle, 'serve': serve,
                        'cluster': cluster, 'subscribe': subscribe,
                        'serve_cluster': scl, 'devbench': devb,
+                       'body': body, 'body_folds': body_folds,
                        'index_kernels': [k7, k7a, k9]}, f, indent=1)
     print(json.dumps({'query': [
         {k: q[k] for k in ('name', 'route', 'points', 'device_s',
@@ -5407,7 +5789,9 @@ def main():
     print(json.dumps({'subscribe': subscribe}), flush=True)
     print(json.dumps({'serve_cluster': scl}), flush=True)
     print(json.dumps({'devbench': dict(devb, card=card)}), flush=True)
+    print(json.dumps({'body': dict(body, folds=body_folds)}), flush=True)
     block = parse['shapes'][0]
+    bmain = [r for r in body['shapes'] if r['case'] == 'QUERY'][0]
     log('phase walls: %s' % fmt_times(walls, 1))
     log('smoke: %.1f s' % (time.monotonic() - t_smoke))
     log('gpu: %s' % card)
@@ -5448,6 +5832,21 @@ def main():
          'round_trip_ms': block['round_trip_ms'],
          'numpy_ms': block['numpy_ms'],
          'shape': {'n': block['n']}, 'shapes': parse['shapes']}),
+        {'name': 'scan_body', 'route': 'cuda', 'source': BODY_SOURCE,
+         'replaces': BODY_REPLACES, 'launches': BODY_LAUNCHES['main'],
+         'phase_launches': {k: v['launches']
+                            for k, v in body_folds.items()},
+         'phase_folds': {k: v['folds'] for k, v in body_folds.items()},
+         'devbench_launches': sum(r['body_launches']
+                                  for r in devb['legs']),
+         'max_abs_err': body['max_abs_err'], 'ms': bmain['ms'],
+         'plain_ms': bmain['plain_ms'], 'bound_ms': bmain['bound_ms'],
+         'bound_by': bmain['bound_by'], 'library_ms': None,
+         'library_note': 'no single torch call runs the scan program',
+         'eager_ms': bmain['eager_ms'],
+         'shape': {'case': bmain['case'], 'n': bmain['n'],
+                   'ns': bmain['ns']},
+         'shapes': body['shapes']},
         dict(k7, query_launches=sum(q['dispatches'] for q in
                                     queries['queries']),
              subscribe_launches=subscribe['launches']['fold']),

@@ -5,10 +5,11 @@ Counterpart of dragnet_tpu/devbench.py `kernel_bench`.  It separates
 three quantities that end-to-end records/s mixes:
 
 * the resident fold: the production fold (`DeviceScan._fold_staged`:
-  predicates, masks, bucketize, key fusion and the one-hot kernel K1 or
-  an i64 index_add_, into the scan's resident accumulator) iterated
-  over one batch's per-record inputs that the benchmark uploaded once
-  and owns: no parse, no transfer;
+  the scan program K2 — predicates, masks, bucketize, key fusion, the
+  first-occurrence min and the counters — adding the weights into the
+  scan's resident accumulator itself or handing its fused key to the
+  one-hot kernel K1) iterated over one batch's per-record inputs that
+  the benchmark uploaded once and owns: no parse, no transfer;
 * H2D and D2H: the same batch's real per-record arrays through the
   scan's staging ring (page-locked slot, one non_blocking copy, as the
   scan uploads every batch), and a fetch of the accumulator;
@@ -25,7 +26,8 @@ peak memory bandwidth (PEAK_HBM_BYTES_PER_S, by device name; None on
 another device and on the CPU), and `bound_share` is bound_ms over the
 measured ms per batch.  `onehot_kernel` (the reference's `pallas`) is
 true only when K1 launched once per fold of the resident loop
-(`kernel_launches`, counted from cuda_kernels.launches).  The port pads
+(`kernel_launches`, counted from cuda_kernels.launches), and
+`body_kernel` only when K2 did (`body_launches`).  The port pads
 no batch (device_scan._StagingRing has no padding floor), so
 `padded_records` equals `records` and `h2d_bytes_per_record` is smaller
 than the reference's, whose rows are padded to its batch floor.
@@ -44,6 +46,7 @@ import torch
 
 from . import native as mod_native
 from . import query as mod_query
+from . import scan_program
 from .device_scan import DeviceScan, uses_kernel
 from .engine import NativeColumns, BATCH_SIZE
 from .ops import cuda_kernels, resolve_device
@@ -139,8 +142,9 @@ def kernel_bench(datafile, query_conf=None, iters=32, max_records=None,
     Runs on `device`, else DN_TORCH_DEVICE, else CUDA; asking for CUDA
     without it raises DNError.  `capture`, a dict, receives host copies
     of the resident accumulator after the loop ('resident'), one fold
-    of the batch into a fresh accumulator through the plain route,
-    index_add_ with no kernel ('plain'; None in sparse mode), and the
+    of the batch into a fresh accumulator through the plain version of
+    the scan program, scan_program.scan_body_ref, with index_add_ and no
+    kernel ('plain'; None in sparse mode), and the
     resident accumulator's points as the scan's own flush emits them
     ('points'), for checks: iters + 1 folds of one batch."""
     dev = resolve_device(device or os.environ.get('DN_TORCH_DEVICE') or
@@ -153,12 +157,12 @@ def kernel_bench(datafile, query_conf=None, iters=32, max_records=None,
         return _bench(scan, dev, datafile, iters,
                       max_records or BATCH_SIZE, capture)
     finally:
-        # tidy up: device memory returns to its level.  The eager
-        # body's recursive closures hold each fold's inputs in reference
-        # cycles, so the collector frees the scan and them; the staging
-        # ring's device buffers were marked used on its copy stream,
-        # so the caching allocator frees them once it has processed
-        # that stream's events, which empty_cache() does
+        # tidy up: device memory returns to its level.  The scan and
+        # its folds' inputs are freed by reference counting (no
+        # reference cycles hold them; the collection is a guard); the
+        # staging ring's device buffers were marked used on its copy
+        # stream, so the caching allocator frees them once it has
+        # processed that stream's events, which empty_cache() does
         del scan
         gc.collect()
         if dev.type == 'cuda':
@@ -215,6 +219,7 @@ def _bench(scan, dev, datafile, iters, max_records, capture):
     fold(args)                              # warm
     _sync(dev)
     k0 = cuda_kernels.launches['onehot_dense']
+    b0 = cuda_kernels.launches['scan_body']
     ev = None
     if dev.type == 'cuda':
         ev = (torch.cuda.Event(enable_timing=True),
@@ -230,6 +235,7 @@ def _bench(scan, dev, datafile, iters, max_records, capture):
         _sync(dev)
         kernel_s = (time.monotonic() - t0) / iters
     kernel_launches = cuda_kernels.launches['onehot_dense'] - k0
+    body_launches = cuda_kernels.launches['scan_body'] - b0
     device_ms = ev[0].elapsed_time(ev[1]) / iters if ev else None
     resident = scan._acc
 
@@ -272,6 +278,8 @@ def _bench(scan, dev, datafile, iters, max_records, capture):
         'segments': ns,
         'onehot_kernel': bool(use_kernel) and kernel_launches == iters,
         'kernel_launches': kernel_launches,
+        'body_kernel': body_launches == iters,
+        'body_launches': body_launches,
         'kernel_records_per_sec': n / kernel_s,
         'kernel_ms_per_batch': kernel_ms,
         'device_ms_per_batch': device_ms,
@@ -296,7 +304,9 @@ def _capture(capture, scan, staged, args, resident, sparse_cap):
     if not sparse_cap:
         scan._acc = None
         scan._ensure_acc(caps, ns)
-        scan._fold(args, n, profile, caps, ns, False, 0)
+        dense, first, cvec = scan._acc
+        prog = scan._program(profile, caps, ns, scan_program.MODE_DENSE)
+        scan_program.scan_body_ref(prog, args, n, dense, first, cvec)
         capture['plain'] = _to_host(scan._acc)
     scan._acc = resident
     scan.finish()

@@ -7,18 +7,20 @@ Counterpart of dragnet_tpu/device_scan.py `DeviceScan` (dense mode):
              upload (dtype-narrowed columns + small lookup tables;
              inputs the stats prove constant are synthesized on
              device instead of uploaded — the sticky upload profile)
-    device:  predicate table-gathers + numeric compares -> ternary
-             and/or fold -> date-error & time-bounds masks -> p2/linear
-             bucketize -> mixed-radix key fusion -> the one-hot kernel
-             (ops/cuda_kernels.py, adding into the resident
-             accumulator) or an i64 index_add_ segment-sum, plus a
-             first-occurrence scatter-min
-             -> (dense, first, stage counters)
+    device:  the scan program (K2, scan_program.py and its kernel
+             ops/csrc/scan_body.cu, one launch a batch): predicate
+             table-gathers + numeric compares -> ternary and/or fold ->
+             date-error & time-bounds masks -> p2/linear bucketize ->
+             mixed-radix key fusion -> the weights added into the
+             resident accumulator, or the fused key handed to the
+             one-hot kernel K1 (ops/cuda_kernels.py, adding into it),
+             plus the first-occurrence min and the stage counters
 
-Each batch's (dense, first, counters) triple is folded into a
-device-RESIDENT i64 accumulator (dense/counters add; first-occurrence
-keys take a running min over batch_base + row), so a scan fetches once
-per epoch, not once per batch.  Emission order is preserved exactly:
+Each batch folds straight into a device-RESIDENT i64 accumulator
+(dense/counters add; first-occurrence keys take a running min over
+batch_base + row), so a scan fetches once per epoch, not once per
+batch.  On the CPU the program runs as its plain torch version
+(scan_program.scan_body_ref).  Emission order is preserved exactly:
 the accumulated first-occurrence key (batch_index << 32 | row) sorts
 keys by batch, then by first row within the batch, which is the order
 the host engine inserts them.
@@ -81,18 +83,18 @@ from . import engine as mod_engine
 from .engine import (VectorScan, NativeColumns, MAX_DENSE_SEGMENTS,
                      _native_str_trans)
 from .errors import DNError
+from . import scan_program
 from .ops import resolve_device
 from .ops import cuda_kernels
-from .ops.kernels import FALSE, TRUE, ERROR, fold_and, fold_or
+# numeric-row plans: outcome of <leaf op const> for an exact-int32 row
+from .scan_program import (NUM_FALSE, NUM_TRUE, NUM_EQ, NUM_NE, NUM_LE,
+                           NUM_GE)
 
 I32MIN = -(2 ** 31)
 I32MAX = 2 ** 31 - 1
 I64MAX = 2 ** 63 - 1
 I16MIN = -(2 ** 15)
 I16MAX = 2 ** 15 - 1
-
-# numeric-row plans: outcome of <leaf op const> for an exact-int32 row
-NUM_FALSE, NUM_TRUE, NUM_EQ, NUM_NE, NUM_LE, NUM_GE = range(6)
 
 # device-resident sparse set (high-cardinality mode): initial capacity,
 # growth ceiling.  24 bytes/slot of device memory; the host-side
@@ -704,7 +706,11 @@ class DeviceScan(VectorScan):
         self._pending_flush = []
         self._leaf_list = []      # [(key, Leaf)] in stable order
         self._leaf_tables = {}    # leaf idx -> (host_len, device tensor)
-        self._ctabs = {}          # leaf idx -> device i8[16]
+        # compiled scan programs (scan_program.compile_program) by plan
+        # signature, upload profile, caps and output mode, and K2's i32
+        # fused-key scratch for K1, per device
+        self._programs = {}
+        self._key_bufs = {}
         self._trans_dev = {}      # plan name -> (host_len, device tensor)
         self._num_plans = []
         self._counter_spec = None
@@ -1470,7 +1476,8 @@ class DeviceScan(VectorScan):
         if sparse and not self._sparse_guard(n):
             return None
 
-        # leaf outcome tables (grown host-side, resident on device)
+        # leaf outcome tables (grown host-side, resident on device);
+        # the outcome by tag of the other rows is in the scan program
         for i, (key, leaf) in enumerate(self._leaf_list):
             d = provider.parser.dictionary(leaf.field)
             table = leaf.table_for(d)
@@ -1479,15 +1486,6 @@ class DeviceScan(VectorScan):
                 up = table if len(table) else np.zeros(1, dtype=np.int8)
                 self._leaf_tables[i] = (len(table), self._upload(up))
             inputs[pfx + 'tab_%d' % i] = self._leaf_tables[i][1]
-            if i not in self._ctabs:
-                ctab = np.zeros(16, dtype=np.int8)
-                ctab[mn.TAG_MISSING] = ERROR
-                ctab[mn.TAG_NULL] = leaf.outcome(None)
-                ctab[mn.TAG_FALSE] = leaf.outcome(False)
-                ctab[mn.TAG_TRUE] = leaf.outcome(True)
-                ctab[mn.TAG_OBJECT] = leaf.outcome({})
-                self._ctabs[i] = self._upload(ctab)
-            inputs[pfx + 'ctab_%d' % i] = self._ctabs[i]
 
         # under a mesh, pad the per-record arrays with dead rows to a
         # multiple of the shard count, so every shard gets an equal
@@ -1621,236 +1619,65 @@ class DeviceScan(VectorScan):
                                 profile, caps, ns, use_kernel, base)
         self._acc_batch += 1
 
-    # -- the device program -------------------------------------------------
+    # -- the device program (K2, scan_program.py) --------------------------
 
-    def _body(self, args, n, profile, caps, ns, use_kernel, acc_dense,
-              row0=0, nvalid=None, device=None):
-        """One batch on the device -> (dense i64[ns], first i32[ns],
-        cvec i32[ncounters]).  On the kernel route the weights go
-        straight into `acc_dense` and dense is None.  In sparse mode
-        -> (cvec, fused i64[n] with dead rows at I64MAX, weights
-        i64[n]).  A mesh shard runs it on its `n` rows of the padded
-        batch on its `device`: `row0` makes its row indices global (so
-        the cross-shard min is the batch's first occurrence) and rows
-        from `nvalid` on are padding (dead when alive is synthesized)."""
-        w1, gen_alive, fprof, kvalid_skip, use_dstats, sparse_cap = \
-            profile
-        pfx = self._pfx
-        dev = self.device if device is None else device
-        i32 = torch.int32
-        i8 = torch.int8
+    def _program(self, profile, caps, ns, mode):
+        """The compiled scan program for a batch staged with `profile`
+        and `caps` in output `mode`, memoised per plan signature (the
+        key windows), upload profile, caps and mode; an epoch flip
+        leaves the old programs unused, so the memo is dropped when it
+        grows past a few epochs' worth."""
+        w1, gen_alive, fprof, kvalid, use_dstats, _ = profile
+        key = (self._epoch_sig, mode, tuple(caps), ns, w1, gen_alive,
+               tuple(sorted(fprof.items())), kvalid, use_dstats)
+        prog = self._programs.get(key)
+        if prog is None:
+            if len(self._programs) >= 64:
+                self._programs.clear()
+            prog = self._programs[key] = scan_program.compile_program(
+                self, profile, caps, ns, mode)
+        return prog
 
-        def as_i32(x):
-            # uploads arrive dtype-narrowed (u8/i16); compute in i32
-            return x if x.dtype == i32 else x.to(i32)
+    def _key_buf(self, dev, n):
+        """K2's i32 fused-key output for K1, reused batch after batch on
+        `dev` (both run on its current stream, in order)."""
+        buf = self._key_bufs.get(dev)
+        if buf is None or buf.shape[0] < n:
+            buf = self._key_bufs[dev] = torch.empty(
+                _pow2(max(n, mod_engine.BATCH_SIZE)), dtype=torch.int32,
+                device=dev)
+        return buf
 
-        def as_index(x):
-            # gather indices are i64; -1 marks masked non-string rows
-            return x.to(torch.int64).clamp_min_(0)
-
-        def leaf_num_out(i, f):
-            mode, t = self._num_plans[i]
-            if mode == NUM_FALSE:
-                return torch.full((n,), FALSE, dtype=i8, device=dev)
-            if mode == NUM_TRUE:
-                return torch.full((n,), TRUE, dtype=i8, device=dev)
-            v = as_i32(args['num_' + f])
-            if mode == NUM_EQ:
-                hit = v == t
-            elif mode == NUM_NE:
-                hit = v != t
-            elif mode == NUM_LE:
-                hit = v <= t
-            else:
-                hit = v >= t
-            return torch.where(hit, TRUE, FALSE).to(i8)
-
-        leaf_index = {key: i for i, (key, _) in
-                      enumerate(self._leaf_list)}
-
-        def leaf_out(key):
-            i = leaf_index[key]
-            f = self._leaf_list[i][1].field
-            has_str, has_num, all_num = fprof.get(f, (True, True, False))
-            if all_num:
-                # every row numeric: tags/str uploads were skipped
-                return leaf_num_out(i, f)
-            tags = args['tags_' + f].to(torch.int64)
-            out = args[pfx + 'ctab_%d' % i][tags]
-            if has_str:
-                out = torch.where(
-                    tags == mn.TAG_STRING,
-                    args[pfx + 'tab_%d' % i][as_index(args['str_' + f])],
-                    out)
-            if not has_num:
-                return out
-            numm = (tags == mn.TAG_INT) | (tags == mn.TAG_NUMBER)
-            return torch.where(numm, leaf_num_out(i, f), out)
-
-        def eval_ast(ast):
-            if not ast:
-                return torch.full((n,), TRUE, dtype=i8, device=dev)
-            op = next(iter(ast))
-            if op in ('and', 'or'):
-                fold = fold_and if op == 'and' else fold_or
-                return fold([eval_ast(sub) for sub in ast[op]])
-            field, const = ast[op]
-            return leaf_out((field, op, jsv.json_stringify(const)))
-
-        def p2_int(v):
-            # bit length by a shift ladder: exact in integers
-            x = torch.clamp_min(v, 0)
-            bl = torch.zeros_like(v)
-            for s in (16, 8, 4, 2, 1):
-                big = x >= (1 << s)
-                bl = bl + torch.where(big, s, 0).to(i32)
-                x = torch.where(big, x >> s, x)
-            bl = bl + (x >= 1).to(i32)
-            return torch.where(v < 1, 0, bl).to(i32)
-
-        # global row index: first occurrence, and under a mesh the
-        # synthesized alive mask (rows past nvalid are padding)
-        gidx = torch.arange(row0, row0 + n, dtype=i32, device=dev)
-        if not gen_alive:
-            alive = args['alive']
-        elif nvalid is None:
-            alive = torch.ones(n, dtype=torch.bool, device=dev)
-        else:
-            alive = gidx < nvalid
-        weights = None if w1 else args['weights']
-        counters = []
-
-        def isum(x):
-            return x.sum(dtype=i32)
-
-        for pred in (self.ds_pred, self.user_pred):
-            if pred is None:
-                continue
-            counters.append(isum(alive))
-            out = eval_ast(pred.ast)
-            counters.append(isum(alive & (out == ERROR)))
-            counters.append(isum(alive & (out == FALSE)))
-            alive = alive & (out == TRUE)
-            counters.append(isum(alive))
-
-        # ts/terr keys mirror _stage_device: shared field-keyed
-        # uploads under dstats, scan-private otherwise
-        sfield = {s['name']: s['field'] for s in self.synthetic}
-
-        def ts_arg(name):
-            return args['tsf_' + sfield[name]] if use_dstats \
-                else args[pfx + 'ts_' + name]
-
-        if self.synthetic:
-            counters.append(isum(alive))
-            terr = args['terr_' + '|'.join(
-                fc['field'] for fc in self.synthetic)] if use_dstats \
-                else args[pfx + 'terr']
-            counters.append(isum(alive & (terr == 1)))   # UNDEF
-            counters.append(isum(alive & (terr == 2)))   # BADDATE
-            alive = alive & (terr == 0)
-            counters.append(isum(alive))
-
-        if self.time_bounds is not None:
-            counters.append(isum(alive))
-            ts = ts_arg('dn_ts')
-            lo, hi = self.time_bounds
-            ok = torch.ones(n, dtype=torch.bool, device=dev)
-            # uploaded ts values are exact-i32, so a bound outside i32
-            # resolves statically: vacuous or nothing-passes
-            if lo is not None:
-                lo = int(lo)
-                if lo > I32MAX:
-                    ok = ok & False
-                elif lo > I32MIN:
-                    ok = ok & (ts >= lo)
-            if hi is not None:
-                hi = int(hi)
-                if hi <= I32MIN:
-                    ok = ok & False
-                elif hi <= I32MAX:
-                    ok = ok & (ts < hi)
-            counters.append(isum(alive & ~ok))
-            alive = alive & ok
-            counters.append(isum(alive))
-
-        counters.append(isum(alive))   # aggregator ninputs
-        nnon = torch.zeros((), dtype=i32, device=dev)
-        codes = []
-        for p in self._plans:
-            if p.kind == 'str':
-                if p.host_translate:
-                    codes.append(as_i32(args[pfx + 'key_' + p.name]))
-                else:
-                    codes.append(args[pfx + 'trans_' + p.name][
-                        as_index(args['str_' + p.name])])
-                continue
-            if p.field.startswith('\0synth:'):
-                v = as_i32(ts_arg(p.field[len('\0synth:'):]))
-            else:
-                if p.name not in kvalid_skip:
-                    valid = args['kvalid_' + p.name]
-                    nnon = nnon + isum(alive & ~valid)
-                    alive = alive & valid
-                v = as_i32(args['kv_' + p.name])
-            if p.kind == 'p2':
-                codes.append(p2_int(v))
-            else:
-                codes.append(torch.div(v, p.step, rounding_mode='floor')
-                             - p.lo)
-        counters.append(nnon)
-        # nspillrecords: records aggregated through the sparse program
-        counters.append(isum(alive) if sparse_cap
-                        else torch.zeros((), dtype=i32, device=dev))
-        cvec = torch.stack(counters)
-
-        if sparse_cap:
-            # sparse mode: fused i64 keys + weights; the fold
-            # sort-merges them into the resident compacted set
-            i64 = torch.int64
-            fused = torch.zeros(n, dtype=i64, device=dev)
-            for c, cap in zip(codes, caps):
-                fused = fused * cap + c.to(i64)
-            fused = torch.where(alive, fused, I64MAX)
-            wb = alive.to(i64) if w1 else \
-                torch.where(alive, weights, 0).to(i64)
-            return cvec, fused, wb
-
-        if not codes:
-            w = alive.to(i32) if w1 else torch.where(alive, weights, 0)
-            dense = w.sum(dtype=torch.int64).reshape(1)
-            first = torch.zeros(1, dtype=i32, device=dev)
-            return dense, first, cvec
-
-        fused = torch.zeros(n, dtype=i32, device=dev)
-        for c, cap in zip(codes, caps):
-            fused = fused * cap + c
-        fused32 = torch.where(alive, fused, ns)
-        fused = fused32.to(torch.int64)
-        first = torch.full((ns + 1,), I32MAX, dtype=i32, device=dev)
-        first.scatter_reduce_(0, fused, gidx, 'amin', include_self=True)
-        first = first[:ns]
-        if use_kernel:
-            # the kernel adds straight into the resident accumulator;
-            # dead rows sit at ns, outside it
-            cuda_kernels.onehot_dense_into(acc_dense, fused32, weights)
-            dense = None
-        else:
-            w = alive.to(torch.int64) if w1 else \
-                torch.where(alive, weights, 0).to(torch.int64)
-            dense = torch.zeros(ns + 1, dtype=torch.int64, device=dev)
-            dense.index_add_(0, fused, w)
-            dense = dense[:ns]
-        return dense, first, cvec
+    def _run_body(self, args, n, profile, caps, ns, use_kernel, dense,
+                  first, cvec, base, row0=0, nvalid=None):
+        """One batch's program into (dense i64[ns], first i64[ns], cvec
+        i64[ncounters]), all added into: K2 alone (the weights added by
+        the program), or on the kernel route K2's fused key and K1.  A
+        mesh shard runs it on its `n` rows of the padded batch: `row0`
+        makes its row indices global (so the cross-shard min is the
+        batch's first occurrence) and rows from `nvalid` on are padding
+        (dead when alive is synthesized)."""
+        if not use_kernel:
+            prog = self._program(profile, caps, ns, scan_program.MODE_DENSE)
+            scan_program.scan_body(prog, args, n, dense, first, cvec, base,
+                                   row0, nvalid)
+            return
+        prog = self._program(profile, caps, ns, scan_program.MODE_K1)
+        key = scan_program.scan_body(
+            prog, args, n, None, first, cvec, base, row0, nvalid,
+            key_out=self._key_buf(cvec.device, n))
+        # dead rows sit at ns, outside the accumulator
+        cuda_kernels.onehot_dense_into(
+            dense, key, None if profile[0] else args['weights'])
 
     def _fold(self, args, n, profile, caps, ns, use_kernel, base):
         """One batch folded into the device-resident accumulator, in
         place: dense weights and counters add; the first-occurrence key
         takes a running min over (batch_base | row), which orders keys
         exactly as the host engine inserts them."""
-        dense, first, cvec = self._body(args, n, profile, caps, ns,
-                                        use_kernel, self._acc[0])
-        self._accumulate(dense, first, cvec, base)
+        dense, first, cvec = self._acc
+        self._run_body(args, n, profile, caps, ns, use_kernel, dense,
+                       first, cvec, base)
 
     def _fold_mesh(self, mesh, args, rows, n, profile, caps, ns,
                    use_kernel, base):
@@ -1860,24 +1687,26 @@ class DeviceScan(VectorScan):
         self._accumulate(dense, first, cvec, base)
 
     def _accumulate(self, dense, first, cvec, base):
+        """Fold merged mesh partials (first: global rows, I64MAX where a
+        segment did not occur) into the resident accumulator."""
         acc_dense, acc_first, acc_cvec = self._acc
-        bfirst = torch.where(first < I32MAX, first.to(torch.int64) + base,
-                             I64MAX)
-        if dense is not None:
-            acc_dense += dense
+        bfirst = torch.where(first < I64MAX, first + base, I64MAX)
+        acc_dense += dense
         torch.minimum(acc_first, bfirst, out=acc_first)
-        acc_cvec += cvec.to(torch.int64)
+        acc_cvec += cvec
 
     def _mesh_body(self, mesh, args, rows, n, profile, caps, ns,
                    use_kernel):
-        """One batch across the mesh (K9): shard s runs the body on rows
-        [s*bn, (s+1)*bn) of the padded batch on its device, with global
-        row indices; on the kernel route its K1 launch adds into a
-        zeroed partial of its own.  The partials merge on the
-        accumulator's device (mesh.merge_partials: dense and counters by
-        sum, first by min)."""
+        """One batch across the mesh (K9): shard s runs the program on
+        rows [s*bn, (s+1)*bn) of the padded batch on its device, with
+        global row indices, into zeroed partials of its own (K2, and on
+        the kernel route K1).  The partials merge on the accumulator's
+        device (mesh.merge_partials: dense and counters by sum, first
+        by min)."""
         from .parallel import mesh as mod_mesh
         bn = -(-n // mesh.size)
+        ncnt = len(self._counter_spec)
+        i64 = torch.int64
         parts = []
         for s, dev in enumerate(mesh.devices):
             sargs = {}
@@ -1885,26 +1714,23 @@ class DeviceScan(VectorScan):
                 if k in rows:
                     v = v[s * bn:(s + 1) * bn]
                 sargs[k] = v.to(dev)
-            partial = torch.zeros(ns, dtype=torch.int64, device=dev) \
-                if use_kernel else None
-            dense, first, cvec = self._body(
-                sargs, bn, profile, caps, ns, use_kernel, partial,
-                row0=s * bn, nvalid=n, device=dev)
-            parts.append((partial if dense is None else dense, first,
-                          cvec))
+            part = (torch.zeros(ns, dtype=i64, device=dev),
+                    torch.full((ns,), I64MAX, dtype=i64, device=dev),
+                    torch.zeros(ncnt, dtype=i64, device=dev))
+            self._run_body(sargs, bn, profile, caps, ns, use_kernel,
+                           *part, base=0, row0=s * bn, nvalid=n)
+            parts.append(part)
         return mod_mesh.merge_partials(parts, self.device)
 
     def _fold_sparse(self, args, n, profile, caps, occupied, base):
-        """One batch sort-merged into the resident sparse set: its row
-        keys take first occurrence (batch_base | row) and weight 1 or
-        its weight; see fold_sparse."""
-        cvec, fused, wb = self._body(args, n, profile, caps, 0, False,
-                                     None)
-        first_b = torch.where(
-            fused != I64MAX,
-            torch.arange(n, dtype=torch.int64, device=self.device) + base,
-            I64MAX)
-        self._acc = fold_sparse(self._acc, cvec, fused, wb, first_b,
+        """One batch sort-merged into the resident sparse set: K2 adds
+        the counters and gives the rows' fused keys, weights (1 or the
+        row's weight) and first occurrences (batch_base | row); see
+        fold_sparse."""
+        prog = self._program(profile, caps, 0, scan_program.MODE_SPARSE)
+        fused, wb, first_b = scan_program.scan_body(
+            prog, args, n, None, None, self._acc[3], base)
+        self._acc = fold_sparse(self._acc, None, fused, wb, first_b,
                                 occupied)
 
     # -- mesh hooks (no-ops on the single-device path; the cluster
@@ -2039,7 +1865,9 @@ def fold_sparse(acc, cvec, fused, wb, first_b, occupied=None):
     the prefix; default the whole set) plus the batch are sorted and
     rewritten.  Run ids past the capacity land in one extra slot of a
     cap + 1 buffer that is sliced off (torch's scatters would raise on
-    them); the overflow flag makes that loud at flush."""
+    them); the overflow flag makes that loud at flush.  `cvec` is added
+    into the set's counters, or None where the caller's program added
+    them already (DeviceScan's K2)."""
     sparse_folds['fold_sparse'] += 1
     keys0, wsum0, first0, cvec0, stats0 = acc
     cap = int(keys0.shape[0])
@@ -2071,7 +1899,8 @@ def fold_sparse(acc, cvec, fused, wb, first_b, occupied=None):
     keys0[:m] = keys1[:m]
     wsum0[:m] = wsum1[:m]
     first0[:m] = first1[:m]
-    cvec0 += cvec.to(i64)
+    if cvec is not None:
+        cvec0 += cvec.to(i64)
     stats0[1] = torch.maximum(stats0[1], (nuniq > cap).to(i64))
     stats0[0] = nuniq
     return acc
@@ -2183,14 +2012,14 @@ class DeviceScanStack(object):
     columns use shared keys, so a column read by several metrics is
     uploaded once; per-scan inputs carry an 'm<i>_' prefix), then each
     scan folds the batch into its own device-resident accumulator —
-    dense (one-hot kernel or index_add_) or sparse.  Scans keep their
-    own accumulators, flush and emission, so per-scan results (and the
-    index artifacts) are byte-identical to the unstacked path.
+    dense (K2 alone, or K2 and the one-hot kernel) or sparse.  Scans
+    keep their own accumulators, flush and emission, so per-scan results
+    (and the index artifacts) are byte-identical to the unstacked path.
 
     The reference jits the N folds into one combined program, caches it
     across builds (_STACK_CACHE) and memoizes the program keys
-    (_pkey_memo); eager torch ops compile nothing, so the port has
-    neither."""
+    (_pkey_memo); the port launches one scan program per metric a batch
+    (K2, and K1 on its route), each memoised by its scan (_program)."""
 
     def __init__(self, scans):
         self.scans = list(scans)

@@ -6,10 +6,11 @@ Counterpart of dragnet_tpu/ops/pallas_kernels.py (`onehot_dense`,
 `should_use`).  The kernel (csrc/onehot_agg.cu, CUDA C++ for sm_90a) is
 a cluster-merged shared-memory histogram with integer atomics, not a
 one-hot GEMM: see the source for why.  Each source in csrc/ (KERNELS:
-this one and the quote-parity scan of ops/byteparse_kernels.py) is
-built at first use with nvcc into `_build/lib<name>.so` (a plain C entry
-point, loaded with ctypes), so nothing but the CUDA toolkit is needed;
-`build()` starts one nvcc per stale source, all together.
+this one, the quote-parity scan of ops/byteparse_kernels.py and the
+scan program of scan_program.py) is built at first use with nvcc into
+`_build/lib<name>.so` (a plain C entry point, loaded with ctypes), so
+nothing but the CUDA toolkit is needed; `build()` starts one nvcc per
+stale source, all together.
 
 Two entries: `onehot_dense_into(out, fused, weights)` adds into a
 caller-given i64 accumulator from a precomputed fused key (the device
@@ -39,11 +40,11 @@ MAX_COLS = 32
 _HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_HERE, '_build')
 # the kernel sources of csrc/, by library name
-KERNELS = ('onehot_agg', 'quote_parity')
+KERNELS = ('onehot_agg', 'quote_parity', 'scan_body')
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
 
-launches = {'onehot_dense': 0, 'quote_parity': 0}
+launches = {'onehot_dense': 0, 'quote_parity': 0, 'scan_body': 0}
 
 _lib = None
 _libs = {}
@@ -86,9 +87,15 @@ def library_path(name):
 
 
 def _fresh(name):
+    """Whether lib<name>.so is newer than its source and the source's
+    header (csrc/<name>.cuh), where it has one."""
     so = library_path(name)
-    return os.path.exists(so) and \
-        os.path.getmtime(so) >= os.path.getmtime(source_path(name))
+    if not os.path.exists(so):
+        return False
+    header = source_path(name)[:-3] + '.cuh'
+    srcs = [source_path(name)] + ([header] if os.path.exists(header)
+                                  else [])
+    return all(os.path.getmtime(so) >= os.path.getmtime(s) for s in srcs)
 
 
 def build(names=KERNELS):

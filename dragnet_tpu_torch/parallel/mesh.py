@@ -17,7 +17,8 @@ keep the result:
 * psum_scatter (tiled): shard s keeps the sum of slice s of every
   partial, on its own device,
 * pmin: the device scan's first-occurrence rows merge with a min
-  (merge_partials, called per batch by device_scan's mesh body).
+  (merge_partials, called per batch by device_scan's mesh body, whose
+  shards each run the scan program K2 into partials of their own).
 
 A Mesh is an explicit device list, so one card can hold several shards
 (make_mesh(devices=['cuda:0', 'cuda:0'])): the split, the padding and
@@ -97,10 +98,11 @@ def make_mesh(devices=None, device=None, axis='d'):
 
 def merge_partials(parts, device):
     """K9's merge for one device-scan batch: `parts` holds each shard's
-    (dense i64[ns], first i32[ns], cvec i32[ncounters]); dense and the
+    (dense i64[ns], first i64[ns], cvec i64[ncounters]), the partials its
+    scan program (K2, and K1 on its route) added into; dense and the
     counters sum (psum), first takes the min (pmin: rows are global, so
     the min is the batch's first occurrence).  The result lives on
-    `device`, the accumulator's, as (dense i64, first i32, cvec i64).
+    `device`, the accumulator's, as (dense i64, first i64, cvec i64).
     The partials are consumed: the first shard's become the result,
     and each other shard's adds into them in place."""
     launches['scan_merge'] += 1

@@ -40,7 +40,8 @@ CASES = {
 }
 
 KEYS = ('records', 'padded_records', 'segments', 'onehot_kernel',
-        'kernel_launches', 'kernel_records_per_sec', 'kernel_ms_per_batch',
+        'kernel_launches', 'body_kernel', 'body_launches',
+        'kernel_records_per_sec', 'kernel_ms_per_batch',
         'device_ms_per_batch', 'hbm_gb_per_sec', 'h2d_gb_per_sec',
         'h2d_bytes_per_record', 'd2h_mb_per_sec',
         'reupload_records_per_sec', 'residency_speedup', 'bound_ms',
@@ -106,6 +107,7 @@ def test_kernel_bench_matches_jax_package(tmp_path, monkeypatch, name):
         assert r[k] > 0, k
     # no kernel, no device clock and no bandwidth bound on the CPU
     assert r['onehot_kernel'] is False and r['kernel_launches'] == 0
+    assert r['body_kernel'] is False and r['body_launches'] == 0
     assert r['device_ms_per_batch'] is None
     assert r['bound_ms'] is None and r['bound_share'] is None
     assert r['platform'] == 'cpu' and r['device_kind'] == 'cpu'
@@ -218,6 +220,7 @@ def test_kernel_bench_legs_on_card(tmp_path):
         assert r['records'] == tengine.BATCH_SIZE
         assert r['onehot_kernel'] is kernel
         assert r['kernel_launches'] == (iters if kernel else 0)
+        assert r['body_kernel'] and r['body_launches'] == iters
         assert r['platform'] == 'gpu'
         assert r['bound_share'] is None or r['bound_share'] < 1.05
         dense, first, cvec = cap['resident']
