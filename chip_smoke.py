@@ -55,12 +55,27 @@ counts it, and a phase whose folds launched otherwise fails.
            values: counters, first occurrences, dense sums, fused keys
            and sparse rows, in every output mode the key space allows
            (K1's fused key, dense atomics, sparse) and as two mesh
-           shards.  Each case's own route timed: K2 in a CUDA graph of
-           `reps` calls and issued one by one, the plain version (the
-           torch interpreter of the same descriptor, the old eager
-           body's successor) issued one by one, and the bound (bytes:
-           each input read once, each output written once; or the
-           integer operations a record needs); a `body` JSON line.
+           shards.  Then the accumulation batches, from QUERY's batch
+           with alive and weight columns, each exact in K1 and dense
+           modes, whole and as two shards split at an odd row: one hot
+           bin (also tiled to 2,097,152 records), all keys distinct,
+           signed weights summing to 0 per key, the hot batch with every
+           other row dead, and n - 37 rows.  Timed per case: K2 in every
+           mode in a CUDA graph of `reps` calls (K1 mode is evaluation
+           and a 4 B store; dense minus K1 mode is the accumulation),
+           its own route also issued one by one, K2 on a 1-record batch
+           of the same program in a graph (the launch floor), the plain
+           version (the torch interpreter of the same descriptor)
+           issued one by one, and the bound (bytes: each input read
+           once, each output written once; or the integer operations a
+           record needs); K2's stage profile (clock cycles of block 0's
+           first thread: prologue, wait for the staged copies,
+           evaluation, output, the rest) at 1 record and the full batch;
+           for QUERY and PALLAS_QUERY, K2 on the batch's columns tiled
+           to 2,097,152 records, rotated over copies that pass twice the
+           50 MB L2, exact, with its share of the bound.  A `body` JSON
+           line (per case: `mode_ms`, `floor_ms`, `stages`, `large`;
+           `adversarial`).
 4. scans   `scan` through the port's CLI code path, in-process, on the
            card, for three queries; each output (--points and
            --counters) must equal the port's host engine on the same
@@ -584,6 +599,13 @@ BODY_CASES = [
     ('every leaf kind, signed weights', EDGE_QUERY, 'time', None, True,
      True),
 ]
+# phase 3b at 2,097,152 records: the first batch's columns tiled this
+# many times for these cases, rotated over copies that pass the 50 MB L2
+BODY_LARGE_TILES = 32
+BODY_LARGE_CASES = ('QUERY', 'PALLAS_QUERY')
+# rows cut off a batch so that n is no multiple of 32 or of the records
+# a thread takes (phase 3b's ragged accumulation batch)
+BODY_RAGGED = 37
 
 
 def log(msg):
@@ -5279,21 +5301,276 @@ def _body_bound(prog, args, n, occ):
         (ops_ms, 'operations')
 
 
-def body_phase(tmp, data, reps):
-    """Phase 3b: the scan program K2 against its plain version on the
-    card, exactly, on the first batch of phase 3's file for each
-    BODY_CASES query (and of generated edge records for the last), in
-    every output mode the batch's key space allows and as two mesh
-    shards; each case's own route timed (K2 in a CUDA graph of `reps`
-    calls and issued one by one; the plain version issued one by one)
-    against its bound."""
+MODE_NAMES = ('k1', 'dense', 'sparse')
+
+
+def _body_accs(prog, nacc, dev):
+    import torch
+    from dragnet_tpu_torch.device_scan import I64MAX
+    return [torch.zeros(nacc, dtype=torch.int64, device=dev),
+            torch.full((nacc,), I64MAX, dtype=torch.int64, device=dev),
+            torch.zeros(prog.ncounters, dtype=torch.int64, device=dev)]
+
+
+def _body_check(label, prog, args, nsb, shards, dev):
+    """K2 against scan_body_ref in `prog`'s mode on each (row0, rows,
+    nvalid) shard of `args` (a shard is a view of the batch's rows, so
+    an odd row0 leaves its columns unaligned), exactly: counters, first
+    occurrences, dense sums, fused keys, sparse rows.  Returns the max
+    abs err (0)."""
+    import torch
+    from dragnet_tpu_torch import scan_program as sp
+    rowkeys = {prog.slot_keys[i] for i in prog.rows}
+    nacc = 1 if prog.mode == sp.MODE_SPARSE else nsb
+    worst = 0
+    for row0, sn, nvalid in shards:
+        sargs = {k: args[k][row0:row0 + sn].contiguous()
+                 if k in rowkeys else args[k] for k in prog.slot_keys}
+        accs = [_body_accs(prog, nacc, dev) for _ in range(2)]
+        kouts = [torch.empty(sn, dtype=torch.int32, device=dev)
+                 for _ in range(2)]
+        got = sp.scan_body(prog, sargs, sn, *accs[0], base=9 << 32,
+                           row0=row0, nvalid=nvalid, key_out=kouts[0])
+        want = sp.scan_body_ref(prog, sargs, sn, *accs[1], base=9 << 32,
+                                row0=row0, nvalid=nvalid,
+                                key_out=kouts[1])
+        torch.cuda.synchronize()
+        pairs = list(zip(accs[0], accs[1]))
+        if prog.mode == sp.MODE_K1:
+            pairs.append((got, want))
+        elif prog.mode == sp.MODE_SPARSE:
+            pairs += list(zip(got, want))
+            pairs = pairs[2:]      # dense and first are unused
+        err = max(int((a.to(torch.float64) - b.to(torch.float64))
+                      .abs().max()) if a.numel() else 0
+                  for a, b in pairs)
+        worst = max(worst, err)
+        check(err == 0 and all(torch.equal(a, b) for a, b in pairs),
+              'body %s: K2 differs from its plain version in mode %s '
+              '(rows %d+%d, max abs err %d)'
+              % (label, MODE_NAMES[prog.mode], row0, sn, err))
+    return worst
+
+
+def _body_time(prog, args, n, nsb, dev, reps):
+    """(ms in a CUDA graph of `reps` calls, ms issued one by one, bins
+    the batch touched) of K2 in `prog`'s mode on n rows of `args`, into
+    one resident accumulator (after the first call a bin's first
+    occurrence is only read, as in a scan's later batches)."""
+    import torch
+    from dragnet_tpu_torch import scan_program as sp
+    from dragnet_tpu_torch.device_scan import I64MAX
+    rowkeys = {prog.slot_keys[i] for i in prog.rows}
+    args = {k: args[k][:n] if k in rowkeys else args[k]
+            for k in prog.slot_keys}
+    acc = _body_accs(prog, 1 if prog.mode == sp.MODE_SPARSE else nsb, dev)
+    kout = torch.empty(n, dtype=torch.int32, device=dev)
+    sp.scan_body(prog, args, n, *acc, key_out=kout)
+    torch.cuda.synchronize()
+    occurred = 0 if prog.mode == sp.MODE_SPARSE else \
+        int((acc[1] < I64MAX).sum())
+    ms, eager = cuda_time_ms(
+        lambda: sp.scan_body(prog, args, n, *acc, key_out=kout), reps)
+    return ms, eager, occurred
+
+
+def _body_large(prog, args, n, nsb, occurred, dev, reps):
+    """K2 at BODY_LARGE_TILES x n records: the batch's per-record
+    columns tiled (the program and its tables unchanged), each call on
+    the next of enough copies (columns and the fused-key output) that
+    the rotation passes twice the L2, in a CUDA graph; with its bound
+    and the bound's share."""
+    import math
+    import torch
+    from dragnet_tpu_torch import scan_program as sp
+    rowkeys = {prog.slot_keys[i] for i in prog.rows}
+    big_n = n * BODY_LARGE_TILES
+    big = {k: args[k][:n].repeat(BODY_LARGE_TILES) if k in rowkeys
+           else args[k] for k in prog.slot_keys}
+    per_copy = sum(big[k].numel() * big[k].element_size()
+                   for k in rowkeys) + \
+        (4 * big_n if prog.mode == sp.MODE_K1 else 0)
+    copies = max(2, min(32, math.ceil(2 * L2_BYTES / per_copy)))
+    cps = [dict(big, **{k: big[k].clone() for k in rowkeys})
+           for _ in range(copies)]
+    kouts = [torch.empty(big_n, dtype=torch.int32, device=dev)
+             for _ in range(copies)]
+    acc = _body_accs(prog, nsb, dev)
+    turn = [0]
+
+    def call():
+        i = turn[0]
+        turn[0] = (i + 1) % copies
+        sp.scan_body(prog, cps[i], big_n, *acc, key_out=kouts[i])
+    ms, eager = cuda_time_ms(call, reps)
+    bound, by = _body_bound(prog, big, big_n, occurred)
+    del cps, kouts, acc
+    # many tiles a block, exact too
+    err = _body_check('%d records' % big_n, prog, big, nsb,
+                      [(0, big_n, None)], dev)
+    return {'n': big_n, 'copies': copies, 'bytes_per_copy': per_copy,
+            'ms': ms, 'eager_ms': eager, 'bound_ms': bound,
+            'bound_by': by, 'share': bound / ms, 'max_abs_err': err}
+
+
+PROF_STAGE_NAMES = ('prologue', 'wait', 'eval', 'output', 'rest', 'total')
+
+
+def _body_stages(prog, args, n, nsb, dev):
+    """K2's stage profile on n rows of `args` in `prog`'s mode: the clock
+    cycles of block 0's first thread in each stage (scan_body.cu: the
+    prologue up to the first tile's copies issued, the wait for them,
+    the program's evaluation, the record's output, the rest), the
+    median of 9 launches, each issued alone after 3 warm ones, into one
+    resident accumulator; None where the package has no profile (an
+    older checkout run with this script beside this one)."""
+    import inspect
+    import torch
+    from dragnet_tpu_torch import scan_program as sp
+    if 'profile' not in inspect.signature(sp.scan_body).parameters:
+        return None
+    rowkeys = {prog.slot_keys[i] for i in prog.rows}
+    args = {k: args[k][:n] if k in rowkeys else args[k]
+            for k in prog.slot_keys}
+    acc = _body_accs(prog, 1 if prog.mode == sp.MODE_SPARSE else nsb, dev)
+    kout = torch.empty(n, dtype=torch.int32, device=dev)
+    prof = torch.zeros(sp.PROF_STAGES, dtype=torch.int64, device=dev)
+    runs = []
+    for i in range(12):
+        sp.scan_body(prog, args, n, *acc, key_out=kout, profile=prof)
+        torch.cuda.synchronize()
+        if i >= 3:
+            t = prof.tolist()
+            runs.append([b - a for a, b in zip(t, t[1:])] + [t[-1] - t[0]])
+    return {name: sorted(r[j] for r in runs)[len(runs) // 2]
+            for j, name in enumerate(PROF_STAGE_NAMES)}
+
+
+def body_adversarial(data, reps):
+    """Phase 3b's accumulation batches: QUERY's first batch captured with
+    an alive column and signed weights, then reshaped into a batch whose
+    rows all carry one key (one hot bin), one whose alive keys are all
+    distinct (the first row of each), one whose weights sum to 0 per
+    key (a key of one row gets weight 0), the hot batch with every
+    other row dead, and the batch cut to n - BODY_RAGGED rows; each in
+    K1 and dense modes, whole and as two mesh shards split at an odd
+    row, exactly; each timed in both modes in a CUDA graph."""
     import numpy as np
     import torch
     from dragnet_tpu_torch import devbench
     from dragnet_tpu_torch import query as mod_query
     from dragnet_tpu_torch import scan_program as sp
-    from dragnet_tpu_torch.device_scan import (DeviceScan,
-                                               MAX_DENSE_SEGMENTS, I64MAX)
+    from dragnet_tpu_torch.device_scan import DeviceScan
+    from dragnet_tpu_torch.engine import NativeColumns, BATCH_SIZE
+    from dragnet_tpu_torch.vpipe import Pipeline
+    dev = torch.device('cuda')
+    scan = DeviceScan(mod_query.query_load(json.loads(json.dumps(
+        DEVBENCH_LEGS[0][1]))), None, Pipeline(), ds_filter=MAIN_DS_FILTER,
+        device=dev)
+    parser = devbench._one_batch_parser(data, scan, BATCH_SIZE)
+    n = parser.batch_size()
+    rng = np.random.default_rng(15)
+    scan.capture_next = True
+    check(scan._try_device(NativeColumns(parser),
+                           rng.integers(-3, 9, n).astype(np.float64),
+                           np.ones(n, dtype=bool)),
+          'body adversarial: the batch was refused')
+    torch.cuda.synchronize()
+    inputs, staged, _ = scan.captured
+    _, profile, caps, ns, _ = staged
+    check(not profile[0] and not profile[1] and not profile[-1],
+          'body adversarial: want a dense program with weights and alive '
+          'columns, profile %r' % (profile,))
+    args = {k: (torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                if isinstance(v, np.ndarray) else v)
+            for k, v in inputs.items()}
+    progs = [scan._program(profile, caps, ns, m)
+             for m in (sp.MODE_K1, sp.MODE_DENSE)]
+    rowkeys = {progs[0].slot_keys[i] for i in progs[0].rows}
+    check({'weights', 'alive'} <= rowkeys,
+          'body adversarial: no weights or alive column')
+    args['weights'] = args['weights'].to(torch.int32)
+    # each row's key (ns where dead), from the plain version
+    kout = torch.empty(n, dtype=torch.int32, device=dev)
+    sp.scan_body_ref(progs[0], args, n, None, *_body_accs(progs[0], ns,
+                                                          dev)[1:],
+                     key_out=kout)
+    keys = kout.cpu().numpy()
+    alive_rows = np.flatnonzero(keys < ns)
+    check(len(alive_rows) > 1000, 'body adversarial: %d alive rows'
+          % len(alive_rows))
+
+    def variant(rows=None, **cols):
+        out = {k: (args[k][torch.as_tensor(rows, device=dev)]
+                   if rows is not None and k in rowkeys else args[k])
+               for k in args}
+        for k, v in cols.items():
+            out[k] = torch.as_tensor(v, device=dev).contiguous()
+        return out
+    hot_row = int(alive_rows[0])
+    hot = variant(np.full(n, hot_row),
+                  weights=rng.integers(-9, 10, n).astype(np.int32),
+                  alive=np.ones(n, dtype=bool))
+    uniq, first_rows = np.unique(keys[alive_rows], return_index=True)
+    zero = rng.integers(-5, 6, n).astype(np.int64)
+    order = np.argsort(keys, kind='stable')
+    sk = keys[order]
+    starts = np.flatnonzero(np.r_[True, sk[1:] != sk[:-1]])
+    sums = np.add.reduceat(zero[order], starts)
+    last = np.r_[starts[1:], n] - 1
+    zero[order[last]] -= sums            # each key's weights sum to 0
+    check(np.abs(zero).sum() < 2 ** 31, 'body adversarial: weights')
+    dead_hot = dict(hot, alive=hot['alive'].clone())
+    dead_hot['alive'][1::2] = False
+    big_hot = {k: hot[k].repeat(BODY_LARGE_TILES) if k in rowkeys
+               else hot[k] for k in hot}
+    batches = [
+        ('one hot bin', hot, n),
+        ('one hot bin, %d records' % (n * BODY_LARGE_TILES), big_hot,
+         n * BODY_LARGE_TILES),
+        ('all keys distinct', variant(np.sort(alive_rows[first_rows])),
+         len(uniq)),
+        ('weights summing to 0 per key',
+         variant(weights=zero.astype(np.int32)), n),
+        ('one hot bin, every other row dead', dead_hot, n),
+        ('n - %d rows' % BODY_RAGGED, args, n - BODY_RAGGED),
+    ]
+    out = []
+    for label, bargs, bn in batches:
+        half = (bn // 2) | 1
+        shards = [(0, bn, None), (0, half, None), (half, bn - half, None)]
+        r = {'batch': label, 'n': bn, 'ns': ns, 'max_abs_err': 0}
+        for prog in progs:
+            r['max_abs_err'] = max(r['max_abs_err'], _body_check(
+                'adversarial ' + label, prog, bargs, ns, shards, dev))
+            ms, eager, _ = _body_time(prog, bargs, bn, ns, dev, reps)
+            r[MODE_NAMES[prog.mode] + '_ms'] = ms
+        out.append(r)
+        log('body adversarial %-36s %6d records: exact in K1 and dense, '
+            'whole and as shards at 0/%d; K2 %.4f ms K1 mode, %.4f ms '
+            'dense' % (label, bn, half, r['k1_ms'], r['dense_ms']))
+    del scan, args, batches, hot, dead_hot, big_hot
+    return out
+
+
+def body_phase(tmp, data, reps):
+    """Phase 3b: the scan program K2 against its plain version on the
+    card, exactly, on the first batch of phase 3's file for each
+    BODY_CASES query (and of generated edge records for the last), in
+    every output mode the batch's key space allows and as two mesh
+    shards, and on the accumulation batches (body_adversarial).  Timed
+    per case: K2 in every mode in a CUDA graph of `reps` calls, its own
+    route also issued one by one, the plain version issued one by one,
+    against the bound; K2 on a 1-record batch of the same program (the
+    launch floor); its stage profile at 1 record and the full batch;
+    for BODY_LARGE_CASES, K2 at 2,097,152 records, L2-cold, with its
+    share of the bound."""
+    import numpy as np
+    import torch
+    from dragnet_tpu_torch import devbench
+    from dragnet_tpu_torch import query as mod_query
+    from dragnet_tpu_torch import scan_program as sp
+    from dragnet_tpu_torch.device_scan import DeviceScan, MAX_DENSE_SEGMENTS
     from dragnet_tpu_torch.engine import NativeColumns, BATCH_SIZE
     from dragnet_tpu_torch.vpipe import Pipeline
     dev = torch.device('cuda')
@@ -5325,83 +5602,71 @@ def body_phase(tmp, data, reps):
         modes = [m for m in (sp.MODE_K1, sp.MODE_DENSE, sp.MODE_SPARSE)
                  if m == sp.MODE_SPARSE or nsb <= MAX_DENSE_SEGMENTS]
         checked = 0
+        mode_ms = {}
         for mode in modes:
             prog = scan._program(profile, caps, ns, mode)
-            rowkeys = {prog.slot_keys[i] for i in prog.rows}
             shards = [(0, n, None)]
             if mode != sp.MODE_SPARSE and profile[1]:
                 shards += [(0, n // 2, n - 3), (n // 2, n - n // 2, n - 3)]
-            for row0, sn, nvalid in shards:
-                sargs = {k: args[k][row0:row0 + sn].contiguous()
-                         if k in rowkeys else args[k]
-                         for k in prog.slot_keys}
-                accs = []
-                nacc = 1 if mode == sp.MODE_SPARSE else nsb
-                for _ in range(2):
-                    accs.append([
-                        torch.zeros(nacc, dtype=torch.int64, device=dev),
-                        torch.full((nacc,), I64MAX, dtype=torch.int64,
-                                   device=dev),
-                        torch.zeros(prog.ncounters, dtype=torch.int64,
-                                    device=dev)])
-                kouts = [torch.empty(sn, dtype=torch.int32, device=dev)
-                         for _ in range(2)]
-                got = sp.scan_body(prog, sargs, sn, *accs[0], base=9 << 32,
-                                   row0=row0, nvalid=nvalid,
-                                   key_out=kouts[0])
-                want = sp.scan_body_ref(prog, sargs, sn, *accs[1],
-                                        base=9 << 32, row0=row0,
-                                        nvalid=nvalid, key_out=kouts[1])
-                torch.cuda.synchronize()
-                pairs = list(zip(accs[0], accs[1]))
-                if mode == sp.MODE_K1:
-                    pairs.append((got, want))
-                elif mode == sp.MODE_SPARSE:
-                    pairs += list(zip(got, want))
-                    pairs = pairs[2:]      # dense and first are unused
-                err = max(int((a.to(torch.float64) - b.to(torch.float64))
-                              .abs().max()) if a.numel() else 0
-                          for a, b in pairs)
-                worst = max(worst, err)
-                check(err == 0 and all(torch.equal(a, b)
-                                       for a, b in pairs),
-                      'body %s: K2 differs from its plain version in mode '
-                      '%d (rows %d+%d, max abs err %d)'
-                      % (name, mode, row0, sn, err))
-                checked += 1
+            worst = max(worst, _body_check(name, prog, args, nsb, shards,
+                                           dev))
+            checked += len(shards)
+            mode_ms[MODE_NAMES[mode]] = _body_time(prog, args, n, nsb, dev,
+                                                   reps)[0]
         # the case's own route, timed
         prog = scan._program(profile, caps, ns, own)
-        nacc = 1 if own == sp.MODE_SPARSE else nsb
-        acc = [torch.zeros(nacc, dtype=torch.int64, device=dev),
-               torch.full((nacc,), I64MAX, dtype=torch.int64, device=dev),
-               torch.zeros(prog.ncounters, dtype=torch.int64, device=dev)]
+        ms, eager, occurred = _body_time(prog, args, n, nsb, dev, reps)
+        acc = _body_accs(prog, 1 if own == sp.MODE_SPARSE else nsb, dev)
         kout = torch.empty(n, dtype=torch.int32, device=dev)
-        sp.scan_body(prog, args, n, *acc, key_out=kout)
-        torch.cuda.synchronize()
-        occurred = int((acc[1] < I64MAX).sum()) if own != sp.MODE_SPARSE \
-            else 0
-        ms, eager = cuda_time_ms(
-            lambda: sp.scan_body(prog, args, n, *acc, key_out=kout), reps)
         plain_ms, plain_host = cuda_time_events(
             lambda: sp.scan_body_ref(prog, args, n, *acc, key_out=kout),
             max(3, reps // 10))
+        floor_ms, floor_eager, _ = _body_time(prog, args, 1, nsb, dev, reps)
+        stages = {'1': _body_stages(prog, args, 1, nsb, dev),
+                  str(n): _body_stages(prog, args, n, nsb, dev)}
         bound, by = _body_bound(prog, args, n, occurred)
-        r = {'case': name, 'mode': ['k1', 'dense', 'sparse'][own],
+        r = {'case': name, 'mode': MODE_NAMES[own],
              'n': n, 'ns': ns, 'slots': len(prog.slot_keys),
              'ops': len(prog.ops), 'stack': prog.stack_depth(),
              'modes_checked': checked, 'max_abs_err': worst, 'ms': ms,
-             'eager_ms': eager, 'plain_ms': plain_ms,
+             'eager_ms': eager, 'mode_ms': mode_ms, 'floor_ms': floor_ms,
+             'floor_eager_ms': floor_eager, 'stages': stages,
+             'plain_ms': plain_ms,
              'plain_host_ms': plain_host, 'bound_ms': bound,
              'bound_by': by, 'library_ms': None}
+        if name in BODY_LARGE_CASES:
+            r['large'] = _body_large(prog, args, n, nsb, occurred, dev,
+                                     reps)
+            worst = max(worst, r['large']['max_abs_err'])
         shapes.append(r)
         log('body %-44s %-6s %6d records, %9d segments, %2d slots, %3d '
             'ops: exact in %d mode/shard runs; K2 %.4f ms (one by one '
             '%.4f), plain %.4f ms (host %.4f), bound %.6f ms (%s, %.1f %%)'
             % (name, r['mode'], n, ns, r['slots'], r['ops'], checked, ms,
                eager, plain_ms, plain_host, bound, by, 100 * bound / ms))
+        log('body %-44s by mode (graph): %s; 1-record floor %.4f ms (one '
+            'by one %.4f)%s'
+            % (name, ', '.join('%s %.4f ms' % kv for kv in mode_ms.items()),
+               floor_ms, floor_eager,
+               '' if 'large' not in r else
+               '; %d records L2-cold (%d copies) %.4f ms, bound %.6f ms '
+               '(%s, %.1f %%)' % (r['large']['n'], r['large']['copies'],
+                                  r['large']['ms'], r['large']['bound_ms'],
+                                  r['large']['bound_by'],
+                                  100 * r['large']['share'])))
+        for rows, st in stages.items():
+            if st is not None:
+                log('body %-44s stages at %6s records (cycles, block 0\'s '
+                    'first thread): %s' % (name, rows, ', '.join(
+                        '%s %d (%.0f %%)' % (k, v, 100 * v / st['total'])
+                        for k, v in st.items() if k != 'total') +
+                    ', total %d' % st['total']))
         del scan, args, acc, kout
+    adversarial = body_adversarial(data, reps)
+    worst = max([worst] + [r['max_abs_err'] for r in adversarial])
     torch.cuda.synchronize()
-    return {'shapes': shapes, 'max_abs_err': worst}
+    return {'shapes': shapes, 'adversarial': adversarial,
+            'max_abs_err': worst}
 
 
 def devbench_phase(tmp, data):
@@ -5843,10 +6108,11 @@ def main():
          'plain_ms': bmain['plain_ms'], 'bound_ms': bmain['bound_ms'],
          'bound_by': bmain['bound_by'], 'library_ms': None,
          'library_note': 'no single torch call runs the scan program',
-         'eager_ms': bmain['eager_ms'],
+         'eager_ms': bmain['eager_ms'], 'mode_ms': bmain['mode_ms'],
+         'floor_ms': bmain['floor_ms'], 'large': bmain['large'],
          'shape': {'case': bmain['case'], 'n': bmain['n'],
                    'ns': bmain['ns']},
-         'shapes': body['shapes']},
+         'shapes': body['shapes'], 'adversarial': body['adversarial']},
         dict(k7, query_launches=sum(q['dispatches'] for q in
                                     queries['queries']),
              subscribe_launches=subscribe['launches']['fold']),

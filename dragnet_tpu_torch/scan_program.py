@@ -8,10 +8,12 @@ bucketize, key fusion, the first-occurrence min and the fold into the
 resident accumulator, one dispatch a batch.  The port compiles the same
 work, once per (plan signature, upload profile, caps, output mode),
 into a flat descriptor (`compile_program` -> ScanProgram) that one
-hand-written kernel runs a record a thread
-(ops/csrc/scan_body.cu, its descriptor and per-record evaluator in
+hand-written kernel runs over tiles of records staged in shared memory
+(ops/csrc/scan_body.cu, its descriptor and evaluator in
 ops/csrc/scan_body.cuh, mirrored here by ctypes).  A batch changes only
-the input pointers, n and its first-occurrence base.
+the input pointers, n and its first-occurrence base, so the kernel's
+launch is prepared once per program, device and row dtypes (`_Launch`)
+and a call fills only the batch's fields.
 
 Output modes (DeviceScan picks one per fold):
 
@@ -19,7 +21,8 @@ Output modes (DeviceScan picks one per fold):
   scratch buffer; the caller's K1 (cuda_kernels.onehot_dense_into) then
   adds the weights into the dense accumulator: two launches a batch;
 * MODE_DENSE: the weights added straight into the dense accumulator
-  (64-bit atomics on the card): one launch;
+  (on the card 64-bit atomics, a warp's records of one key combined
+  first): one launch;
 * MODE_SPARSE: the i64 fused key (dead rows at I64MAX), the i64 weight
   and the first-occurrence row (base + row, dead rows at I64MAX) for
   device_scan.fold_sparse.
@@ -37,6 +40,8 @@ once).  `cuda_kernels.launches['scan_body']` counts kernel launches.
 """
 
 import ctypes
+import struct
+import threading
 
 import torch
 
@@ -54,7 +59,13 @@ NUM_FALSE, NUM_TRUE, NUM_EQ, NUM_NE, NUM_LE, NUM_GE = range(6)
 
 # mirrored from ops/csrc/scan_body.cuh
 INLINE_SLOTS = 96
+MAP_SLOTS = 256
+MAX_STAGE = 32
+STAGE_BYTES = 64
+MAX_TABS = 32
+TAB_BYTES = 16384
 MAX_COUNTERS = 18
+PROF_STAGES = 6
 STACK_DEPTH = 32
 MODE_K1, MODE_DENSE, MODE_SPARSE = 0, 1, 2
 OP_TRUE, OP_LEAF, OP_AND, OP_OR, OP_AND_R, OP_OR_R = 1, 2, 3, 4, 5, 6
@@ -63,6 +74,7 @@ LEAF_HAS_STR, LEAF_HAS_NUM, LEAF_ALL_NUM = 1, 2, 4
 BOUND_NONE, BOUND_NEVER, BOUND_CMP = 0, 1, 2
 DTYPE_CODES = {torch.uint8: 1, torch.bool: 1, torch.int8: 2,
                torch.int16: 3, torch.int32: 4, torch.int64: 5}
+CODE_BYTES = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8}
 
 
 class DnOp(ctypes.Structure):
@@ -82,7 +94,13 @@ class DnScanProgram(ctypes.Structure):
                 ('time_lo_kind', ctypes.c_int32),
                 ('time_lo', ctypes.c_int32),
                 ('time_hi_kind', ctypes.c_int32),
-                ('time_hi', ctypes.c_int32), ('ns', ctypes.c_int64)]
+                ('time_hi', ctypes.c_int32), ('nops', ctypes.c_int32),
+                ('nslots', ctypes.c_int32), ('nrows', ctypes.c_int32),
+                ('nstage', ctypes.c_int32),
+                ('stage_bpr', ctypes.c_int32),
+                ('stage_ref', ctypes.c_int32 * MAX_STAGE),
+                ('stage_pre', ctypes.c_int32 * MAX_STAGE),
+                ('ns', ctypes.c_int64)]
 
 
 class DnScanLaunch(ctypes.Structure):
@@ -96,7 +114,12 @@ class DnScanLaunch(ctypes.Structure):
                 ('out_key64', ctypes.c_void_p),
                 ('out_w64', ctypes.c_void_p),
                 ('out_first64', ctypes.c_void_p),
+                ('prof', ctypes.c_void_p),
                 ('slot_extra', ctypes.c_void_p),
+                ('ntabs', ctypes.c_int32), ('tab_bytes', ctypes.c_int32),
+                ('tab_ref', ctypes.c_int32 * MAX_TABS),
+                ('tab_len', ctypes.c_int32 * MAX_TABS),
+                ('tab_off', ctypes.c_int32 * MAX_TABS),
                 ('slot', ctypes.c_void_p * INLINE_SLOTS)]
 
 
@@ -108,12 +131,14 @@ class ScanProgram(object):
     """One compiled scan program.  `header` holds DnScanProgram's
     fields, `ops` the op list as (code, flags, slots, args, cap) tuples
     (slot references are indices into `slot_keys`, the input dict's
-    keys; `rows` are the per-record ones, the rest are device-resident
-    tables).  The dtype codes of the slots are applied per upload dtype
-    set when the program is encoded for the kernel (`encoded`)."""
+    keys; `rows` are the per-record ones, numbered first, the rest are
+    device-resident tables).  The dtype codes of the slots are applied
+    per upload dtype set when the program is encoded for the kernel
+    (`encoded`), and the kernel's launch is prepared once per device
+    and row dtypes (`_Launch`)."""
 
     __slots__ = ('mode', 'ns', 'ncounters', 'header', 'ops', 'slot_keys',
-                 'rows', '_enc')
+                 'rows', '_enc', '_launches')
 
     def __init__(self, mode, ns, ncounters, header, ops, slot_keys, rows):
         self.mode = mode
@@ -124,6 +149,7 @@ class ScanProgram(object):
         self.slot_keys = slot_keys
         self.rows = rows
         self._enc = {}
+        self._launches = {}
 
     def stack_depth(self):
         """The most operand-stack entries any predicate needs."""
@@ -139,7 +165,11 @@ class ScanProgram(object):
 
     def encoded(self, dtypes):
         """(DnScanProgram, the op array's bytes, {device: tensor}) for
-        slots of these dtype codes, memoised."""
+        slots of these dtype codes, memoised.  The header carries the
+        staging plan: the per-record slots below MAP_SLOTS staged in
+        shared memory a tile (in order, while MAX_STAGE slots and
+        STAGE_BYTES a record hold them), each with its bytes a record
+        before it; the kernel reads the others in place."""
         enc = self._enc.get(dtypes)
         if enc is None:
             def ref(i):
@@ -156,6 +186,17 @@ class ScanProgram(object):
             hdr.ncounters = self.ncounters
             hdr.mode = self.mode
             hdr.ns = self.ns
+            hdr.nops = len(self.ops)
+            hdr.nslots = len(self.slot_keys)
+            hdr.nrows = len(self.rows)
+            for i in self.rows:
+                es = CODE_BYTES[dtypes[i]]
+                if i < MAP_SLOTS and hdr.nstage < MAX_STAGE and \
+                        hdr.stage_bpr + es <= STAGE_BYTES:
+                    hdr.stage_ref[hdr.nstage] = ref(i)
+                    hdr.stage_pre[hdr.nstage] = hdr.stage_bpr
+                    hdr.nstage += 1
+                    hdr.stage_bpr += es
             arr = (DnOp * max(1, len(self.ops)))()
             for o, (code, flags, slots, args, cap) in zip(arr, self.ops):
                 o.code, o.flags, o.cap = code, flags, cap
@@ -233,6 +274,23 @@ class _Compiler(object):
             if per_record:
                 self.rows.append(i)
         return i
+
+    def rows_first(self, h):
+        """(ops, slot keys, rows) renumbered so that the per-record slots
+        come first (0 .. nrows - 1, in their order) and the tables after
+        them, as the kernel's loader takes them; header `h`'s slots
+        renumbered in place."""
+        rows = set(self.rows)
+        order = self.rows + [i for i in range(len(self.keys))
+                             if i not in rows]
+        new = {old: i for i, old in enumerate(order)}
+        new[-1] = -1
+        for k in ('weights_slot', 'alive_slot', 'terr_slot', 'ts_slot'):
+            h[k] = new[h[k]]
+        ops = [(code, flags, tuple(new[x] for x in slots), args, cap)
+               for code, flags, slots, args, cap in self.ops]
+        return ops, [self.keys[i] for i in order], \
+            list(range(len(self.rows)))
 
     def pred(self, ast):
         """Postfix ops of a predicate AST: each and/or node's heaviest
@@ -390,8 +448,9 @@ def compile_program(scan, profile, caps, ns, mode):
     if ncounters != nbits or ncounters > MAX_COUNTERS:
         raise ValueError('scan program: %d counters, %d counter bits'
                          % (ncounters, nbits))
+    ops, keys, rows = c.rows_first(h)
     prog = ScanProgram(mode, max(int(ns), 1) if mode != MODE_SPARSE else 0,
-                       ncounters, h, c.ops, c.keys, c.rows)
+                       ncounters, h, ops, keys, rows)
     depth = prog.stack_depth()
     if depth > STACK_DEPTH:
         raise ValueError('filter needs %d operand-stack entries; the scan '
@@ -589,15 +648,149 @@ def _load():
 
 
 def _check_acc(name, t, size, dev):
-    if t is None or t.dtype != torch.int64 or t.dim() != 1 or \
-            not t.is_contiguous() or t.device != dev or t.numel() < size:
+    if t is None or t.dtype is not torch.int64 or \
+            t.get_device() != dev.index or t.dim() != 1 or \
+            not t.is_contiguous() or t.numel() < size:
         raise ValueError('scan kernel: %s must be a contiguous 1-d int64 '
                          'tensor of at least %d entries on %s'
                          % (name, size, dev))
 
 
+def _check_input(t, dev):
+    """An input's dtype code; raises for what the kernel does not
+    take."""
+    code = DTYPE_CODES.get(t.dtype)
+    if code is None or t.device != dev or not t.is_contiguous():
+        raise ValueError('scan kernel: an input of dtype %s on %s '
+                         '(contiguous: %s); the kernel takes '
+                         'contiguous 8-64 bit integer or bool inputs '
+                         'on %s' % (t.dtype, t.device, t.is_contiguous(),
+                                    dev))
+    return code
+
+
+def stage_tables(L, tables):
+    """Pick the tables a launch stages in shared memory, in order, while
+    MAX_TABS and TAB_BYTES (each rounded up to 16) hold them: `tables`
+    holds (slot index, dtype code, entries); a table at MAP_SLOTS or
+    past it is read in place."""
+    L.ntabs = L.tab_bytes = 0
+    for i, code, numel in tables:
+        nbytes = -(-numel * CODE_BYTES[code] // 16) * 16
+        if numel and i < MAP_SLOTS and L.ntabs < MAX_TABS and \
+                L.tab_bytes + nbytes <= TAB_BYTES:
+            L.tab_ref[L.ntabs] = i | (code << 24)
+            L.tab_len[L.ntabs] = numel
+            L.tab_off[L.ntabs] = L.tab_bytes
+            L.ntabs += 1
+            L.tab_bytes += nbytes
+
+
+# the batch's fields of DnScanLaunch, n through prof, in order
+_BATCH = struct.Struct('<4q8Q')
+_BATCH_AT = DnScanLaunch.n.offset
+
+
+class _Launch(object):
+    """The kernel's launch of one program on one device, prepared once
+    for one set of row dtypes and tables: the header, the op array on
+    the device, the tables' pointers and those staged in shared memory.
+    A call fills only the batch's fields (n, base, row0, nvalid, the
+    per-record pointers, the accumulators and outputs) and checks only
+    what a batch can change (its rows' dtype, placement and length); a
+    scan that replaces a table (it grew) gets a new launch.  The struct
+    is filled and launched under one lock."""
+
+    __slots__ = ('L', 'addr', 'buf', 'slots', 'dev', 'rows', 'tables',
+                 'extra', 'lock')
+
+    def __init__(self, prog, args, dev):
+        ts = [args[k] for k in prog.slot_keys]
+        codes = tuple(_check_input(t, dev) for t in ts)
+        hdr, opbytes, ondev = prog.encoded(codes)
+        ops = ondev.get(dev)
+        if ops is None:
+            # from page-locked memory, without blocking the host (the
+            # caching host allocator keeps the buffer until the copy ran)
+            ops = ondev[dev] = torch.frombuffer(
+                bytearray(opbytes), dtype=torch.uint8).pin_memory().to(
+                    dev, non_blocking=True)
+        self.L = L = DnScanLaunch()
+        self.addr = ctypes.addressof(L)
+        self.buf = (ctypes.c_char * ctypes.sizeof(L)).from_buffer(L)
+        self.slots = L.slot     # a view of the struct's slot array
+        self.dev = dev
+        L.prog = hdr
+        L.ops = ops.data_ptr()
+        rows = set(prog.rows)
+        # (slot, key, dtype): inline slots are written into the struct,
+        # the others into `extra`, uploaded per call
+        self.rows = [(i, prog.slot_keys[i], ts[i].dtype) for i in prog.rows]
+        self.tables = [(prog.slot_keys[i], ts[i]) for i in range(len(ts))
+                       if i not in rows]
+        self.extra = [0] * max(0, len(ts) - INLINE_SLOTS)
+        self.lock = threading.Lock()
+        for i, t in enumerate(ts):
+            if i not in rows:
+                self._point(i, t.data_ptr())
+        stage_tables(L, [(i, codes[i], ts[i].numel())
+                         for i in range(len(ts)) if i not in rows])
+
+    def _point(self, i, ptr):
+        if i < INLINE_SLOTS:
+            self.L.slot[i] = ptr
+        else:
+            self.extra[i - INLINE_SLOTS] = ptr
+
+    def fresh(self, args):
+        """Whether `args` holds this launch's tables."""
+        for key, t in self.tables:
+            if args[key] is not t:
+                return False
+        return True
+
+    def run(self, args, n, base, row0, nvalid, ptrs):
+        """Fill the batch's fields (`ptrs`: the accumulators', the
+        outputs' and the stage profile's pointers, 0 for none) and
+        launch on the device's
+        current stream; returns the CUDA error code, or None (nothing
+        launched) when a row's dtype is not this launch's."""
+        dev = self.dev
+        index = dev.index
+        with self.lock:
+            slots = self.slots
+            for i, key, dtype in self.rows:
+                t = args[key]
+                if t.dtype is not dtype:
+                    return None
+                if t.get_device() != index or not t.is_contiguous():
+                    _check_input(t, dev)
+                if t.numel() < n:
+                    raise ValueError('scan kernel: input %r has %d rows, '
+                                     'the batch %d' % (key, t.numel(), n))
+                if i < INLINE_SLOTS:
+                    slots[i] = t.data_ptr()
+                else:
+                    self.extra[i - INLINE_SLOTS] = t.data_ptr()
+            extra = None
+            if self.extra:
+                # a program past the inline slots: the rest through a
+                # device array, copied a batch (page-locked, as the op
+                # array)
+                extra = torch.tensor(self.extra, dtype=torch.int64
+                                     ).pin_memory().to(dev,
+                                                       non_blocking=True)
+                self.L.slot_extra = extra.data_ptr()
+            _BATCH.pack_into(self.buf, _BATCH_AT, n, base, row0,
+                             row0 + n if nvalid is None else nvalid, *ptrs)
+            lib = _lib or _load()
+            return lib.dn_scan_body(self.addr, index,
+                                    cuda_kernels.current_stream_handle(
+                                        index))
+
+
 def scan_body(prog, args, n, dense, first, cvec, base=0, row0=0,
-              nvalid=None, key_out=None):
+              nvalid=None, key_out=None, profile=None):
     """Run program `prog` over one batch: `args` maps the program's
     slot keys to tensors (per-record inputs of n rows, device-resident
     tables), `cvec` (i64[ncounters]) takes the counters; on the dense
@@ -609,8 +802,13 @@ def scan_body(prog, args, n, dense, first, cvec, base=0, row0=0,
     row) i64[n] each (MODE_SPARSE), or None (MODE_DENSE).
 
     CPU tensors take scan_body_ref; CUDA tensors launch the kernel on
-    the device's current stream, without synchronising.  Raises on a
-    failed build or launch and on arguments the kernel does not take."""
+    the device's current stream, without synchronising, through the
+    program's launch prepared for this device and these row dtypes.
+    Raises on a failed build or launch and on arguments the kernel does
+    not take.  `profile`, for the card only: None, or an int64 tensor of
+    PROF_STAGES entries into which the kernel's block 0 writes its first
+    thread's clock at the start and at the end of each stage
+    (scan_body.cu)."""
     dev = cvec.device
     if dev.type == 'cpu':
         return scan_body_ref(prog, args, n, dense, first, cvec, base,
@@ -623,70 +821,46 @@ def scan_body(prog, args, n, dense, first, cvec, base=0, row0=0,
         _check_acc('first', first, prog.ns, dev)
     if mode == MODE_DENSE:
         _check_acc('dense', dense, prog.ns, dev)
-    ts = [args[k] for k in prog.slot_keys]
-    dtypes = []
-    for t in ts:
-        code = DTYPE_CODES.get(t.dtype)
-        if code is None or t.device != dev or not t.is_contiguous():
-            raise ValueError('scan kernel: an input of dtype %s on %s '
-                             '(contiguous: %s); the kernel takes '
-                             'contiguous 8-64 bit integer or bool inputs '
-                             'on %s' % (t.dtype, t.device,
-                                        t.is_contiguous(), dev))
-        dtypes.append(code)
-    for i in prog.rows:
-        if ts[i].numel() < n:
-            raise ValueError('scan kernel: input %r has %d rows, the '
-                             'batch %d' % (prog.slot_keys[i],
-                                           ts[i].numel(), n))
-    hdr, opbytes, ondev = prog.encoded(tuple(dtypes))
-    ops = ondev.get(dev)
-    if ops is None:
-        # from page-locked memory, without blocking the host (the
-        # caching host allocator keeps the buffer until the copy ran)
-        ops = ondev[dev] = torch.frombuffer(
-            bytearray(opbytes), dtype=torch.uint8).pin_memory().to(
-                dev, non_blocking=True)
-    L = DnScanLaunch()
-    L.prog = hdr
-    L.ops = ops.data_ptr()
-    L.n, L.base, L.row0 = n, base, row0
-    L.nvalid = row0 + n if nvalid is None else nvalid
-    ptrs = [t.data_ptr() for t in ts]
-    m = min(len(ptrs), INLINE_SLOTS)
-    L.slot[:m] = ptrs[:m]
-    extra = None
-    if len(ptrs) > INLINE_SLOTS:
-        # a program past the inline slots: the rest through a device
-        # array, copied a batch (page-locked, as the op array)
-        extra = torch.tensor(ptrs[INLINE_SLOTS:], dtype=torch.int64
-                             ).pin_memory().to(dev, non_blocking=True)
-        L.slot_extra = extra.data_ptr()
     out = None
     if mode == MODE_K1:
-        if key_out is None or key_out.dtype != torch.int32 or \
-                key_out.device != dev or not key_out.is_contiguous() or \
-                key_out.numel() < n:
+        if key_out is None or key_out.dtype is not torch.int32 or \
+                key_out.get_device() != dev.index or \
+                not key_out.is_contiguous() or key_out.numel() < n:
             raise ValueError('scan kernel: key_out must be a contiguous '
                              'int32 tensor of at least %d entries on %s'
                              % (n, dev))
-        out = key_out[:n]
-        L.out_key32 = out.data_ptr()
-        L.acc_first = first.data_ptr()
+        out = key_out if key_out.numel() == n else key_out[:n]
+        ptrs = (0, first.data_ptr(), cvec.data_ptr(), out.data_ptr(), 0,
+                0, 0)
     elif mode == MODE_DENSE:
-        L.acc_dense = dense.data_ptr()
-        L.acc_first = first.data_ptr()
+        ptrs = (dense.data_ptr(), first.data_ptr(), cvec.data_ptr(), 0, 0,
+                0, 0)
     else:
         out = tuple(torch.empty(n, dtype=torch.int64, device=dev)
                     for _ in range(3))
-        L.out_key64, L.out_w64, L.out_first64 = \
-            [t.data_ptr() for t in out]
-    L.acc_cvec = cvec.data_ptr()
-    lib = _lib or _load()
-    rc = lib.dn_scan_body(ctypes.byref(L), dev.index,
-                          cuda_kernels.current_stream_handle(dev.index))
+        ptrs = (0, 0, cvec.data_ptr(), 0) + tuple(t.data_ptr()
+                                                  for t in out)
+    if profile is None:
+        ptrs += (0,)
+    else:
+        _check_acc('profile', profile, PROF_STAGES, dev)
+        ptrs += (profile.data_ptr(),)
+    # the launch this program last ran on this device, while it holds
+    # (the same tables, the same row dtypes); else the one for these
+    # row dtypes, prepared anew when its tables were replaced
+    launch = prog._launches.get(dev.index)
+    rc = None
+    if launch is not None and launch.fresh(args):
+        rc = launch.run(args, n, base, row0, nvalid, ptrs)
+    if rc is None:
+        key = (dev.index,) + tuple(args[prog.slot_keys[i]].dtype
+                                   for i in prog.rows)
+        launch = prog._launches.get(key)
+        if launch is None or not launch.fresh(args):
+            launch = prog._launches[key] = _Launch(prog, args, dev)
+        prog._launches[dev.index] = launch
+        rc = launch.run(args, n, base, row0, nvalid, ptrs)
     if rc != 0:
         raise RuntimeError('scan kernel launch failed: CUDA error %d' % rc)
     cuda_kernels.launches['scan_body'] += 1
-    del extra
     return out

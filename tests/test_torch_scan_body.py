@@ -364,6 +364,12 @@ def hostlib(tmp_path_factory):
     lib = ctypes.CDLL(out)
     lib.dn_scan_body_host.restype = ctypes.c_int
     lib.dn_scan_body_host.argtypes = [ctypes.c_void_p]
+    lib.dn_scan_body_host_tiled.restype = ctypes.c_int
+    lib.dn_scan_body_host_tiled.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                            ctypes.c_int]
+    lib.dn_stage_copy_host.restype = ctypes.c_int
+    lib.dn_stage_copy_host.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                       ctypes.c_int64, ctypes.c_int]
     lib.dn_scan_layout.restype = ctypes.c_int
     lib.dn_scan_layout.argtypes = [ctypes.c_char_p, ctypes.c_int]
     for fn in (lib.dn_floordiv_host, lib.dn_p2_host):
@@ -431,9 +437,13 @@ def _widen(arr, width):
 
 
 def _host_run(lib, prog, arrays, n, dense, first, cvec, base, row0,
-              nvalid):
+              nvalid, tiles=None):
     """The host-built evaluator over numpy `arrays` (slot key -> array)
-    into numpy accumulators; returns what the mode writes."""
+    into numpy accumulators; returns what the mode writes.  With
+    `tiles` (threads a block, one record each, and whether to take the
+    staged loader where every slot is staged), the kernel's block
+    (dn_scan_body_host_tiled) with the tables staged as the wrapper
+    stages them."""
     dts = tuple(sp.DTYPE_CODES[torch.from_numpy(arrays[k][:0]).dtype]
                 for k in prog.slot_keys)
     hdr, opbytes, _ = prog.encoded(dts)
@@ -462,8 +472,20 @@ def _host_run(lib, prog, arrays, n, dense, first, cvec, base, row0,
     if first is not None:
         L.acc_first = first.ctypes.data
     L.acc_cvec = cvec.ctypes.data
-    assert lib.dn_scan_body_host(ctypes.byref(L)) == 0
+    if tiles is None:
+        assert lib.dn_scan_body_host(ctypes.byref(L)) == 0
+        return out
+    rows = set(prog.rows)
+    sp.stage_tables(L, [(i, dts[i], arrays[k].size)
+                        for i, k in enumerate(prog.slot_keys)
+                        if i not in rows])
+    loader = lib.dn_scan_body_host_tiled(ctypes.byref(L), *tiles)
+    assert loader in (0, 1)
+    _host_run.loaders.append(loader)
     return out
+
+
+_host_run.loaders = []
 
 
 MODES = [sp.MODE_K1, sp.MODE_DENSE, sp.MODE_SPARSE]
@@ -581,6 +603,264 @@ def test_host_evaluator_past_inline_slots(tmp_path, hostlib):
     for a, b in zip(acc, hacc):
         assert np.array_equal(a.numpy(), b)
     assert acc[0].sum() > 0
+
+
+# (threads a block, the staged loader where it applies): the kernel's
+# blocks are 128 threads
+TILES = [(1, 0), (3, 0), (48, 1), (128, 1)]
+
+
+@pytest.mark.parametrize('case', DIRECT, ids=[c[0] for c in DIRECT])
+@pytest.mark.parametrize('tiles', TILES, ids=['%d%s' % (t, 's' * s)
+                                              for t, s in TILES])
+@pytest.mark.parametrize('width', WIDTHS, ids=['staged', 'i16', 'i32',
+                                               'i64'])
+def test_host_tiles_match_ref(tmp_path, hostlib, case, tiles, width):
+    """The kernel's blocks on the host (dn_scan_body_host_tiled): the
+    op array and the tables staged, each tile's columns staged by
+    dn_stage_copy and run by the evaluator through the slot map, a
+    record a thread, through the general loader or the staged one, at
+    every upload width, on a 397-record batch (a ragged last tile at
+    every tile size), whole and as two mesh shards that are views of
+    the batch split at row 131 (columns off their alignment): equal to
+    scan_body_ref in every mode; at the narrowest widths every slot is
+    staged and the staged loader runs where it was asked for."""
+    name, qconf, weighted = case
+    _host_run.loaders.clear()
+    datafile = _write(tmp_path, _records(13, 420))
+    rng = np.random.default_rng(7)
+
+    def weights(n):
+        if not weighted:
+            return np.ones(n)
+        return rng.integers(-4, 9, n).astype(np.float64)
+    scan, inputs, staged = _capture(datafile, qconf, weights,
+                                    max_records=397)
+    n, profile, caps, ns, _ = staged
+    assert n == 397
+    arrays = {k: (np.ascontiguousarray(_widen(v, width))
+                  if isinstance(v, np.ndarray) else v.numpy())
+              for k, v in inputs.items()}
+    for mode in MODES:
+        prog = scan._program(profile, caps, ns, mode)
+        rowkeys = {prog.slot_keys[i] for i in prog.rows}
+        nvalid = n - 9 if profile[1] else None
+        shards = [(0, n, None)] if mode == sp.MODE_SPARSE else \
+            [(0, n, None), (0, 131, nvalid), (131, n - 131, nvalid)]
+        for row0, sn, nv in shards:
+            # views: a shard's columns start where its rows do
+            sarr = {k: arrays[k][row0:row0 + sn] if k in rowkeys
+                    else arrays[k] for k in prog.slot_keys}
+            sargs = {k: torch.from_numpy(v) for k, v in sarr.items()}
+            nsb = max(ns, 1)
+            acc = [torch.zeros(nsb, dtype=torch.int64),
+                   torch.full((nsb,), sp.I64MAX, dtype=torch.int64),
+                   torch.zeros(prog.ncounters, dtype=torch.int64)]
+            hacc = [a.numpy().copy() for a in acc]
+            key_out = torch.empty(sn, dtype=torch.int32)
+            got = sp.scan_body_ref(prog, sargs, sn, *acc, base=3 << 32,
+                                   row0=row0, nvalid=nv, key_out=key_out)
+            hgot = _host_run(hostlib, prog, sarr, sn, *hacc, 3 << 32, row0,
+                             nv, tiles=tiles)
+            where = (name, mode, row0, tiles)
+            assert np.array_equal(acc[2].numpy(), hacc[2]), where
+            if mode == sp.MODE_SPARSE:
+                for a, b in zip(got, hgot):
+                    assert np.array_equal(a.numpy(), b), where
+                continue
+            assert np.array_equal(acc[1].numpy(), hacc[1]), where
+            if mode == sp.MODE_K1:
+                assert np.array_equal(got.numpy(), hgot), where
+            else:
+                assert np.array_equal(acc[0].numpy(), hacc[0]), where
+        assert acc[2].numpy().sum() > 0
+    if width is None and tiles[1]:
+        assert set(_host_run.loaders) == {1}
+
+
+def test_host_tiles_past_the_staging_budget(tmp_path, hostlib):
+    """The 40-field filter: more per-record slots than a tile stages
+    (the rest read in place) and more tables than a block stages; the
+    per-record slots are numbered first, and the staging plan takes
+    each at most once, in order, within its budget; the kernel's tiles
+    on the host equal scan_body_ref."""
+    rng = random.Random(4)
+    lines = []
+    for i in range(333):
+        rec = {'f%d' % j: rng.choice(['a', 'b', 'c', 1, 2, None, True])
+               for j in range(40)}
+        rec['host'] = rng.choice(['h0', 'h1', 'h2'])
+        lines.append(json.dumps(rec))
+    datafile = _write(tmp_path, lines)
+    flt = {'or': [{'eq': ['f%d' % j, 'a' if j % 2 else 1]}
+                  for j in range(40)]}
+    qconf = {'breakdowns': [{'name': 'host'}], 'filter': flt}
+    scan, inputs, staged = _capture(datafile, qconf, np.ones,
+                                    time_field=None, max_records=333)
+    n, profile, caps, ns, _ = staged
+    prog = scan._program(profile, caps, ns, sp.MODE_DENSE)
+    arrays = {k: np.ascontiguousarray(v if isinstance(v, np.ndarray)
+                                      else v.numpy())
+              for k, v in inputs.items()}
+    dts = tuple(sp.DTYPE_CODES[torch.from_numpy(arrays[k][:0]).dtype]
+                for k in prog.slot_keys)
+    hdr, _, _ = prog.encoded(dts)
+    staged_refs = list(hdr.stage_ref[:hdr.nstage])
+    assert prog.rows == list(range(hdr.nrows)) and \
+        hdr.nrows < hdr.nslots <= sp.MAP_SLOTS
+    staged_idx = [r & 0xffffff for r in staged_refs]
+    assert staged_idx == sorted(set(staged_idx))
+    assert 0 < hdr.nstage < hdr.nrows and set(staged_idx) <= set(prog.rows)
+    sizes = [sp.CODE_BYTES[r >> 24] for r in staged_refs]
+    assert list(hdr.stage_pre[:hdr.nstage]) == list(np.cumsum([0] +
+                                                              sizes[:-1]))
+    assert hdr.stage_bpr == sum(sizes) <= sp.STAGE_BYTES
+    acc = [torch.zeros(ns, dtype=torch.int64),
+           torch.full((ns,), sp.I64MAX, dtype=torch.int64),
+           torch.zeros(prog.ncounters, dtype=torch.int64)]
+    hacc = [a.numpy().copy() for a in acc]
+    sp.scan_body_ref(prog, {k: torch.from_numpy(a)
+                            for k, a in arrays.items()}, n, *acc)
+    _host_run.loaders.clear()
+    _host_run(hostlib, prog, arrays, n, *hacc, 0, 0, None, tiles=(32, 1))
+    assert _host_run.loaders == [0]
+    for a, b in zip(acc, hacc):
+        assert np.array_equal(a.numpy(), b)
+    assert acc[0].sum() > 0
+
+
+def _wide_program_case(tmp_path, name, lines, qconf, nrecords):
+    """A captured batch of `lines` under `qconf`: (scan, numpy arrays by
+    slot key, staged)."""
+    datafile = _write(tmp_path, lines, name + '.log')
+    scan, inputs, staged = _capture(datafile, qconf, np.ones,
+                                    time_field=None, max_records=nrecords)
+    arrays = {k: np.ascontiguousarray(v if isinstance(v, np.ndarray)
+                                      else v.numpy())
+              for k, v in inputs.items()}
+    return scan, arrays, staged
+
+
+def _host_tiles_equal_ref(hostlib, scan, arrays, staged, tiles):
+    """The kernel's tiles on the host equal scan_body_ref in every mode
+    the key space allows, through the general loader (the program is
+    not all staged); returns the dense mode's program."""
+    _host_run.loaders.clear()
+    n, profile, caps, ns, _ = staged
+    args = {k: torch.from_numpy(a) for k, a in arrays.items()}
+    for mode in MODES:
+        prog = scan._program(profile, caps, ns, mode)
+        nsb = max(ns, 1)
+        acc = [torch.zeros(nsb, dtype=torch.int64),
+               torch.full((nsb,), sp.I64MAX, dtype=torch.int64),
+               torch.zeros(prog.ncounters, dtype=torch.int64)]
+        hacc = [a.numpy().copy() for a in acc]
+        key_out = torch.empty(n, dtype=torch.int32)
+        got = sp.scan_body_ref(prog, args, n, *acc, base=1 << 32,
+                               key_out=key_out)
+        hgot = _host_run(hostlib, prog, arrays, n, *hacc, 1 << 32, 0, None,
+                         tiles=tiles)
+        assert np.array_equal(acc[2].numpy(), hacc[2]), mode
+        if mode == sp.MODE_SPARSE:
+            for a, b in zip(got, hgot):
+                assert np.array_equal(a.numpy(), b)
+            continue
+        assert np.array_equal(acc[1].numpy(), hacc[1]), mode
+        if mode == sp.MODE_K1:
+            assert np.array_equal(got.numpy(), hgot)
+        else:
+            assert np.array_equal(acc[0].numpy(), hacc[0])
+            assert acc[0].sum() > 0
+            dense = prog
+    assert set(_host_run.loaders) == {0}
+    return dense
+
+
+@pytest.mark.parametrize('tiles', [(3, 1), (128, 1)])
+def test_host_tiles_past_the_slot_map(tmp_path, hostlib, tiles):
+    """A filter over 300 fields: 600 per-record slots and 300 tables,
+    past the block's slot map (MAP_SLOTS), so the loader reads the slots
+    past it through the launch's pointers (a per-record one at its
+    tile's rows) and only what lies below it is staged; the kernel's
+    tiles on the host equal scan_body_ref in every mode."""
+    rng = random.Random(12)
+    lines = []
+    for i in range(150):
+        rec = {'f%d' % j: rng.choice(['a', 'b', 1, None])
+               for j in range(300)}
+        rec['host'] = rng.choice(['h0', 'h1', 'h2'])
+        lines.append(json.dumps(rec))
+    qconf = {'breakdowns': [{'name': 'host'}],
+             'filter': {'or': [{'eq': ['f%d' % j, 'a']}
+                               for j in range(300)]}}
+    scan, arrays, staged = _wide_program_case(tmp_path, 'fields', lines,
+                                              qconf, 150)
+    prog = _host_tiles_equal_ref(hostlib, scan, arrays, staged, tiles)
+    dts = tuple(sp.DTYPE_CODES[torch.from_numpy(arrays[k][:0]).dtype]
+                for k in prog.slot_keys)
+    hdr, _, _ = prog.encoded(dts)
+    assert sp.MAP_SLOTS < hdr.nrows < hdr.nslots
+    assert all(r & 0xffffff < sp.MAP_SLOTS
+               for r in hdr.stage_ref[:hdr.nstage])
+    assert hdr.nstage > 0
+
+
+def test_host_tiles_past_4096_string_leaves(tmp_path, monkeypatch,
+                                            hostlib):
+    """An `or` of 4,500 string equalities on one field: a table a leaf,
+    4,500 tables past the slot map and past the inline slots; the
+    kernel's tiles on the host equal scan_body_ref in every mode, and
+    the port's CPU device scan (scan_body_ref a batch) equals the JAX
+    package's host engine and the port's."""
+    rng = random.Random(13)
+    hosts = ['h%d' % i for i in range(9000)]
+    lines = [json.dumps({'host': rng.choice(hosts[::500] + hosts[1::997]),
+                         'op': rng.choice(['get', 'put'])})
+             for _ in range(400)]
+    flt = {'or': [{'eq': ['host', h]} for h in hosts[::2]]}
+    qconf = {'breakdowns': [{'name': 'op'}], 'filter': flt}
+    scan, arrays, staged = _wide_program_case(tmp_path, 'leaves', lines,
+                                              qconf, 400)
+    prog = _host_tiles_equal_ref(hostlib, scan, arrays, staged, (128, 1))
+    assert len(prog.slot_keys) > 4500 > len(prog.rows)
+    datafile = str(tmp_path / 'leaves.log')
+    hpoints, hcounters = _jax_scan(monkeypatch, datafile, qconf, 'vector')
+    points, counters, hidden = _port_scan(monkeypatch, datafile, qconf)
+    vpoints, vcounters, _ = _port_scan(monkeypatch, datafile, qconf,
+                                       'vector')
+    assert points == hpoints == vpoints and len(points) == 2
+    assert counters == hcounters == vcounters
+    assert hidden.get('ndevicebatches', 0) > 0
+
+
+@pytest.mark.parametrize('nthreads', [1, 3, 8])
+def test_stage_copy_masked_tail(hostlib, nthreads):
+    """dn_stage_copy, a tile's column into shared memory: 16-byte
+    chunks where source and destination are 16-byte aligned, 4-byte
+    where both are 4-byte aligned, else bytes, the last chunk cut to
+    what remains (nothing past the source's nbytes is read): every byte
+    below nbytes lands, the rest of the last chunk is zero (as cp.async
+    fills it on the card), nothing past that chunk is written."""
+    rng = np.random.default_rng(nthreads)
+    src_buf = np.frombuffer(rng.bytes(640), dtype=np.uint8)
+    dst_buf = np.empty(640, dtype=np.uint8)
+    s0 = (-src_buf.ctypes.data) % 16
+    d0 = (-dst_buf.ctypes.data) % 16
+    for soff in (0, 1, 2, 4, 8, 12, 16, 17):
+        for doff in (0, 4, 16, 3):
+            for nbytes in (0, 1, 3, 4, 15, 16, 17, 33, 100, 257):
+                src = src_buf[s0 + soff:]
+                dst = dst_buf[d0 + doff:d0 + doff + 300]
+                dst[:] = 0xAB
+                a = src.ctypes.data | dst.ctypes.data
+                csz = hostlib.dn_stage_copy_host(
+                    dst.ctypes.data, src.ctypes.data, nbytes, nthreads)
+                assert csz == (16 if a % 16 == 0 else 4 if a % 4 == 0
+                               else 1), (soff, doff)
+                assert np.array_equal(dst[:nbytes], src[:nbytes])
+                end = -(-nbytes // csz) * csz
+                assert (dst[nbytes:end] == 0).all(), (soff, doff, nbytes)
+                assert (dst[end:] == 0xAB).all(), (soff, doff, nbytes)
 
 
 # -- the cycle repair ------------------------------------------------------

@@ -4,8 +4,12 @@ batches uploaded at each width (u8, i16, i32), every output mode,
 whole and as mesh shards, exactly; the deepest filter chain and a
 filter past the inline slots through a device scan on the card; a
 failed build or launch raises and is never answered by the plain
-version.  The tests marked `cuda` skip without a card; the wrapper's
-own checks run on the CPU too."""
+version; the dense route's accumulation on adversarial batches; a
+batch of many tiles a block; programs past the block's slot map (300
+fields, 4,500 string leaves); the prepared launch across staging-ring
+slots, a cleared program memo and grown tables.  The tests marked
+`cuda` skip without a card; the wrapper's own checks run on the CPU
+too."""
 
 import ctypes
 import json
@@ -209,6 +213,222 @@ def test_deep_and_wide_filters_on_card(tmp_path, monkeypatch, cuda):
         assert cuda_kernels.launches['scan_body'] > l0
         assert dev == _port_scan(monkeypatch, path, qconf, 'vector',
                                  'cpu')
+
+
+def _accumulation_batches(args, keys, ns, rowkeys, device):
+    """The accumulation batches of a captured batch with alive and
+    weights columns (its rows' keys `keys`, ns where dead): (name,
+    args, n) for one hot bin, all keys distinct, weights summing to 0
+    per key, one hot bin with every other row dead, and n - 37 rows."""
+    rng = np.random.default_rng(3)
+    n = len(keys)
+
+    def gather(rows, **cols):
+        idx = torch.as_tensor(rows, device=device)
+        out = {k: args[k][idx] if k in rowkeys else args[k] for k in args}
+        for k, v in cols.items():
+            out[k] = torch.as_tensor(v, device=device)
+        return out
+    live = np.flatnonzero(keys < ns)
+    hot = gather(np.full(n, live[0]),
+                 weights=rng.integers(-9, 10, n).astype(np.int32),
+                 alive=np.ones(n, dtype=bool))
+    uniq, first = np.unique(keys[live], return_index=True)
+    zero = rng.integers(-5, 6, n).astype(np.int64)
+    for k in np.unique(keys):
+        rows = np.flatnonzero(keys == k)
+        zero[rows[-1]] -= zero[rows].sum()
+    dead = dict(hot, alive=hot['alive'].clone())
+    dead['alive'][1::2] = False
+    return [('one hot bin', hot, n),
+            ('distinct keys', gather(np.sort(live[first])), len(uniq)),
+            ('zero-sum weights', gather(np.arange(n),
+                                        weights=zero.astype(np.int32)), n),
+            ('hot, every other row dead', dead, n),
+            ('n - 37', args, n - 37)]
+
+
+@pytest.mark.cuda
+def test_accumulation_batches(tmp_path, cuda):
+    """The dense route's warp-aggregated accumulation and K1's first
+    occurrences on adversarial batches, in K1 and dense modes, whole and
+    as two mesh shards split at an odd row: one hot bin, all keys
+    distinct, signed weights summing to 0 per key (a key of one row gets
+    weight 0 and still has its first occurrence), every other row dead,
+    a ragged n: K2 equals scan_body_ref exactly."""
+    datafile = str(tmp_path / 'muskie.log')
+    tnative.gen_to_file(9000, datafile, seed=6)
+    rng = np.random.default_rng(1)
+    scan = tds.DeviceScan(tquery.query_load(json.loads(json.dumps({
+        'breakdowns': [{'name': 'host'}, {'name': 'req.method'},
+                       {'name': 'operation'}, LAT_P2],
+        'filter': {'ne': ['res.statusCode', 599]}}))), None, Pipeline(),
+        device=cuda)
+    parser = devbench._one_batch_parser(datafile, scan, 8192)
+    n = parser.batch_size()
+    scan.capture_next = True
+    assert scan._try_device(NativeColumns(parser),
+                            rng.integers(-3, 9, n).astype(np.float64),
+                            np.ones(n, dtype=bool))
+    torch.cuda.synchronize()
+    inputs, (_, profile, caps, ns, _), _ = scan.captured
+    args = {k: (torch.from_numpy(np.ascontiguousarray(v)).to(cuda)
+                if isinstance(v, np.ndarray) else v)
+            for k, v in inputs.items()}
+    args['weights'] = args['weights'].to(torch.int32)
+    progs = [scan._program(profile, caps, ns, m)
+             for m in (sp.MODE_K1, sp.MODE_DENSE)]
+    rowkeys = {progs[0].slot_keys[i] for i in progs[0].rows}
+    assert {'weights', 'alive'} <= rowkeys
+    kout = torch.empty(n, dtype=torch.int32, device=cuda)
+    sp.scan_body_ref(progs[0], args, n, None,
+                     *_accs(ns, progs[0].ncounters, cuda)[1:],
+                     key_out=kout)
+    batches = _accumulation_batches(args, kout.cpu().numpy(), ns, rowkeys,
+                                    cuda)
+    for name, bargs, bn in batches:
+        half = (bn // 2) | 1
+        for prog in progs:
+            for row0, sn in ((0, bn), (0, half), (half, bn - half)):
+                sargs = {k: bargs[k][row0:row0 + sn] if k in rowkeys
+                         else bargs[k] for k in prog.slot_keys}
+                got, want = _accs(ns, prog.ncounters, cuda), \
+                    _accs(ns, prog.ncounters, cuda)
+                kouts = [torch.empty(sn, dtype=torch.int32, device=cuda)
+                         for _ in range(2)]
+                a = sp.scan_body(prog, sargs, sn, *got, base=7 << 32,
+                                 row0=row0, key_out=kouts[0])
+                b = sp.scan_body_ref(prog, sargs, sn, *want, base=7 << 32,
+                                     row0=row0, key_out=kouts[1])
+                torch.cuda.synchronize()
+                where = (name, prog.mode, row0)
+                for x, y in zip(got, want):
+                    assert torch.equal(x, y), where
+                if prog.mode == sp.MODE_K1:
+                    assert torch.equal(a, b), where
+                assert int(want[2][-3]) > 0, where   # ninputs
+
+
+@pytest.mark.cuda
+def test_large_batches(tmp_path, cuda):
+    """A generated batch tiled to 2^20 + 37 records (some 8 tiles a
+    persistent block, each staged while the one before is evaluated,
+    and a ragged last tile), and the same with every row on one key, in
+    K1 and dense modes: equal to scan_body_ref."""
+    datafile = str(tmp_path / 'muskie.log')
+    tnative.gen_to_file(9000, datafile, seed=8)
+    scan, _, args, staged = _capture(
+        datafile, {'breakdowns': [{'name': 'host'}, {'name': 'operation'},
+                                  LAT_P2],
+                   'filter': {'ne': ['res.statusCode', 599]}},
+        lambda n: np.random.default_rng(2).integers(-3, 9, n).astype(
+            np.float64), cuda, time_field=None, max_records=8192)
+    n, profile, caps, ns, _ = staged
+    big = (1 << 20) + 37
+    reps = -(-big // n)
+    k1 = scan._program(profile, caps, ns, sp.MODE_K1)
+    kout = torch.empty(n, dtype=torch.int32, device=cuda)
+    sp.scan_body_ref(k1, args, n, None, *_accs(ns, k1.ncounters, cuda)[1:],
+                     key_out=kout)
+    first_alive = int(torch.nonzero(kout < ns)[0])
+    for hot in (False, True):
+        for mode in (sp.MODE_K1, sp.MODE_DENSE):
+            prog = scan._program(profile, caps, ns, mode)
+            rowkeys = {prog.slot_keys[i] for i in prog.rows}
+            bargs = {k: (args[k][first_alive:first_alive + 1] if hot
+                         else args[k]).repeat(reps * (n if hot else 1))[:big]
+                     if k in rowkeys else args[k] for k in prog.slot_keys}
+            got, want = _accs(ns, prog.ncounters, cuda), \
+                _accs(ns, prog.ncounters, cuda)
+            kout = [torch.empty(big, dtype=torch.int32, device=cuda)
+                    for _ in range(2)]
+            a = sp.scan_body(prog, bargs, big, *got, base=3 << 32,
+                             key_out=kout[0])
+            b = sp.scan_body_ref(prog, bargs, big, *want, base=3 << 32,
+                                 key_out=kout[1])
+            torch.cuda.synchronize()
+            for x, y in zip(got, want):
+                assert torch.equal(x, y), (hot, mode)
+            if mode == sp.MODE_K1:
+                assert torch.equal(a, b), (hot, mode)
+
+
+@pytest.mark.cuda
+def test_programs_past_the_slot_map_on_card(tmp_path, monkeypatch, cuda):
+    """A filter over 300 fields (600 per-record slots, 300 tables) and an
+    `or` of 4,500 string equalities on one field (a table a leaf): past
+    the block's slot map (MAP_SLOTS) and the inline slots, read through
+    the launch's pointers; the device scan on the card equals the host
+    engine, K2 once per batch."""
+    rng = random.Random(12)
+    lines = []
+    for _ in range(600):
+        rec = {'f%d' % j: rng.choice(['a', 'b', 1, None])
+               for j in range(300)}
+        rec['host'] = rng.choice(['h0', 'h1', 'h2'])
+        lines.append(json.dumps(rec))
+    fields = write(tmp_path, lines, 'fields.log')
+    hosts = ['h%d' % i for i in range(9000)]
+    leaves = write(tmp_path, [
+        json.dumps({'host': rng.choice(hosts[::500] + hosts[1::997]),
+                    'time': '2014-05-01T00:00:00Z'})
+        for _ in range(2000)], 'leaves.log')
+    cases = [(fields, {'breakdowns': [{'name': 'host'}],
+                       'filter': {'or': [{'eq': ['f%d' % j, 'a']}
+                                         for j in range(300)]}}),
+             (leaves, {'breakdowns': [{'name': 'host'}],
+                       'filter': {'or': [{'eq': ['host', h]}
+                                         for h in hosts[::2]]}})]
+    for path, qconf in cases:
+        l0 = cuda_kernels.launches['scan_body']
+        dev = _port_scan(monkeypatch, path, qconf, 'device', 'cuda')
+        torch.cuda.synchronize()
+        assert cuda_kernels.launches['scan_body'] > l0
+        assert dev == _port_scan(monkeypatch, path, qconf, 'vector',
+                                 'cpu')
+        assert dev[0]
+
+
+@pytest.mark.cuda
+def test_prepared_launch_across_slots_memo_and_tables(tmp_path,
+                                                      monkeypatch, cuda):
+    """A device scan of many small batches on the card: each program's
+    launch is prepared once and serves batch after batch from the
+    staging ring's alternating slots; a program memo cleared every
+    third program lookup (new programs, new launches) and tables that
+    grow as new strings arrive (a new launch for the new tables) leave
+    the output equal to the host engine's."""
+    monkeypatch.setenv('DN_PARSE_THREADS', '1')
+    monkeypatch.setenv('DN_READ_SIZE', '4096')
+    datafile = write(tmp_path, records(21, 3000))
+    qconf = {'breakdowns': [{'name': 'host'}, LAT_P2], 'filter': FILTER}
+    made = []
+    orig_init = sp._Launch.__init__
+
+    def init(self, *a, **k):
+        made.append(1)
+        return orig_init(self, *a, **k)
+    monkeypatch.setattr(sp._Launch, '__init__', init)
+    l0 = cuda_kernels.launches['scan_body']
+    dev = _port_scan(monkeypatch, datafile, qconf, 'device', 'cuda')
+    torch.cuda.synchronize()
+    folds = cuda_kernels.launches['scan_body'] - l0
+    assert folds >= 10 and 0 < len(made) < folds
+    assert dev == _port_scan(monkeypatch, datafile, qconf, 'vector', 'cpu')
+    made.clear()
+    calls = [0]
+    orig_program = tds.DeviceScan._program
+
+    def program(self, *a):
+        calls[0] += 1
+        if calls[0] % 3 == 0:
+            self._programs.clear()
+        return orig_program(self, *a)
+    monkeypatch.setattr(tds.DeviceScan, '_program', program)
+    assert dev == _port_scan(monkeypatch, datafile, qconf, 'device',
+                             'cuda')
+    torch.cuda.synchronize()
+    assert len(made) >= calls[0] // 3
 
 
 class _FailingLib(object):
